@@ -7,7 +7,8 @@ setup(
     description=("TPU-native JAX/XLA/Pallas framework for scintillation-"
                  "detector waveform analysis (PROSPECT), with the "
                  "capabilities of WaveformML"),
-    packages=find_packages(include=["waveformml_tpu", "waveformml_tpu.*"]),
+    packages=find_packages(include=["waveformml_tpu", "waveformml_tpu.*",
+                                    "waveformml_tpu_torch*"]),
     package_data={"waveformml_tpu": ["config_requirements.json"]},
     python_requires=">=3.10",
     install_requires=[

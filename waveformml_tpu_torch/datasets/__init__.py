@@ -1,0 +1,1 @@
+"""datasets of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""engineering of the PyTorch port (see the package docstring)."""
