@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-from the root of a checkout, on a machine with a CUDA card, nvcc and
-Triton. In order, it:
+from the root of a checkout, on a machine with a CUDA card and nvcc. In
+order, it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from the checkout's sources (one nvcc per source,
-   all at once) and compiles the Triton kernel, printing the times;
+   all at once), printing the time and each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the serving path and times it, the plain version and, where
    one exists, a PyTorch library composition computing the same function;
+   K1 also on adversarial plans (full 3×3 clusters, duplicate sites, a
+   ragged row count, 5→3 and 56→200 channels, single-site events with no
+   off-centre tap) with the row-taps it computes, as it counts them,
+   against those the data needs, K3 also on adversarial rows at the
+   detector's sample counts and on rows with a gap between them;
 4. serves SubMPSD (config/examples/SubMPSD.json widths, seeded random
    weights) through ``InferenceModel`` over 4 chunks of 4096 synthetic
    events, checks every launch count and holds the logits against the
@@ -45,18 +50,27 @@ SEED = 0
 TIMING_SAMPLES = 25           # CUDA-event samples per timing (median)
 REPLAYS_PER_SAMPLE = 10       # graph replays between two events
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores
+# and the dense TF32 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# operations per waveform sample in K3: the peak, threshold and first-crossing
+TF32_FLOPS_PER_S = 495e12
+# operations per waveform sample of K3's function in its whole-row form, as
+# the plain version computes it: the peak, threshold and first-crossing
 # reductions (7), the two one-hot selects (6), two integration windows
 # (compares, weight corrections, product and sum: 18 each) and the row total
 K3_OPS_PER_SAMPLE = 49
-K1_ROWS_PER_BLOCK = 64        # BM of csrc/row_conv.cu: a block skips a tap absent for all its rows
+# computed row-taps of a k=3 layer may be at most this multiple of those needed
+K1_MAX_COMPUTED_RATIO = 1.5
+# sample counts of the detector's waveforms
+K3_SAMPLE_COUNTS = (59, 65, 130, 150)
 
-# kernel-vs-plain tolerances: both sides are fp32 without TF32; K1 sums
-# K²·Cin products in another order, K2 adds an event's rows with atomics in
-# a varying order, K3 reduces rows in another order with Triton's fp32 div
+# kernel-vs-plain tolerances: the plain versions are fp32 without TF32; K1
+# splits each operand for three TF32 passes (dropping only ~2^-22 relative)
+# and sums K²·Cin products in another order, K2 adds an event's rows with
+# atomics in a varying order, K3 rounds each row's sums once (double) where
+# the plain version sums in fp32, so its total and psd are held to the
+# tolerance times each row's condition number (features_close)
 TOL = {"subm_conv_rows": 1e-5, "site_grouped_matmul": 1e-5, "waveform_features": 1e-5}
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 
@@ -96,8 +110,8 @@ def graph_time_ms(fn) -> float:
     return statistics.median(samples)
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -110,9 +124,43 @@ def max_abs_err(got, want, tol: float) -> float:
     return err
 
 
+# K1's adversarial plans: (label, plan kind, k, Cin, Cout, events, rows)
+K1_ADVERSARIAL = (("full 3x3 clusters", "dense_cluster", 3, 130, 104, 1000, None),
+                  ("duplicate sites", "duplicate_sites", 3, 104, 56, 1000, None),
+                  ("N not a multiple of the tile", "clustered", 3, 130, 104, 1000,
+                   78 * 64 + 37),
+                  ("Cin 5, Cout 3", "clustered", 3, 5, 3, 1000, None),
+                  ("Cout 200", "clustered", 3, 56, 200, 1000, None),
+                  ("single-site events", "isolated_sites", 3, 130, 104, 64, None))
+
+
+def check_subm_conv_rows_adversarial(rng) -> float:
+    """K1 against its plain version on plans that stress its compaction,
+    tiles and widths; returns the largest |error|."""
+    from waveformml_tpu_torch.datasets.synthetic import conv_case
+    from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows,
+                                                   subm_conv_rows_plain)
+
+    err = 0.0
+    for label, kind, k, cin, cout, n_events, n_rows in K1_ADVERSARIAL:
+        coords, feats, kernel, bias, mask = conv_case(rng, kind, n_events, k, cin, cout,
+                                                      n_rows)
+        plan = host_neighbor_plan(coords, mask, n_events, k)
+        args = [torch.from_numpy(a).cuda() for a in (feats, plan, kernel, bias, mask)]
+        got = subm_conv_rows(*args)
+        want = subm_conv_rows_plain(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err([got], [want], TOL["subm_conv_rows"])
+        print(f"K1 adversarial, {label}: N={args[0].shape[0]} K²={k * k} {cin}->{cout} "
+              f"max_abs_err={e:.3g}", flush=True)
+        err = max(err, e)
+    return err
+
+
 def check_subm_conv_rows(model, db):
     """K1 at the three convs of the SubMPSD stack, on one chunk's batch."""
-    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_plain
+    from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_plain,
+                                                   take_row_taps)
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -130,7 +178,9 @@ def check_subm_conv_rows(model, db):
             feats = torch.randn(n, cin, device="cuda", generator=gen)
             feats = torch.where(mask[:, None], feats, 0.0).contiguous()
         args = (feats, plan, conv.weight.detach(), conv.bias.detach(), mask)
+        take_row_taps()
         got = subm_conv_rows(*args)
+        computed = take_row_taps()
         want = subm_conv_rows_plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err([got], [want], TOL["subm_conv_rows"])
@@ -144,26 +194,22 @@ def check_subm_conv_rows(model, db):
         library_ms = graph_time_ms(lambda: torch.addmm(
             bias, torch.index_select(padded, 0, idx).view(n, kk * cin), w2).mul_(maskf))
         n_bytes = 4 * (n * cin + n * kk + kk * cin * cout + cout + n * cout) + n
-        present = int((plan >= 0).sum())
-        flops = 2.0 * cin * cout * present
-        b_ms, _ = bound_ms(n_bytes, flops)
-        # row-taps the kernel's tiles compute (every row of a block for each
-        # tap present in any of them), against those the data needs
-        tiles = -(-n // K1_ROWS_PER_BLOCK)
-        tile_plan = torch.full((tiles * K1_ROWS_PER_BLOCK, kk), -1, device=plan.device,
-                               dtype=plan.dtype)
-        tile_plan[:n] = plan
-        tile_taps = int((tile_plan.view(tiles, K1_ROWS_PER_BLOCK, kk) >= 0).any(1).sum())
+        needed = int(((plan >= 0) & mask[:, None]).sum())
+        # three TF32 passes over the row-taps the data needs
+        flops = 3 * 2.0 * cin * cout * needed
+        b_ms, by = bound_ms(n_bytes, flops, TF32_FLOPS_PER_S)
         print(f"K1 subm_conv_rows layer {layer}: N={n} K²={kk} {cin}->{cout} "
               f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-              f"bound_ms={b_ms:.5f} max_abs_err={err:.3g} row-taps present "
-              f"{present}/{n * kk}, computed by the tiles "
-              f"{tile_taps * K1_ROWS_PER_BLOCK}", flush=True)
+              f"bound_ms={b_ms:.5f} ({by}) max_abs_err={err:.3g} row-taps needed "
+              f"{needed} of {n * kk}, computed {computed} as the kernel counted them "
+              f"({computed / max(needed, 1):.3f}x)", flush=True)
+        if kk > 1:
+            assert computed <= K1_MAX_COMPUTED_RATIO * needed, (computed, needed)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                          ("bound_ms", b_ms), ("bytes", n_bytes), ("flops", flops)):
             totals[key] += val
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
-    totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"])[1]
+    totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"], TF32_FLOPS_PER_S)[1]
     return totals
 
 
@@ -213,20 +259,42 @@ def check_site_grouped_matmul(model, db):
                 bound_by=by, max_abs_err=err)
 
 
-def check_waveform_features(wfs_main, wfs_150):
-    """K3 on the feature path's input (S=65) and on S=150 rows, with row
-    counts that are not multiples of BLOCK_N."""
-    from waveformml_tpu_torch.ops.waveform_features import (block_sizes,
+def check_waveform_features(wfs_main, wfs_150, wfs_pairs, rng):
+    """K3 on the feature path's input (S=65), on synthetic pulses at S=150,
+    on adversarial rows at each of the detector's sample counts and on the
+    first PMT's samples read in place from the [n, 2·S] pair rows; the row
+    counts are not multiples of the block's rows. The max_abs_err returned
+    is that of the timed input, the feature path's: where a row's psd
+    cancels (signed noise), its absolute error grows as 1/|fast + slow|, so
+    the other inputs are held by features_close and printed."""
+    from waveformml_tpu_torch.datasets.synthetic import adversarial_waveforms
+    from waveformml_tpu_torch.ops.waveform_features import (features_close,
+                                                            launch_geometry,
                                                             waveform_features,
                                                             waveform_features_plain)
 
+    s_main = wfs_main.shape[1]
+    strided = wfs_pairs[:, :s_main]
+    assert strided.stride(0) == 2 * s_main
+    inputs = [("pulses", wfs_main), ("pulses", wfs_main[:4097]), ("pulses", wfs_150),
+              ("strided rows", strided)]
+    inputs += [("adversarial", torch.from_numpy(
+        adversarial_waveforms(rng, 4097, s).astype(np.float32)).cuda())
+        for s in K3_SAMPLE_COUNTS]
     err = 0.0
-    for wfs in (wfs_main, wfs_main[:4097], wfs_150):
-        assert wfs.shape[0] % block_sizes(wfs.shape[1])[0] != 0 or wfs is wfs_main
+    for name, wfs in inputs:
+        rows = launch_geometry(wfs.shape[1])[0]
+        assert wfs.shape[0] % rows != 0 or wfs is wfs_main
         got = waveform_features(wfs)
         want = waveform_features_plain(wfs)
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, want, TOL["waveform_features"]))
+        close = features_close(got, want, wfs, TOL["waveform_features"])
+        print(f"K3 {name}: n={wfs.shape[0]} S={wfs.shape[1]} row stride "
+              f"{wfs.stride(0)} max_abs_err={close['max_abs_err']:.3g}; largest psd "
+              f"difference {close['psd_excess']:.3g}x tol·(1+|psd|), on a row of "
+              f"condition number {close['psd_kappa']:.4g}", flush=True)
+        if wfs is wfs_main:
+            err = close["max_abs_err"]
     ms = graph_time_ms(lambda: waveform_features(wfs_main))
     plain_ms = graph_time_ms(lambda: waveform_features_plain(wfs_main))
     n, s = wfs_main.shape
@@ -299,17 +367,14 @@ def main() -> int:
     wfs_150 = torch.from_numpy(np.stack(
         [synth_waveform_pair(rng, 150, rng.uniform(0.5, 10.0), 0.0)[:150]
          for _ in range(4097)])).cuda()
-    t0 = time.perf_counter()
-    waveform_features(wfs_main[:4097])
-    waveform_features(wfs_150)
-    torch.cuda.synchronize()
-    print(f"triton compile (S={n_samples} and S=150): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wfs_pairs = torch.from_numpy(np.concatenate([ch["waveforms"] for ch in chunks])).cuda()
     results = {
         "subm_conv_rows": check_subm_conv_rows(task.model, db),
         "site_grouped_matmul": check_site_grouped_matmul(task.model, db),
-        "waveform_features": check_waveform_features(wfs_main, wfs_150),
+        "waveform_features": check_waveform_features(wfs_main, wfs_150, wfs_pairs, rng),
     }
+    results["subm_conv_rows"]["max_abs_err"] = max(
+        results["subm_conv_rows"]["max_abs_err"], check_subm_conv_rows_adversarial(rng))
 
     # -- 4. serving path ------------------------------------------------------
     server.dispatch_phases = dict.fromkeys(server.dispatch_phases, 0.0)
@@ -328,7 +393,11 @@ def main() -> int:
     print(f"serving: {N_CHUNKS} chunks, {n_events} events, {n_rows} waveform pairs "
           f"in {wall:.4f} s = {n_events / wall:.1f} events/s; launches {launches}",
           flush=True)
-    assert launches == {"subm_conv_rows": 3 * N_CHUNKS,
+    # K1: one grid per conv for the centre tap, one more for a K² > 1 conv's
+    # other taps
+    k1_grids = sum(1 if m.kernel_size == 1 else 2 for m in task.model.stack.modules()
+                   if isinstance(m, RowSubMConv2d))
+    assert launches == {"subm_conv_rows": k1_grids * N_CHUNKS,
                         "site_grouped_matmul": N_CHUNKS,
                         "waveform_features": 0}, launches
     for out in logits:
@@ -384,7 +453,7 @@ def main() -> int:
                            "waveformml_tpu/ops/row_conv.py:226"),
         "site_grouped_matmul": ("cuda", "waveformml_tpu_torch/csrc/site_head.cu",
                                 "waveformml_tpu/ops/site_head.py:83"),
-        "waveform_features": ("triton", "waveformml_tpu_torch/ops/waveform_features.py",
+        "waveform_features": ("cuda", "waveformml_tpu_torch/csrc/waveform_features.cu",
                               "waveformml_tpu/ops/pallas_dsp.py:113"),
     }
     kernels = []

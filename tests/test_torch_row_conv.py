@@ -1,14 +1,30 @@
 """Kernel K1's plain version against the JAX ``subm_conv_rows`` (fp32, with
-absent taps and padding rows), the wrapper's CPU dispatch and checks, and
-the kernel against its plain version on the card."""
+absent taps and padding rows, and on adversarial plans: full 3×3 clusters,
+duplicate sites, single-site events, a row count that is not a multiple of
+the kernel's tile, narrow and wide channel counts), the wrapper's CPU
+dispatch and checks, and the kernel against its plain version on the card
+on the same inputs."""
 import numpy as np
 import pytest
 import torch
 
+from waveformml_tpu_torch.datasets.synthetic import conv_case as synthetic_conv_case
 from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows,
-                                               subm_conv_rows_plain)
+                                               subm_conv_rows_plain, take_row_taps)
 
-NX, NY = 14, 11
+# (plan kind, k, cin, cout, n_events, n_rows): the serving layers' widths on
+# clustered events, then the adversarial plans
+CASES = [
+    pytest.param("clustered", 3, 130, 104, 12, None, id="3-130-104"),
+    pytest.param("clustered", 3, 104, 56, 12, None, id="3-104-56"),
+    pytest.param("clustered", 1, 56, 8, 12, None, id="1-56-8"),
+    pytest.param("clustered", 3, 5, 3, 12, None, id="3-5-3"),
+    pytest.param("dense_cluster", 3, 130, 104, 12, None, id="dense_cluster"),
+    pytest.param("duplicate_sites", 3, 104, 56, 12, None, id="duplicate_sites"),
+    pytest.param("isolated_sites", 3, 130, 104, 12, None, id="isolated_sites"),
+    pytest.param("clustered", 3, 130, 104, 40, 3 * 64 + 37, id="ragged_n"),
+    pytest.param("clustered", 3, 56, 200, 12, None, id="cout_200"),
+]
 
 
 @pytest.fixture
@@ -18,41 +34,40 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(rng, n_events, k, cin, cout, n_rows=None):
-    rows = []
-    for e in range(n_events):
-        # clustered sites so that many taps are present, some absent
-        x0, y0 = int(rng.integers(0, NX)), int(rng.integers(0, NY))
-        for _ in range(int(rng.integers(1, 6))):
-            rows.append([int(np.clip(x0 + rng.integers(-2, 3), 0, NX - 1)),
-                         int(np.clip(y0 + rng.integers(-2, 3), 0, NY - 1)), e])
-    coords = np.unique(np.asarray(rows, np.int32), axis=0)
-    coords = coords[np.argsort(coords[:, 2], kind="stable")]
-    n = coords.shape[0]
-    n_rows = n_rows or n + 11                    # padding rows at the end
-    c = np.zeros((n_rows, 3), np.int32)
-    c[:n] = coords
-    mask = np.zeros(n_rows, bool)
-    mask[:n] = True
-    plan = host_neighbor_plan(c, mask, n_events, k)
-    feats = rng.normal(size=(n_rows, cin)).astype(np.float32)
-    feats[n:] = 0
-    kernel = (rng.normal(size=(k * k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
-    bias = rng.normal(size=(cout,)).astype(np.float32)
-    return feats, plan, kernel, bias, mask
+def conv_case(rng, kind, n_events, k, cin, cout, n_rows=None):
+    """(feats, plan, kernel, bias, mask), numpy, of a synthetic conv case."""
+    coords, feats, kernel, bias, mask = synthetic_conv_case(rng, kind, n_events, k,
+                                                            cin, cout, n_rows)
+    return feats, host_neighbor_plan(coords, mask, n_events, k), kernel, bias, mask
 
 
-@pytest.mark.parametrize("k,cin,cout", [(3, 130, 104), (3, 104, 56), (1, 56, 8),
-                                        (3, 5, 3)])
+def _check_plan(kind, k, plan, mask):
+    """The plan has what its case is named for."""
+    assert (plan == -1).any()
+    if kind == "isolated_sites":
+        assert (np.delete(plan, k * k // 2, axis=1) == -1).all()
+    else:
+        assert k == 1 or ((plan >= 0).sum(1) > 1).any()
+    if kind == "dense_cluster":
+        assert ((plan >= 0).sum(1) == 9).any()
+    if kind == "duplicate_sites":
+        rows = np.arange(plan.shape[0])
+        centre = plan[:, k * k // 2]
+        assert ((centre >= 0) & (centre != rows) & mask).any()
+
+
+@pytest.mark.parametrize("kind,k,cin,cout,n_events,n_rows", CASES)
 @pytest.mark.parametrize("with_bias", [True, False])
-def test_plain_matches_jax(rng, k, cin, cout, with_bias):
+def test_plain_matches_jax(rng, kind, k, cin, cout, n_events, n_rows, with_bias):
     import jax.numpy as jnp
 
     from waveformml_tpu.ops.row_conv import subm_conv_rows as jax_subm_conv_rows
 
-    feats, plan, kernel, bias, mask = _case(rng, 12, k, cin, cout)
-    assert (plan == -1).any()
-    assert k == 1 or ((plan >= 0).sum(1) > 1).any()
+    feats, plan, kernel, bias, mask = conv_case(rng, kind, n_events, k, cin, cout,
+                                                n_rows)
+    _check_plan(kind, k, plan, mask)
+    if n_rows is not None:
+        assert plan.shape[0] == n_rows and n_rows % 64 != 0
     b = bias if with_bias else None
     want = np.asarray(jax_subm_conv_rows(
         jnp.asarray(feats), jnp.asarray(plan), jnp.asarray(kernel),
@@ -66,8 +81,8 @@ def test_plain_matches_jax(rng, k, cin, cout, with_bias):
 
 
 def test_wrapper_uses_plain_on_cpu(rng):
-    feats, plan, kernel, bias, mask = (torch.from_numpy(a)
-                                       for a in _case(rng, 6, 3, 7, 4))
+    feats, plan, kernel, bias, mask = (torch.from_numpy(a) for a in
+                                       conv_case(rng, "clustered", 6, 3, 7, 4))
     before = subm_conv_rows.launches
     got = subm_conv_rows(feats, plan, kernel, bias, mask)
     torch.testing.assert_close(got, subm_conv_rows_plain(feats, plan, kernel,
@@ -79,15 +94,23 @@ def test_wrapper_uses_plain_on_cpu(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,cin,cout", [(3, 130, 104), (3, 104, 56), (1, 56, 8)])
-def test_kernel_matches_plain_on_card(cuda, k, cin, cout):
+@pytest.mark.parametrize("kind,k,cin,cout,n_events,n_rows", CASES)
+def test_kernel_matches_plain_on_card(cuda, kind, k, cin, cout, n_events, n_rows):
     rng = np.random.default_rng(12345)
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = [torch.from_numpy(a).to(cuda) for a in _case(rng, 300, k, cin, cout)]
+    if kind == "clustered" and n_rows is None:
+        n_events = 300                 # several row tiles
+    args = [torch.from_numpy(a).to(cuda)
+            for a in conv_case(rng, kind, n_events, k, cin, cout, n_rows)]
     want = subm_conv_rows_plain(*args)
     before = subm_conv_rows.launches
+    take_row_taps()
     got = subm_conv_rows(*args)
-    torch.cuda.synchronize()
-    assert subm_conv_rows.launches == before + 1
-    # fp32 throughout; only the summation order over K²·Cin terms differs
+    computed = take_row_taps()
+    # one grid for the centre tap, one for the other taps
+    assert subm_conv_rows.launches == before + (1 if k == 1 else 2)
+    _, plan, _, _, mask = args
+    assert computed >= int(((plan >= 0) & mask[:, None]).sum())
+    # the plain version is an fp32 GEMM; the kernel's 3-pass TF32 split drops
+    # only small·small terms (~2^-22 relative) and sums in another order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

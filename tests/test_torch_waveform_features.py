@@ -1,22 +1,27 @@
 """Kernel K3's plain version against the JAX ``waveform_features_jax`` and
 the Pallas kernel ``waveform_features_pallas`` (run in interpret mode), on
-pulse-shaped and adversarial rows, and the Triton kernel against its plain
-version on the card."""
+pulse-shaped and adversarial rows, and the CUDA kernel against its plain
+version on the card, on the same rows and on rows with a gap between them,
+with total and psd held to a tolerance scaled by each row's condition
+number (``features_close``)."""
 import numpy as np
 import pytest
 import torch
 
-from waveformml_tpu_torch.ops.waveform_features import (block_sizes,
+from waveformml_tpu_torch.datasets.synthetic import adversarial_waveforms
+from waveformml_tpu_torch.ops.waveform_features import (features_close,
+                                                        launch_geometry,
                                                         waveform_features,
                                                         waveform_features_plain)
 
-S_VALUES = [65, 128, 150]
+# the detector's sample counts (59, 65, 130, 150) and a power of two
+S_VALUES = [65, 128, 150, 59, 130]
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: Triton kernel K3 runs only on the card")
+        pytest.skip("needs a CUDA device: kernel K3 runs only on the card")
     return torch.device("cuda")
 
 
@@ -32,38 +37,9 @@ def _pulses(rng, n, s):
     return np.stack(out)
 
 
-def _adversarial(rng, n, s):
-    """zeros, constant, delta spike, plateau, signed noise, sharp onset,
-    tie comb and early onset, in turn."""
-    t = np.arange(s, dtype=np.float64)
-    out = []
-    for i in range(n):
-        kind = i % 8
-        w = np.zeros(s)
-        if kind == 1:
-            w[:] = rng.uniform(0, 10)
-        elif kind == 2:
-            w[int(rng.integers(0, s))] = 100
-        elif kind == 3:
-            a = int(rng.integers(0, s - 6))
-            w[a:a + 5] = 50.0
-        elif kind == 4:
-            w = rng.normal(0, 1, s)
-        elif kind == 5:
-            t0 = rng.uniform(1, s - 2)
-            w = 100 * np.exp(-np.clip(t - t0, 0, None) / 5) * (t >= t0)
-        elif kind == 6:
-            w = np.resize([0.0, 30.0], s)
-        elif kind == 7:
-            dt = np.clip(t - 8, 0, None)
-            w = rng.uniform(10, 300) * (1 - np.exp(-dt / 1.5)) * np.exp(-dt / 12)
-        out.append(w)
-    return np.stack(out)
-
-
 def _rows(rng, s, n_pulses=40, n_adv=56):
     return np.concatenate([_pulses(rng, n_pulses, s),
-                           _adversarial(rng, n_adv, s)]).astype(np.float32)
+                           adversarial_waveforms(rng, n_adv, s)]).astype(np.float32)
 
 
 def _plain(wfs):
@@ -100,7 +76,27 @@ def test_wrapper_uses_plain_on_cpu(rng):
     for g, w in zip(waveform_features(wfs), waveform_features_plain(wfs)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert waveform_features.launches == before
-    assert block_sizes(65) == (16, 128) and block_sizes(150) == (8, 256)
+    # odd shared-memory row strides; 128 rows a block while they fit
+    assert launch_geometry(65) == (128, 65, 128 * 65 * 4)
+    assert launch_geometry(150) == (128, 151, 128 * 151 * 4)
+    rows, stride, smem = launch_geometry(1000)
+    assert stride == 1001 and rows % 32 == 0 and rows < 128 and smem <= 232448
+
+
+@pytest.mark.parametrize("s", S_VALUES)
+def test_features_close_scales_psd_by_condition(rng, s):
+    """Features whose sums are rounded once (float64, then fp32) pass
+    against the fp32 plain version on every row, cancelling ones included;
+    a psd moved by 1e-4 on a well-conditioned pulse row does not."""
+    wfs = torch.from_numpy(_rows(rng, s))
+    want = waveform_features_plain(wfs)
+    once = [x.to(torch.float32) for x in waveform_features_plain(wfs.double())]
+    features_close(once, want, wfs, 1e-5)
+    moved = list(once)
+    moved[1] = once[1].clone()
+    moved[1][0] += 1e-4
+    with pytest.raises(AssertionError, match="psd row 0"):
+        features_close(moved, want, wfs, 1e-5)
 
 
 @pytest.mark.cuda
@@ -113,5 +109,10 @@ def test_kernel_matches_plain_on_card(cuda, s):
     got = waveform_features(wfs)
     torch.cuda.synchronize()
     assert waveform_features.launches == before + 1
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    features_close(got, want, wfs, 1e-5)
+    # rows 3 samples apart in memory: the kernel's general-stride staging
+    gapped = torch.zeros(wfs.shape[0], s + 3, device=cuda)
+    gapped[:, :s] = wfs
+    strided = gapped[:, :s]
+    assert strided.stride(0) > s
+    features_close(waveform_features(strided), want, wfs, 1e-5)

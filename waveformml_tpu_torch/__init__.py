@@ -7,9 +7,9 @@ PSD classifier (``config/examples/SubMPSD.json``: ``LitPSD`` +
 ``SubMPSDNet``) and the per-waveform DSP feature op, through three kernels
 written by hand:
 
-* ``ops.row_conv.subm_conv_rows``        -- CUDA C++ gather-fused GEMM
+* ``ops.row_conv.subm_conv_rows``        -- CUDA C++ gather-fused TF32 GEMM
 * ``ops.site_head.site_grouped_matmul``  -- CUDA C++ grouped GEMM + scatter-add
-* ``ops.waveform_features.waveform_features`` -- Triton row reductions
+* ``ops.waveform_features.waveform_features`` -- CUDA C++ per-row scan
 
 Each kernel has a plain PyTorch version in the same module: the wrapper uses
 it for CPU tensors and launches the kernel (or raises) for CUDA tensors.

@@ -7,7 +7,7 @@ on the particle kind (the PSD handle).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -57,3 +57,79 @@ def make_events(rng: np.random.Generator, n_events: int, n_samples: int,
         "E": np.asarray(es, dtype=np.float32),
         "z": np.asarray(zs, dtype=np.float32),
     }
+
+
+def conv_case(rng: np.random.Generator, kind: str, n_events: int, k: int,
+              cin: int, cout: int, n_rows: Optional[int] = None):
+    """Inputs of a row-space SubM conv over sites that stress it, all numpy:
+    coords [n_rows, 3] int32 (x, y, event; the neighbour plan is built from
+    them), feats [n_rows, cin] (zero on padding rows), kernel [k², cin,
+    cout], bias [cout] and the row mask, padding rows at the end.
+
+    ``kind``: ``"clustered"`` (1-5 sites near one spot per event, so many
+    taps present and some absent), ``"dense_cluster"`` (a full 3×3 block of
+    sites per event, so a centre row has all 9 taps), ``"duplicate_sites"``
+    (clustered, about a quarter of the rows repeated: the neighbour plan
+    keeps the last row of a site, so the centre tap of the first copy names
+    another row) or ``"isolated_sites"`` (one site per event, so every
+    off-centre tap is absent). ``n_rows`` defaults to the rows + 11."""
+    if kind not in ("clustered", "dense_cluster", "duplicate_sites", "isolated_sites"):
+        raise ValueError(f"unknown conv case {kind!r}")
+    rows = []
+    for e in range(n_events):
+        if kind == "dense_cluster":
+            x0, y0 = int(rng.integers(0, NX - 2)), int(rng.integers(0, NY - 2))
+            rows += [[x0 + dx, y0 + dy, e] for dx in range(3) for dy in range(3)]
+            continue
+        x0, y0 = int(rng.integers(0, NX)), int(rng.integers(0, NY))
+        n_sites = 1 if kind == "isolated_sites" else int(rng.integers(1, 6))
+        for _ in range(n_sites):
+            rows.append([int(np.clip(x0 + rng.integers(-2, 3), 0, NX - 1)),
+                         int(np.clip(y0 + rng.integers(-2, 3), 0, NY - 1)), e])
+    coords = np.unique(np.asarray(rows, np.int32), axis=0)
+    coords = coords[np.argsort(coords[:, 2], kind="stable")]
+    if kind == "duplicate_sites":
+        coords = np.repeat(coords, 1 + (rng.random(coords.shape[0]) < 0.25), axis=0)
+    n = coords.shape[0]
+    n_rows = n_rows or n + 11
+    if n_rows < n:
+        raise ValueError(f"{n} rows do not fit n_rows={n_rows}")
+    c = np.zeros((n_rows, 3), np.int32)
+    c[:n] = coords
+    mask = np.zeros(n_rows, bool)
+    mask[:n] = True
+    feats = rng.normal(size=(n_rows, cin)).astype(np.float32)
+    feats[n:] = 0
+    kernel = (rng.normal(size=(k * k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
+    bias = rng.normal(size=(cout,)).astype(np.float32)
+    return c, feats, kernel, bias, mask
+
+
+def adversarial_waveforms(rng: np.random.Generator, n: int, s: int) -> np.ndarray:
+    """Rows [n, s] float64 that stress the waveform features: zeros,
+    constant, delta spike, plateau, signed noise, sharp onset, tie comb and
+    early onset, in turn."""
+    t = np.arange(s, dtype=np.float64)
+    out = []
+    for i in range(n):
+        kind = i % 8
+        w = np.zeros(s)
+        if kind == 1:
+            w[:] = rng.uniform(0, 10)
+        elif kind == 2:
+            w[int(rng.integers(0, s))] = 100
+        elif kind == 3:
+            a = int(rng.integers(0, s - 6))
+            w[a:a + 5] = 50.0
+        elif kind == 4:
+            w = rng.normal(0, 1, s)
+        elif kind == 5:
+            t0 = rng.uniform(1, s - 2)
+            w = 100 * np.exp(-np.clip(t - t0, 0, None) / 5) * (t >= t0)
+        elif kind == 6:
+            w = np.resize([0.0, 30.0], s)
+        elif kind == 7:
+            dt = np.clip(t - 8, 0, None)
+            w = rng.uniform(10, 300) * (1 - np.exp(-dt / 1.5)) * np.exp(-dt / 12)
+        out.append(w)
+    return np.stack(out)

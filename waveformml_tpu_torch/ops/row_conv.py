@@ -71,7 +71,20 @@ def subm_conv_rows_plain(feats: torch.Tensor, plan: torch.Tensor,
 
 
 _FUNCTIONS = {"subm_conv_rows_fwd":
-              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+              "subm_conv_rows_take_row_taps": [ctypes.POINTER(ctypes.c_longlong)]}
+
+
+def take_row_taps() -> int:
+    """Row-taps kernel K1 computed on the card since the last call (for each
+    block, its rows that have its tap, rounded up to whole mma groups), as
+    the kernel counted them; restarts the count. Synchronises the device."""
+    lib = native.load("row_conv", _FUNCTIONS)
+    count = ctypes.c_longlong()
+    torch.cuda.synchronize()
+    native.check_launch(lib, lib.subm_conv_rows_take_row_taps(ctypes.byref(count)),
+                        "subm_conv_rows_take_row_taps")
+    return count.value
 
 
 def _check(feats, plan, kernel, bias, mask) -> None:
@@ -110,10 +123,14 @@ def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor
     waveformml_tpu/ops/row_conv.py:subm_conv_rows); CPU tensors run
     ``subm_conv_rows_plain``. Plan entries must lie in ``[-1, N)``.
 
-    On the H100 the taps that real rows need make it bound by bytes, the
-    dense-tap tile work by fp32 operations; K1 fuses the gather into its
-    operand loads (no [N, K², Cin] operand in memory) and skips taps absent
-    for a whole row tile (the note in ``csrc/row_conv.cu`` has the details).
+    On the H100 it is bound by bytes. K1 fuses the gather into its operand
+    loads (no [N, K², Cin] operand in memory) and multiplies only the rows
+    that have a tap, in groups of 8, on the tensor cores in TF32 with a
+    3-pass split that keeps fp32 accuracy: one launch writes the centre tap,
+    bias and mask per 32-row tile, a second adds the other taps per 256-row
+    block with fp32 atomics, so a row with two or more off-centre taps can
+    differ in its last bits from run to run (the note in
+    ``csrc/row_conv.cu`` has the details).
     """
     _check(feats, plan, kernel, bias, mask)
     if not feats.is_cuda:
@@ -128,7 +145,9 @@ def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor
         out.data_ptr(), n, cin, cout, kk,
         torch.cuda.current_stream(feats.device).cuda_stream)
     native.check_launch(lib, err, "subm_conv_rows")
-    subm_conv_rows.launches += 1
+    if n and cout:
+        # the centre tap's grid, and for K² > 1 the other taps' grid
+        subm_conv_rows.launches += 1 if kk == 1 else 2
     return out
 
 

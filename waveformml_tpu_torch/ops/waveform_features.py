@@ -12,14 +12,13 @@ For each waveform row of ``[n, S]``:
   ``integrate_lininterp_range``;
 * total   -- the row sum.
 
-CUDA tensors run kernel K3, written in Triton; CPU tensors run
+CUDA tensors run kernel K3 (``csrc/waveform_features.cu``); CPU tensors run
 ``waveform_features_plain``, a torch copy of ``_features_math``.
 """
 from __future__ import annotations
 
-import functools
-import os
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,10 +28,10 @@ PSD_WINDOW_LO = -3.0
 PSD_DIVIDER = 11.0
 PSD_WINDOW_HI = 50.0
 
-#: waveform elements one Triton program holds (BLOCK_N · BLOCK_S): 16 per
-#: thread of its 4 warps, so that the row tile and its temporaries stay in
-#: registers (PERF.md compares it with 8192 on an H100)
-ELEMENTS_PER_PROGRAM = 2048
+#: waveform rows per block of K3, one thread each
+ROWS_PER_BLOCK = 128
+#: shared memory a block may use on the H100 (227 KB)
+MAX_SHARED_BYTES = 232448
 
 
 def _window_weights(fi: torch.Tensor, r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:
@@ -82,121 +81,96 @@ def waveform_features_plain(wfs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return arrival, psd, wfs.sum(dim=1), peak
 
 
-@functools.cache
-def _triton_kernel():
-    """Compile-on-first-use Triton kernel K3.
-
-    Replaces waveformml_tpu/ops/pallas_dsp.py:waveform_features_pallas
-    (the Pallas kernel ``_kernel``, TILE_N = 256 rows per grid step). Bound
-    on the H100: bytes -- every sample is read once and feeds ~40 fp32
-    operations of row reductions and selects, far below the card's
-    FLOP/byte ridge, and nothing needs a matrix unit. Design: one program
-    holds BLOCK_N whole rows in registers (BLOCK_S, the next power of two at
-    or above S, with masked loads), so each sample is read from device
-    memory exactly once and the four outputs are written once; the one-hot
-    selects of the Pallas kernel stay, as row reductions.
-    """
-    # Triton's compile cache goes beside the CUDA libraries, in the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", str(native.BUILD_DIR / "triton"))
-    # `tl` is bound as a module global so that the kernel's globals resolve
-    # it when Triton compiles the kernel on first launch
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def features_kernel(wf_ptr, arr_ptr, psd_ptr, tot_ptr, peak_ptr, n, s,
-                        stride, lo, div, hi,
-                        BLOCK_N: tl.constexpr, BLOCK_S: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
-        cols = tl.arange(0, BLOCK_S)
-        row_ok = rows < n
-        col_ok = cols < s
-        w = tl.load(wf_ptr + rows[:, None].to(tl.int64) * stride + cols[None, :],
-                    mask=row_ok[:, None] & col_ok[None, :], other=0.0)
-        idx = cols[None, :]
-        fi = idx.to(tl.float32)
-
-        peak = tl.max(tl.where(col_ok[None, :], w, float("-inf")), axis=1)
-        thresh = 0.5 * peak
-        big = s + 1
-        above = (w > thresh[:, None]) & col_ok[None, :]
-        first = tl.min(tl.where(above, idx, big), axis=1)
-        first_c = tl.minimum(tl.maximum(first, 0), s - 1)
-        prev_c = tl.minimum(tl.maximum(first - 1, 0), s - 1)
-        cur = tl.sum(tl.where(idx == first_c[:, None], w, 0.0), axis=1)
-        prev = tl.sum(tl.where(idx == prev_c[:, None], w, 0.0), axis=1)
-        diff = cur - prev
-        frac_mid = (thresh - prev) / tl.where(diff == 0, 1e-30, diff)
-        frac0 = tl.where(cur != 0, thresh / tl.where(cur == 0, 1e-30, cur), 0.0)
-        arrival = tl.where(first < big,
-                           tl.where(first == 0, frac0,
-                                    first.to(tl.float32) + frac_mid), 0.0)
-
-        # fast window [a + lo, a + div]
-        r0 = arrival + lo
-        r1 = arrival + div
-        i0 = tl.ceil(r0)
-        d0 = i0 - r0
-        i1 = tl.floor(r1)
-        d1 = r1 - i1
-        wt = ((fi >= i0[:, None]) & (fi <= i1[:, None])).to(tl.float32)
-        wt = wt - tl.where(fi == i0[:, None], ((1 - d0) * (1 - d0) / 2)[:, None], 0.0)
-        wt = wt + tl.where(fi == (i0 - 1)[:, None], (d0 * d0 / 2)[:, None], 0.0)
-        wt = wt - tl.where(fi == i1[:, None], ((1 - d1) * (1 - d1) / 2)[:, None], 0.0)
-        wt = wt + tl.where(fi == (i1 + 1)[:, None], (d1 * d1 / 2)[:, None], 0.0)
-        fast = tl.sum(w * wt, axis=1)
-
-        # slow window [a + div, a + hi]
-        r0 = arrival + div
-        r1 = arrival + hi
-        i0 = tl.ceil(r0)
-        d0 = i0 - r0
-        i1 = tl.floor(r1)
-        d1 = r1 - i1
-        wt = ((fi >= i0[:, None]) & (fi <= i1[:, None])).to(tl.float32)
-        wt = wt - tl.where(fi == i0[:, None], ((1 - d0) * (1 - d0) / 2)[:, None], 0.0)
-        wt = wt + tl.where(fi == (i0 - 1)[:, None], (d0 * d0 / 2)[:, None], 0.0)
-        wt = wt - tl.where(fi == i1[:, None], ((1 - d1) * (1 - d1) / 2)[:, None], 0.0)
-        wt = wt + tl.where(fi == (i1 + 1)[:, None], (d1 * d1 / 2)[:, None], 0.0)
-        slow = tl.sum(w * wt, axis=1)
-
-        den = fast + slow
-        psd = tl.where(den == 0, 0.0, slow / tl.where(den == 0, 1.0, den))
-        tl.store(arr_ptr + rows, arrival, mask=row_ok)
-        tl.store(psd_ptr + rows, psd, mask=row_ok)
-        tl.store(tot_ptr + rows, tl.sum(w, axis=1), mask=row_ok)
-        tl.store(peak_ptr + rows, peak, mask=row_ok)
-
-    return features_kernel
+def _condition(terms: torch.Tensor) -> torch.Tensor:
+    """Σ|t| / |Σt| over the rows of float64 terms [n, S]: 1 for an all-zero
+    row, inf where the sum is exactly 0 and the terms are not."""
+    mass = terms.abs().sum(dim=1)
+    return torch.where(mass == 0, torch.ones_like(mass), mass / terms.sum(dim=1).abs())
 
 
-def block_sizes(s: int) -> Tuple[int, int]:
-    """(BLOCK_N, BLOCK_S) of K3 for rows of s samples."""
-    block_s = max(16, 1 << (int(s) - 1).bit_length())
-    return max(1, ELEMENTS_PER_PROGRAM // block_s), block_s
+def features_close(got, want, wfs: torch.Tensor, tol: float) -> Dict[str, float]:
+    """Hold K3's outputs ``got`` against the plain version's ``want`` (both
+    (arrival, psd, total, peak)) for rows wfs. Returns the largest |got -
+    want| (``max_abs_err``), the largest psd difference in units of
+    tol·(1 + |psd|) (``psd_excess``) and the κ of that row (``psd_kappa``);
+    raises AssertionError where they differ by more than:
+
+    * arrival, peak: tol·(1 + |want|);
+    * total, psd: tol·(1 + |want|)·κ, κ the row's condition number (1 for a
+      row of one sign). A sum of S terms taken in another order moves by up
+      to ~S·2^-24 of Σ|terms|, so where a sum cancels (signed noise), two
+      exact fp32 implementations differ by κ times more. For total κ =
+      Σ|x|/|Σx|; for psd = slow/(fast + slow) it is Σ|w·x| over both
+      windows / |fast + slow|, which bounds psd's move to that factor
+      times (1 + |psd|)."""
+    x = wfs.to(torch.float64)
+    a = want[0].to(torch.float64)
+    fi = torch.arange(x.shape[1], dtype=torch.float64, device=x.device).expand_as(x)
+    windows = torch.cat([x * _window_weights(fi, a + PSD_WINDOW_LO, a + PSD_DIVIDER),
+                         x * _window_weights(fi, a + PSD_DIVIDER, a + PSD_WINDOW_HI)], dim=1)
+    kappa = (None, _condition(windows), _condition(x), None)
+    out = {"max_abs_err": 0.0, "psd_excess": 0.0, "psd_kappa": 1.0}
+    for name, g, w, k in zip(("arrival", "psd", "total", "peak"), got, want, kappa):
+        d = (g.to(torch.float64) - w.to(torch.float64)).abs()
+        unit = tol * (1 + w.to(torch.float64).abs())
+        limit = unit if k is None else unit * k
+        bad = ~(d <= limit)
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0, 0])
+            raise AssertionError(f"{name} row {i}: got {float(g[i])}, want {float(w[i])}, "
+                                 f"limit {float(limit[i])} ({int(bad.sum())} rows out)")
+        if d.numel():
+            out["max_abs_err"] = max(out["max_abs_err"], float(d.max()))
+            if name == "psd":
+                i = int((d / unit).argmax())
+                out["psd_excess"], out["psd_kappa"] = float(d[i] / unit[i]), float(k[i])
+    return out
+
+
+def launch_geometry(s: int) -> Tuple[int, int, int]:
+    """(rows per block, shared-memory row stride in words, shared-memory
+    bytes) of K3 for rows of s samples: S padded to an odd stride so that a
+    warp's per-row reads hit distinct banks, and up to ROWS_PER_BLOCK rows,
+    fewer where the tile would not fit a block's shared memory."""
+    s = int(s)
+    stride = s | 1
+    rows = ROWS_PER_BLOCK
+    while rows > 32 and rows * stride * 4 > MAX_SHARED_BYTES:
+        rows -= 32
+    if rows * stride * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"rows of {s} samples do not fit K3's shared-memory tile")
+    return rows, stride, rows * stride * 4
+
+
+_FUNCTIONS = {"waveform_features_fwd":
+              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+              + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 def waveform_features(wfs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(arrival, psd, total, peak), each [n], of waveform rows wfs [n, S].
 
-    CUDA tensors (float32, contiguous rows) run Triton kernel K3; CPU
-    tensors run ``waveform_features_plain``."""
+    CUDA tensors (float32, unit stride along a row, any row stride) run
+    kernel K3 (``csrc/waveform_features.cu``, which replaces
+    waveformml_tpu/ops/pallas_dsp.py:waveform_features_pallas); CPU tensors
+    run ``waveform_features_plain``."""
     if wfs.dim() != 2 or wfs.shape[1] < 1:
         raise ValueError(f"expected wfs [n, S], got {tuple(wfs.shape)}")
     if not wfs.is_cuda:
         return waveform_features_plain(wfs)
     if wfs.dtype != torch.float32 or wfs.stride(1) != 1:
-        raise TypeError("the Triton kernel takes float32 rows with unit stride")
+        raise TypeError("the CUDA kernel takes float32 rows with unit stride")
     n, s = wfs.shape
     outs = tuple(torch.empty(n, dtype=torch.float32, device=wfs.device)
                  for _ in range(4))
     if n == 0:
         return outs
-    block_n, block_s = block_sizes(s)
-    _triton_kernel()[((n + block_n - 1) // block_n,)](
-        wfs, *outs, n, s, wfs.stride(0), PSD_WINDOW_LO, PSD_DIVIDER, PSD_WINDOW_HI,
-        BLOCK_N=block_n, BLOCK_S=block_s, num_warps=4)
+    rows, stride, _ = launch_geometry(s)
+    lib = native.load("waveform_features", _FUNCTIONS)
+    err = lib.waveform_features_fwd(
+        wfs.data_ptr(), *(o.data_ptr() for o in outs), n, s, wfs.stride(0),
+        rows, stride, torch.cuda.current_stream(wfs.device).cuda_stream)
+    native.check_launch(lib, err, "waveform_features")
     waveform_features.launches += 1
     return outs
 
