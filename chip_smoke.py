@@ -15,13 +15,16 @@ order, it:
    K1 also on adversarial plans (full 3×3 clusters, duplicate sites, a
    ragged row count, 5→3 and 56→200 channels, single-site events with no
    off-centre tap) with the row-taps it computes, as it counts them,
-   against those the data needs, K3 also on adversarial rows at the
-   detector's sample counts and on rows with a gap between them;
+   against those the data needs, K2 also on hand-made slot layouts
+   (duplicate sites, stitched groups with G > S, events past the batch, a
+   ragged MAX that leaves whole tiles empty) with each layout's groups,
+   slots, live tiles and output row stride, K3 also on adversarial rows at the detector's sample
+   counts and on rows with a gap between them;
 4. serves SubMPSD (config/examples/SubMPSD.json widths, seeded random
-   weights) through ``InferenceModel`` over 4 chunks of 4096 synthetic
-   events, checks every launch count and holds the logits against the
-   same model run with the plain versions on the card and, for a few
-   events, on the CPU;
+   weights and head bias) through ``InferenceModel`` over 4 chunks of 4096
+   synthetic events, checks every launch count and holds the logits
+   against the same model run with the plain versions on the card and,
+   for a few events, on the CPU;
 5. runs ``waveform_features`` over the first PMT's half of those chunks'
    waveforms and checks its launch count and outputs;
 6. prints one JSON line describing every kernel, the card line again, and
@@ -30,7 +33,8 @@ order, it:
 Any failure raises, so the script exits non-zero without the last line.
 Without CUDA, or outside a checkout, it exits non-zero before printing any
 result. Times are CUDA-event medians of CUDA-graph replays (device time
-with warm L2, no host launch cost).
+with warm L2, no host launch cost, but with the card's own few µs per
+replay, printed as the timing floor; K2 is also timed 20 calls to a graph).
 """
 import json
 import os
@@ -49,6 +53,7 @@ EVENTS_PER_CHUNK = 4096       # events per batch of the repository's benchmark
 SEED = 0
 TIMING_SAMPLES = 25           # CUDA-event samples per timing (median)
 REPLAYS_PER_SAMPLE = 10       # graph replays between two events
+RUN_CALLS = 20                # calls per graph where a call is timed without a replay's cost
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores
 # and the dense TF32 tensor-core rate
@@ -67,10 +72,10 @@ K3_SAMPLE_COUNTS = (59, 65, 130, 150)
 
 # kernel-vs-plain tolerances: the plain versions are fp32 without TF32; K1
 # splits each operand for three TF32 passes (dropping only ~2^-22 relative)
-# and sums K²·Cin products in another order, K2 adds an event's rows with
-# atomics in a varying order, K3 rounds each row's sums once (double) where
-# the plain version sums in fp32, so its total and psd are held to the
-# tolerance times each row's condition number (features_close)
+# and sums K²·Cin products in another order, K2 adds an event's rows into
+# its bias with atomics in a varying order, K3 rounds each row's sums once
+# (double) where the plain version sums in fp32, so its total and psd are
+# held to the tolerance times each row's condition number (features_close)
 TOL = {"subm_conv_rows": 1e-5, "site_grouped_matmul": 1e-5, "waveform_features": 1e-5}
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 
@@ -82,10 +87,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def graph_time_ms(fn) -> float:
-    """Median device time of one ``fn()`` call: fn is captured in a CUDA
-    graph, and each sample times REPLAYS_PER_SAMPLE back-to-back replays
-    between two CUDA events."""
+def graph_time_ms(fn, calls: int = 1) -> float:
+    """Median device time of one ``fn()`` call: ``calls`` calls of fn are
+    captured in one CUDA graph, and each sample times REPLAYS_PER_SAMPLE
+    back-to-back replays between two CUDA events. A replay costs the card
+    a few µs of its own (the timing floor line), so with calls = 1 a call
+    of a few µs is timed with that cost and with more calls mostly
+    without."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -94,7 +102,8 @@ def graph_time_ms(fn) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     for _ in range(3):
         graph.replay()
     samples = []
@@ -106,7 +115,7 @@ def graph_time_ms(fn) -> float:
             graph.replay()
         end.record()
         end.synchronize()
-        samples.append(start.elapsed_time(end) / REPLAYS_PER_SAMPLE)
+        samples.append(start.elapsed_time(end) / (REPLAYS_PER_SAMPLE * calls))
     return statistics.median(samples)
 
 
@@ -213,8 +222,60 @@ def check_subm_conv_rows(model, db):
     return totals
 
 
+# K2's hand-made layouts (datasets/synthetic.py:site_layout_case): one per
+# feature, then all of them at once
+K2_ADVERSARIAL = (("duplicate_sites",), ("stitched_groups",), ("events_past_end",),
+                  ("ragged_max",),
+                  ("duplicate_sites", "stitched_groups", "events_past_end", "ragged_max"))
+
+
+def k2_layout(take, ev, n_events, out):
+    """Groups, MAX, filled and live slots, and K2's tiles with a live slot
+    (the tile size as the built kernel reports it) of a slot layout, and
+    the row stride of K2's output ``out`` (floats; a multiple of 4, so that
+    every add is a float4): (printable line, live tiles, all tiles)."""
+    from waveformml_tpu_torch.ops.site_head import tile_slots
+
+    tile = tile_slots()
+    g, m = take.shape
+    live = (take > 0) & (ev > 0) & (ev <= n_events)
+    tiles = -(-m // tile)
+    live_tiles = int(torch.nn.functional.pad(live, (0, tiles * tile - m))
+                     .view(g, tiles, tile).any(-1).sum())
+    return (f"groups={g} MAX={m} filled={int((take > 0).sum())} live={int(live.sum())} "
+            f"live tiles={live_tiles} of {g * tiles} ({tile} slots) row stride "
+            f"{out.stride(0)}"), live_tiles, g * tiles
+
+
+def check_site_grouped_matmul_adversarial(rng, c, f) -> float:
+    """K2 against its plain version on hand-made layouts at the head's
+    widths, with the bias; returns the largest |error|."""
+    from waveformml_tpu_torch.datasets.synthetic import site_layout_case
+    from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul,
+                                                    site_grouped_matmul_plain)
+
+    err = 0.0
+    for features in K2_ADVERSARIAL:
+        *arrays, bias = site_layout_case(rng, features, EVENTS_PER_CHUNK, c, f)
+        rows, k3, take, ev, site = (torch.from_numpy(a).cuda() for a in arrays)
+        args = (rows, k3, take, ev, site, EVENTS_PER_CHUNK, torch.from_numpy(bias).cuda())
+        got = site_grouped_matmul(*args)
+        want = site_grouped_matmul_plain(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err([got], [want], TOL["site_grouped_matmul"])
+        line, live_tiles, tiles = k2_layout(take, ev, EVENTS_PER_CHUNK, got)
+        print(f"K2 adversarial, {'+'.join(features)}: {line} max_abs_err={e:.3g}",
+              flush=True)
+        if "ragged_max" in features:
+            # whole tiles of every group are empty: the kernel skipped them
+            assert live_tiles < tiles, (live_tiles, tiles)
+        err = max(err, e)
+    return err
+
+
 def check_site_grouped_matmul(model, db):
-    """K2 at the SubMPSD head (C=8, F=50) on one chunk's slot layout."""
+    """K2 at the SubMPSD head (C=8, F=50, with its bias) on one chunk's slot
+    layout."""
     from waveformml_tpu_torch.detector import NX, NY
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul,
                                                     site_grouped_matmul_plain)
@@ -226,35 +287,44 @@ def check_site_grouped_matmul(model, db):
     rows = torch.relu(torch.randn(mask.shape[0], c, device="cuda", generator=gen))
     rows = torch.where(mask[:, None], rows, 0.0).contiguous()
     k3 = head.weight.detach().view(c, s, f)
+    bias = head.bias.detach()
     take, ev, site = db["plan_site_take"], db["plan_site_ev"], db["plan_site_s"]
     n_events = db["labels"].shape[0]
-    args = (rows, k3, take, ev, site, n_events)
+    args = (rows, k3, take, ev, site, n_events, bias)
     got = site_grouped_matmul(*args)
     want = site_grouped_matmul_plain(*args)
     torch.cuda.synchronize()
     err = max_abs_err([got], [want], TOL["site_grouped_matmul"])
+    layout = k2_layout(take, ev, n_events, got)[0]
     g, m = take.shape
     rows_pad = torch.cat([rows.new_zeros(1, c), rows])
     take_flat = take.reshape(-1).long()
     kg = k3[:, (site.long() - 1).clamp(0, s - 1), :].permute(1, 0, 2).contiguous()
     evs = ev.reshape(-1).long()
     idx = torch.where((evs > 0) & (evs <= n_events), evs - 1, n_events)
-    out = torch.zeros(n_events + 1, f, device="cuda")
+    out = torch.empty(n_events + 1, f, device="cuda")
 
     def library():
-        out.zero_()
+        out.copy_(bias.expand(n_events + 1, f))
         out.index_add_(0, idx, torch.bmm(torch.index_select(rows_pad, 0, take_flat)
                                          .view(g, m, c), kg).view(-1, f))
 
     ms = graph_time_ms(lambda: site_grouped_matmul(*args))
     plain_ms = graph_time_ms(lambda: site_grouped_matmul_plain(*args))
     library_ms = graph_time_ms(library)
-    filled = int(((take > 0) & (ev > 0)).sum())
-    n_bytes = 4 * (rows.numel() + k3.numel() + 2 * g * m + g + n_events * f)
-    b_ms, by = bound_ms(n_bytes, 2.0 * c * f * filled)
-    print(f"K2 site_grouped_matmul: groups={g} MAX={m} filled={filled} C={c} F={f} "
-          f"B={n_events} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-          f"bound_ms={b_ms:.5f} max_abs_err={err:.3g}", flush=True)
+    ms_run = graph_time_ms(lambda: site_grouped_matmul(*args), calls=RUN_CALLS)
+    library_ms_run = graph_time_ms(library, calls=RUN_CALLS)
+    # the function gathers the rows of live slots only (each once) and
+    # multiplies each live slot once
+    live = (take > 0) & (ev > 0) & (ev <= n_events)
+    n_live = int(live.sum())
+    rows_read = int(torch.unique(take[live]).numel())
+    n_bytes = 4 * (rows_read * c + k3.numel() + 2 * g * m + g + f + n_events * f)
+    b_ms, by = bound_ms(n_bytes, 2.0 * c * f * n_live)
+    print(f"K2 site_grouped_matmul: {layout} C={c} F={f} B={n_events} ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.6f} "
+          f"({n_bytes} bytes, {rows_read} rows gathered) max_abs_err={err:.3g}; in a graph of {RUN_CALLS} calls: ms={ms_run:.5f} "
+          f"library_ms={library_ms_run:.5f}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=by, max_abs_err=err)
 
@@ -347,7 +417,11 @@ def main() -> int:
               for i in range(N_CHUNKS)]
     inputs = [(ch["coords"], (ch["waveforms"] / MAX_RANGE).astype(np.float32))
               for ch in chunks]
-    model = SubMPSDNet(cfg, generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    model = SubMPSDNet(cfg, generator=gen)
+    with torch.no_grad():
+        # initialisation leaves the head's bias zero, which K2 now adds
+        model.head0.bias.normal_(generator=gen)
     state = model.state_dict()
     server = InferenceModel(cfg, state)
     t0 = time.perf_counter()
@@ -357,6 +431,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     # -- 3. kernels against their plain versions ------------------------------
+    probe = torch.zeros(16, device="cuda")
+    print(f"timing floor: a graph of one 16-float add replays in "
+          f"{graph_time_ms(lambda: probe.add_(1)):.5f} ms; in a graph of {RUN_CALLS} "
+          f"such adds, each takes {graph_time_ms(lambda: probe.add_(1), RUN_CALLS):.5f} ms",
+          flush=True)
     coords0, feats0 = inputs[0]
     task = server.task
     block = FileBlock(coords0, feats0, np.zeros(EVENTS_PER_CHUNK, np.int64))
@@ -375,6 +454,10 @@ def main() -> int:
     }
     results["subm_conv_rows"]["max_abs_err"] = max(
         results["subm_conv_rows"]["max_abs_err"], check_subm_conv_rows_adversarial(rng))
+    head = task.model.head0
+    results["site_grouped_matmul"]["max_abs_err"] = max(
+        results["site_grouped_matmul"]["max_abs_err"],
+        check_site_grouped_matmul_adversarial(rng, head.cin, head.features))
 
     # -- 4. serving path ------------------------------------------------------
     server.dispatch_phases = dict.fromkeys(server.dispatch_phases, 0.0)
@@ -397,8 +480,10 @@ def main() -> int:
     # other taps
     k1_grids = sum(1 if m.kernel_size == 1 else 2 for m in task.model.stack.modules()
                    if isinstance(m, RowSubMConv2d))
+    # K2: one grid writes the head's bias into the event rows, one adds the
+    # slots' products
     assert launches == {"subm_conv_rows": k1_grids * N_CHUNKS,
-                        "site_grouped_matmul": N_CHUNKS,
+                        "site_grouped_matmul": 2 * N_CHUNKS,
                         "waveform_features": 0}, launches
     for out in logits:
         assert out.shape == (EVENTS_PER_CHUNK, cfg.system_config.n_type), out.shape

@@ -105,6 +105,75 @@ def conv_case(rng: np.random.Generator, kind: str, n_events: int, k: int,
     return c, feats, kernel, bias, mask
 
 
+SITE_LAYOUT_FEATURES = ("duplicate_sites", "stitched_groups", "events_past_end",
+                        "ragged_max")
+
+
+def site_layout_case(rng: np.random.Generator, features, n_events: int, c: int, f: int):
+    """Inputs of the site-grouped head on a slot layout made by hand to
+    stress it, all numpy: rows [N, c] (11 zero padding rows at the end), k3
+    [c, S, f], take1 and ev1 [G, MAX] int32 (1-based, 0 = empty), site1 [G]
+    int32 (1-based) and bias [f].
+
+    Every such layout has its filled slots at random places in their groups
+    (not a prefix), rows in no event order, empty slots that name an event
+    and filled slots that name none (both add nothing). ``features`` adds
+    any of ``"duplicate_sites"`` (a third of the events have two rows at one
+    site, so one group adds two slots into one event row),
+    ``"stitched_groups"`` (G = 2·S + 7, as a stitched multi-host layout
+    has: every site twice, and 7 groups whose site lies outside [1, S] and
+    is clamped), ``"events_past_end"`` (a tenth of the filled slots name an
+    event past ``n_events``: dropped) and ``"ragged_max"`` (MAX = 600, not a
+    power of two, with each group's filled slots in its last 2·(largest
+    group) ≤ 300 slots, so that the first 300 slots of every group, a whole
+    tile of the CUDA kernel, are empty)."""
+    unknown = set(features) - set(SITE_LAYOUT_FEATURES)
+    if unknown:
+        raise ValueError(f"unknown site layout features {sorted(unknown)}")
+    s = NX * NY
+    sites, events = [], []
+    for e in range(n_events):
+        at = rng.choice(s, size=int(rng.integers(1, 5)), replace=False)
+        if "duplicate_sites" in features and rng.random() < 1 / 3:
+            at = np.append(at, at[0])
+        sites.append(at)
+        events.append(np.full(at.shape, e))
+    order = rng.permutation(sum(a.size for a in sites))
+    sites = np.concatenate(sites)[order]
+    events = np.concatenate(events)[order]
+    n = sites.size
+    if "events_past_end" in features:
+        events = np.where(rng.random(n) < 0.1, n_events + rng.integers(0, 50, n), events)
+    site1 = np.arange(1, s + 1)
+    if "stitched_groups" in features:
+        site1 = np.concatenate([site1, rng.permutation(site1),
+                                [0, -3, s + 1, s + 9, 0, s + 2, 2 * s]])
+    # each row goes to one of the groups of its site
+    by_site = [np.flatnonzero(np.clip(site1 - 1, 0, s - 1) == k) for k in range(s)]
+    group = np.asarray([rng.choice(by_site[k]) for k in sites])
+    counts = np.bincount(group, minlength=site1.size)
+    span = 2 * int(counts.max())
+    max_slots = 600 if "ragged_max" in features else span
+    if span > max_slots // 2 and "ragged_max" in features:
+        raise ValueError(f"{n_events} events overflow the last half of MAX={max_slots}")
+    take = np.zeros((site1.size, max_slots), np.int32)
+    ev = np.zeros((site1.size, max_slots), np.int32)
+    for g in np.flatnonzero(counts):
+        rows_g = np.flatnonzero(group == g)
+        slots = max_slots - span + rng.choice(span, size=rows_g.size, replace=False)
+        take[g, slots] = rows_g + 1
+        ev[g, slots] = events[rows_g] + 1
+    filled = take > 0
+    stray = ~filled & (rng.random(take.shape) < 0.05)
+    ev[stray] = rng.integers(1, n_events + 1, size=int(stray.sum()))
+    ev[filled & (rng.random(take.shape) < 0.03)] = 0
+    rows = np.zeros((n + 11, c), np.float32)
+    rows[:n] = rng.normal(size=(n, c))
+    k3 = (rng.normal(size=(c, s, f)) / np.sqrt(c * s)).astype(np.float32)
+    bias = rng.normal(size=(f,)).astype(np.float32)
+    return rows, k3, take, ev, site1.astype(np.int32), bias
+
+
 def adversarial_waveforms(rng: np.random.Generator, n: int, s: int) -> np.ndarray:
     """Rows [n, s] float64 that stress the waveform features: zeros,
     constant, delta spike, plateau, signed noise, sharp onset, tie comb and

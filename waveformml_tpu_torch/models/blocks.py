@@ -100,6 +100,5 @@ class FoldedSiteLinear(nn.Module):
                              "batches with TaskBase.prepare_block")
         k3 = self.weight.view(self.cin, NX * NY, self.features)
         fn = site_grouped_matmul_plain if self.plain else site_grouped_matmul
-        out = fn(rows, k3, plans["site_take"], plans["site_ev"], plans["site_s"],
-                 batch.n_events)
-        return out + self.bias
+        return fn(rows, k3, plans["site_take"], plans["site_ev"], plans["site_s"],
+                  batch.n_events, self.bias)

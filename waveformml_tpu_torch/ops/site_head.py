@@ -4,8 +4,9 @@ detector sites as the groups (counterpart of waveformml_tpu/ops/site_head.py).
 The host sorts a batch's rows by site into a ``[S, MAX]`` slot grid
 (``host_site_layout``). The device gathers each slot's row, multiplies it by
 its site's ``[C, F]`` slice of the Linear kernel and adds the result into
-its event's output row. That is kernel K2 (``csrc/site_head.cu``) on the
-card and ``site_grouped_matmul_plain`` on the CPU.
+its event's output row, which starts from the Linear's bias. That is kernel
+K2 (``csrc/site_head.cu``) on the card and ``site_grouped_matmul_plain`` on
+the CPU.
 
 Encoding: ``site_take``/``site_ev`` are 1-based with 0 = empty slot and
 ``site_s`` is the 1-based site of each group, so zero padding anywhere
@@ -14,7 +15,7 @@ means "empty".
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -61,10 +62,11 @@ def host_site_layout(coords: np.ndarray, mask: np.ndarray,
 
 def site_grouped_matmul_plain(rows: torch.Tensor, k3: torch.Tensor,
                               take1: torch.Tensor, ev1: torch.Tensor,
-                              site1: torch.Tensor, n_events: int) -> torch.Tensor:
+                              site1: torch.Tensor, n_events: int,
+                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of K2: gather (slot 0 reads a prepended zero
     row), one batched GEMM per site group, event scatter-add (slot 0 and
-    events past ``n_events`` are dropped)."""
+    events past ``n_events`` are dropped), then the bias if one is given."""
     g, max_slots = take1.shape
     c, f = rows.shape[1], k3.shape[2]
     padded = torch.cat([rows.new_zeros(1, c), rows])
@@ -76,14 +78,29 @@ def site_grouped_matmul_plain(rows: torch.Tensor, k3: torch.Tensor,
     idx = torch.where((evs > 0) & (evs <= n_events), evs - 1, n_events)
     out = torch.zeros((n_events + 1, f), dtype=torch.float32, device=rows.device)
     out.index_add_(0, idx, rowlog.reshape(g * max_slots, f))
-    return out[:n_events]
+    out = out[:n_events]
+    return out if bias is None else out + bias.float()
 
 
 _FUNCTIONS = {"site_grouped_matmul_fwd":
-              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+              "site_grouped_matmul_tile_slots": []}
 
 
-def _check(rows, k3, take1, ev1, site1) -> None:
+def output_stride(f: int) -> int:
+    """Row stride, in floats, of the kernel's ``[n_events, F]`` output: F
+    rounded up to a multiple of 4, so that every row is 16-byte aligned and
+    takes float4 adds."""
+    return (f + 3) // 4 * 4
+
+
+def tile_slots() -> int:
+    """Slots K2's accumulate block lists and adds at a time, as the built
+    kernel has it: a tile whose slots are all empty is skipped."""
+    return native.load("site_head", _FUNCTIONS).site_grouped_matmul_tile_slots()
+
+
+def _check(rows, k3, take1, ev1, site1, bias) -> None:
     if rows.dim() != 2 or k3.dim() != 3 or take1.dim() != 2:
         raise ValueError("expected rows [N, C], k3 [C, S, F], take1/ev1 [G, MAX], "
                          "site1 [G]")
@@ -93,12 +110,15 @@ def _check(rows, k3, take1, ev1, site1) -> None:
         raise ValueError(f"shape mismatch: rows {tuple(rows.shape)}, k3 "
                          f"{tuple(k3.shape)}, take1 {tuple(take1.shape)}, ev1 "
                          f"{tuple(ev1.shape)}, site1 {tuple(site1.shape)}")
-    tensors = (rows, k3, take1, ev1, site1)
+    if bias is not None and bias.shape != (k3.shape[2],):
+        raise ValueError(f"bias {tuple(bias.shape)} != ({k3.shape[2]},)")
+    tensors = [rows, k3, take1, ev1, site1] + ([bias] if bias is not None else [])
     if any(t.device != rows.device for t in tensors):
         raise ValueError("all operands must be on one device")
     if rows.is_cuda:
-        if rows.dtype != torch.float32 or k3.dtype != torch.float32:
-            raise TypeError("the CUDA kernel takes float32 rows and k3")
+        if any(t.dtype != torch.float32 for t in (rows, k3)) or (
+                bias is not None and bias.dtype != torch.float32):
+            raise TypeError("the CUDA kernel takes float32 rows, k3 and bias")
         if any(t.dtype != torch.int32 for t in (take1, ev1, site1)):
             raise TypeError("the CUDA kernel takes int32 take1, ev1 and site1")
         if not all(t.is_contiguous() for t in tensors):
@@ -106,38 +126,55 @@ def _check(rows, k3, take1, ev1, site1) -> None:
 
 
 def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tensor,
-                        ev1: torch.Tensor, site1: torch.Tensor,
-                        n_events: int) -> torch.Tensor:
-    """Event outputs of the folded first Linear layer, site-grouped.
+                        ev1: torch.Tensor, site1: torch.Tensor, n_events: int,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Event outputs of the folded first Linear layer, site-grouped, with
+    its bias.
 
     rows [N, C] (padding rows already zero), k3 [C, S, F] (the flatten-order
     kernel reshaped), take1/ev1 [G, MAX] int32 1-based (0 empty), site1 [G]
-    int32 1-based → [n_events, F] float32, no bias. CUDA tensors run kernel
-    K2 (``csrc/site_head.cu``, which replaces the XLA gather + einsum +
-    scatter-add of waveformml_tpu/ops/site_head.py:site_grouped_matmul);
-    CPU tensors run ``site_grouped_matmul_plain``. Row indices must lie in
-    ``[0, N]``. The kernel adds with atomics, so its result can differ from
-    run to run by a few ulp of each output.
+    int32 1-based (clamped to [1, S]), bias [F] or None (zero) → [n_events,
+    F] float32. Row indices must lie in ``[0, N]``. CUDA tensors run kernel
+    K2 (``csrc/site_head.cu``); CPU tensors run ``site_grouped_matmul_plain``.
 
-    On the H100 it is bound by bytes (~800 FLOP per filled slot against
-    ~230 bytes); K2 reads each group's weight slice and rows into shared
-    memory once, skips empty slot tiles and writes each slot's outputs with
-    one atomic add each (the note in ``csrc/site_head.cu`` has the details).
+    K2 replaces the XLA gather + einsum + scatter-add of
+    waveformml_tpu/ops/site_head.py:site_grouped_matmul and the bias add
+    after it in waveformml_tpu/models/blocks.py:FoldedSiteLinear. On the
+    H100 it is bound by bytes (~800 FLOP per filled slot against ~230
+    bytes), and at a serving chunk's ~2 MB by the latency of its dependent
+    steps. Its design: no memset and no separate bias add (a first grid
+    writes the bias into every event row, a second, programmatically
+    dependent, adds the products); one block per site group, which stages
+    its weight slice once, lists each tile's live slots and gathers their
+    rows; and float4 adds into the event rows, one RED per 4 outputs. For
+    those, the output is allocated ``[n_events, output_stride(F)]`` (16-byte
+    aligned rows, the only layout the kernel takes) and the ``[:, :F]`` view
+    is returned: for F = 50 rows are 52 floats apart.
+
+    The adds of an event's slots land in an order that varies from run to
+    run, so an output can differ from run to run, and from the plain
+    version, by ~m ulp of the sum of the magnitudes of its m terms and the
+    bias (m ≤ 4 at detector multiplicity): ~1e-7 relative, inside rtol =
+    atol = 1e-5. The note in ``csrc/site_head.cu`` has the details.
     """
-    _check(rows, k3, take1, ev1, site1)
+    _check(rows, k3, take1, ev1, site1, bias)
     if not rows.is_cuda:
-        return site_grouped_matmul_plain(rows, k3, take1, ev1, site1, n_events)
+        return site_grouped_matmul_plain(rows, k3, take1, ev1, site1, n_events, bias)
     g, max_slots = take1.shape
     c, s, f = k3.shape
-    out = torch.zeros((n_events, f), dtype=torch.float32, device=rows.device)
+    ldo = output_stride(f)
+    out = torch.empty((n_events, ldo), dtype=torch.float32, device=rows.device)
     lib = native.load("site_head", _FUNCTIONS)
     err = lib.site_grouped_matmul_fwd(
-        rows.data_ptr(), k3.data_ptr(), take1.data_ptr(), ev1.data_ptr(),
-        site1.data_ptr(), out.data_ptr(), g, max_slots, c, s, f, n_events,
+        rows.data_ptr(), k3.data_ptr(), bias.data_ptr() if bias is not None else None,
+        take1.data_ptr(), ev1.data_ptr(), site1.data_ptr(), out.data_ptr(), g,
+        max_slots, c, s, f, ldo, n_events,
         torch.cuda.current_stream(rows.device).cuda_stream)
     native.check_launch(lib, err, "site_grouped_matmul")
-    site_grouped_matmul.launches += 1
-    return out
+    if n_events and f:
+        # the bias grid, and where there are slots the products' grid
+        site_grouped_matmul.launches += 2 if g and max_slots else 1
+    return out[:, :f]
 
 
 site_grouped_matmul.launches = 0
