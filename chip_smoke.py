@@ -19,7 +19,12 @@ order, it:
    (duplicate sites, stitched groups with G > S, events past the batch, a
    ragged MAX that leaves whole tiles empty) with each layout's groups,
    slots, live tiles and output row stride, K3 also on adversarial rows at the detector's sample
-   counts and on rows with a gap between them;
+   counts and on rows with a gap between them; the backward kernels at
+   the training shapes, K4 (row-conv weight gradient, each output within
+   1e-5 of the sum of its terms' magnitudes) at each conv and on K1's
+   adversarial plans, K5 (site-head backward) at the head and on K2's
+   layouts, each also bitwise equal over two runs, and K1 as the feature
+   gradient (reversed, transposed kernel) at convs 1-2;
 4. serves SubMPSD (config/examples/SubMPSD.json widths, seeded random
    weights and head bias) through ``InferenceModel`` over 4 chunks of 4096
    synthetic events, checks every launch count and holds the logits
@@ -27,8 +32,17 @@ order, it:
    for a few events, on the CPU;
 5. runs ``waveform_features`` over the first PMT's half of those chunks'
    waveforms and checks its launch count and outputs;
-6. prints one JSON line describing every kernel, the card line again, and
-   as its last line ``{"ok": true, "device": {...}}``.
+6. trains SubMPSD from the same weights with ``Trainer.fit`` (SGD with
+   nesterov momentum 0.98, ExponentialLR) for 2 epochs of 4 steps over
+   chunks of 4096 labelled events of both kinds, one validation chunk an
+   epoch; checks the launch counts of every kernel, prints each step's
+   breakdown (host prep, copy in, device time of forward + backward +
+   optimizer, wall), holds the per-step losses and the first step's
+   gradients against the same run with the plain versions, and serves the
+   validation chunk from the best checkpoint;
+7. prints one JSON line describing every kernel (launches: those of the
+   training run, K3's of the features path), the card line again, and as
+   its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
 Without CUDA, or outside a checkout, it exits non-zero before printing any
@@ -41,6 +55,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,9 +90,22 @@ K3_SAMPLE_COUNTS = (59, 65, 130, 150)
 # and sums K²·Cin products in another order, K2 adds an event's rows into
 # its bias with atomics in a varying order, K3 rounds each row's sums once
 # (double) where the plain version sums in fp32, so its total and psd are
-# held to the tolerance times each row's condition number (features_close)
-TOL = {"subm_conv_rows": 1e-5, "site_grouped_matmul": 1e-5, "waveform_features": 1e-5}
+# held to the tolerance times each row's condition number (features_close);
+# K4 and K5 sum thousands of fp32 terms in another order, so each output is
+# held to the tolerance times the sum of its terms' magnitudes (close_to_terms)
+TOL = {"subm_conv_rows": 1e-5, "site_grouped_matmul": 1e-5, "waveform_features": 1e-5,
+       "subm_conv_rows_wgrad": 1e-5, "site_grouped_matmul_bwd": 1e-5}
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
+# training phase: epochs, training and validation chunks; per-step losses
+# against the plain versions' run (the same init and batches: only the
+# kernels' summation orders and K1's dropped small·small TF32 terms differ),
+# and the first step's gradients (sums over ~10^4 rows in other orders), the
+# absolute part of each parameter's tolerance GRAD_ATOL times its largest
+# |gradient|, that of a conv bias before a BatchNorm (zero up to rounding)
+# at least GRAD_BN_FLOOR times the largest |gradient| of any parameter
+TRAIN_EPOCHS, TRAIN_CHUNKS, VAL_CHUNKS = 2, 4, 1
+TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4
+GRAD_RTOL, GRAD_ATOL, GRAD_BN_FLOOR = 1e-3, 1e-4, 1e-2
 
 
 def card_line() -> str:
@@ -329,6 +357,212 @@ def check_site_grouped_matmul(model, db):
                 bound_by=by, max_abs_err=err)
 
 
+def close_to_terms(got, want, scale, tol: float, label: str) -> float:
+    """The backward kernels' tolerance: each output within ``tol`` times the
+    sum of the magnitudes of its terms (``scale``, the plain version on the
+    operands' magnitudes), since a sum of many terms in another order is off
+    by a few ulp of that sum; returns the largest |error|."""
+    err = 0.0
+    for g, w, s in zip(got, want, scale):
+        excess = float(((g - w).abs() - tol * s).max())
+        assert excess <= 0, f"{label} off by {excess:.3g} beyond {tol}·Σ|terms|"
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def check_bitwise(fn, label: str) -> None:
+    """Two calls of fn give the same bits."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), f"{label}: two runs differ"
+
+
+def check_subm_conv_rows_wgrad(model, db):
+    """K4 at the three convs of the SubMPSD stack on one chunk's batch (each
+    layer's input, and a masked cotangent of its output width), bitwise
+    determinism, and K1 as d_feats at layers 1-2 against the plain
+    _subm_bwd d_feats."""
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+    from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_bwd_plain,
+                                                   subm_conv_rows_wgrad,
+                                                   subm_conv_rows_wgrad_plain,
+                                                   transposed_kernel)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    mask = db["mask"]
+    n = mask.shape[0]
+    convs = [m for m in model.stack.modules() if isinstance(m, RowSubMConv2d)]
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0,
+                  max_abs_err=0.0)
+    d_feats_err = 0.0
+    for layer, conv in enumerate(convs):
+        kk, cin, cout = conv.weight.shape
+        plan = db[f"plan_k{conv.kernel_size}"]
+        if layer == 0:
+            feats = db["feats"]
+        else:
+            feats = torch.relu(torch.randn(n, cin, device="cuda", generator=gen))
+            feats = torch.where(mask[:, None], feats, 0.0).contiguous()
+        g = torch.randn(n, cout, device="cuda", generator=gen) / n ** 0.5
+        g = torch.where(mask[:, None], g, 0.0).contiguous()
+        args = (feats, plan, g, mask)
+        got = subm_conv_rows_wgrad(*args)
+        want = subm_conv_rows_wgrad_plain(*args)
+        scale = subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask)
+        err = close_to_terms(got, want, scale, TOL["subm_conv_rows_wgrad"], "K4")
+        check_bitwise(lambda: subm_conv_rows_wgrad(*args), f"K4 layer {layer}")
+        if layer > 0:
+            weight = conv.weight.detach()
+            d_feats = subm_conv_rows(g, plan, transposed_kernel(weight), None, mask)
+            d_want = subm_conv_rows_bwd_plain(feats, plan, weight, mask, g)[0]
+            torch.cuda.synchronize()
+            e = max_abs_err([d_feats], [d_want], TOL["subm_conv_rows"])
+            print(f"K1 as d_feats, layer {layer}: N={n} K²={kk} {cout}->{cin} "
+                  f"max_abs_err={e:.3g}", flush=True)
+            d_feats_err = max(d_feats_err, e)
+        padded = torch.cat([feats, feats.new_zeros(1, cin)])
+        idx = torch.where(plan >= 0, plan, n).long().reshape(-1)
+        ms = graph_time_ms(lambda: subm_conv_rows_wgrad(*args))
+        plain_ms = graph_time_ms(lambda: subm_conv_rows_wgrad_plain(*args))
+        library_ms = graph_time_ms(lambda: (
+            torch.mm(torch.index_select(padded, 0, idx).view(n, kk * cin).t(), g), g.sum(0)))
+        needed = int(((plan >= 0) & mask[:, None]).sum())
+        n_real = int(mask.sum())
+        # feats and g over the real rows (no padding row is listed or
+        # summed), the plan and mask over all N, dW and db written once
+        n_bytes = 4 * (n_real * cin + n * kk + n_real * cout + kk * cin * cout + cout) + n
+        # on the card's fastest fp32-accurate units, as K1's bound: three
+        # TF32 passes of 2·Cin·Cout per needed row-tap (db's n_real·Cout adds
+        # are < 1e-4 of that and left out)
+        flops = 3 * 2.0 * cin * cout * needed
+        b_ms, by = bound_ms(n_bytes, flops, TF32_FLOPS_PER_S)
+        print(f"K4 subm_conv_rows_wgrad layer {layer}: N={n} K²={kk} {cin}x{cout} ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
+              f"max_abs_err={err:.3g} real rows {n_real}, row-taps {needed}, bitwise equal "
+              f"over two runs",
+              flush=True)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                         ("bound_ms", b_ms), ("bytes", n_bytes), ("flops", flops)):
+            totals[key] += val
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+    totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"], TF32_FLOPS_PER_S)[1]
+    return totals, d_feats_err
+
+
+def check_subm_conv_rows_wgrad_adversarial(rng) -> float:
+    """K4 against its plain version on K1's adversarial plans, bitwise
+    determinism included; returns the largest |error|."""
+    from waveformml_tpu_torch.datasets.synthetic import conv_case
+    from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows_wgrad,
+                                                   subm_conv_rows_wgrad_plain)
+
+    err = 0.0
+    for label, kind, k, cin, cout, n_events, n_rows in K1_ADVERSARIAL:
+        coords, feats, _, _, mask = conv_case(rng, kind, n_events, k, cin, cout, n_rows)
+        plan = host_neighbor_plan(coords, mask, n_events, k)
+        g = rng.normal(size=(feats.shape[0], cout)).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (feats, plan, g, mask)]
+        got = subm_conv_rows_wgrad(*args)
+        want = subm_conv_rows_wgrad_plain(*args)
+        scale = subm_conv_rows_wgrad_plain(args[0].abs(), args[1], args[2].abs(), args[3])
+        e = close_to_terms(got, want, scale, TOL["subm_conv_rows_wgrad"], "K4")
+        check_bitwise(lambda: subm_conv_rows_wgrad(*args), f"K4 {label}")
+        print(f"K4 adversarial, {label}: N={feats.shape[0]} K²={k * k} {cin}x{cout} "
+              f"max_abs_err={e:.3g}, bitwise equal over two runs", flush=True)
+        err = max(err, e)
+    return err
+
+
+def check_site_grouped_matmul_bwd(model, db):
+    """K5 at the SubMPSD head (C=8, F=50, with its bias) on one chunk's slot
+    layout, bitwise determinism included."""
+    from waveformml_tpu_torch.detector import NX, NY
+    from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul_bwd,
+                                                    site_grouped_matmul_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    mask = db["mask"]
+    head = model.head0
+    c, f, s = head.cin, head.features, NX * NY
+    n = mask.shape[0]
+    rows = torch.relu(torch.randn(n, c, device="cuda", generator=gen))
+    rows = torch.where(mask[:, None], rows, 0.0).contiguous()
+    k3 = head.weight.detach().view(c, s, f)
+    take, ev, site = db["plan_site_take"], db["plan_site_ev"], db["plan_site_s"]
+    n_events = db["labels"].shape[0]
+    d_out = torch.randn(n_events, f, device="cuda", generator=gen) / n_events
+    args = (d_out, rows, k3, take, ev, site, n_events)
+    got = site_grouped_matmul_bwd(*args)
+    want = site_grouped_matmul_bwd_plain(*args)
+    scale = site_grouped_matmul_bwd_plain(d_out.abs(), rows.abs(), k3.abs(), *args[3:])
+    err = close_to_terms(got, want, scale, TOL["site_grouped_matmul_bwd"], "K5")
+    check_bitwise(lambda: site_grouped_matmul_bwd(*args), "K5")
+    g, m = take.shape
+    take_flat = take.reshape(-1).long()
+    evs = ev.reshape(-1).long()
+    live = (evs > 0) & (evs <= n_events)
+    ev_idx = torch.where(live, evs - 1, n_events)
+    sg = (site.long() - 1).clamp(0, s - 1)
+    kg = k3[:, sg, :].permute(1, 0, 2).contiguous()
+    d_pad = torch.empty(n_events + 1, f, device="cuda")
+    rows_pad = torch.cat([rows.new_zeros(1, c), rows])
+    d_rows = torch.empty(n + 1, c, device="cuda")
+    d_k3 = torch.empty(s, c, f, device="cuda")
+
+    def library():
+        d_pad[:n_events].copy_(d_out)
+        d_pad[n_events].zero_()
+        d_rowlog = torch.index_select(d_pad, 0, ev_idx).view(g, m, f)
+        d_rows.zero_().index_add_(0, take_flat, torch.bmm(d_rowlog, kg.transpose(1, 2))
+                                  .view(-1, c))
+        rs = torch.index_select(rows_pad, 0, take_flat).view(g, m, c)
+        d_k3.zero_().index_add_(0, sg, torch.bmm(rs.transpose(1, 2), d_rowlog))
+        return d_out.sum(0)
+
+    ms = graph_time_ms(lambda: site_grouped_matmul_bwd(*args))
+    plain_ms = graph_time_ms(lambda: site_grouped_matmul_bwd_plain(*args))
+    library_ms = graph_time_ms(library)
+    n_live = int((live & (take_flat > 0)).sum())
+    rows_read = int(torch.unique(take_flat[live & (take_flat > 0)]).numel())
+    # d_out, the live slots' rows, k3 and the layout read once; d_rows, d_k3
+    # and d_bias written once
+    n_bytes = 4 * (n_events * f + rows_read * c + c * s * f + 2 * g * m + g
+                   + n * c + c * s * f + f)
+    # two products of 2·C·F FLOP per live slot (d_rows, d_k3) and the bias sum
+    b_ms, by = bound_ms(n_bytes, 4.0 * c * f * n_live + n_events * f)
+    print(f"K5 site_grouped_matmul_bwd: groups={g} MAX={m} live={n_live} C={c} F={f} "
+          f"B={n_events} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+          f"bound_ms={b_ms:.6f} ({by}) max_abs_err={err:.3g}, bitwise equal over two runs",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=by, max_abs_err=err)
+
+
+def check_site_grouped_matmul_bwd_adversarial(rng, c, f) -> float:
+    """K5 against its plain version on K2's hand-made layouts, bitwise
+    determinism included; returns the largest |error|."""
+    from waveformml_tpu_torch.datasets.synthetic import site_layout_case
+    from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul_bwd,
+                                                    site_grouped_matmul_bwd_plain)
+
+    err = 0.0
+    for features in K2_ADVERSARIAL:
+        *arrays, _ = site_layout_case(rng, features, EVENTS_PER_CHUNK, c, f)
+        d_out = rng.normal(size=(EVENTS_PER_CHUNK, f)).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in [d_out] + arrays] + [EVENTS_PER_CHUNK]
+        got = site_grouped_matmul_bwd(*args)
+        want = site_grouped_matmul_bwd_plain(*args)
+        scale = site_grouped_matmul_bwd_plain(*(a.abs() for a in args[:3]), *args[3:])
+        e = close_to_terms(got, want, scale, TOL["site_grouped_matmul_bwd"], "K5")
+        check_bitwise(lambda: site_grouped_matmul_bwd(*args), f"K5 {'+'.join(features)}")
+        print(f"K5 adversarial, {'+'.join(features)}: groups={arrays[2].shape[0]} "
+              f"MAX={arrays[2].shape[1]} max_abs_err={e:.3g}, bitwise equal over two runs",
+              flush=True)
+        err = max(err, e)
+    return err
+
+
 def check_waveform_features(wfs_main, wfs_150, wfs_pairs, rng):
     """K3 on the feature path's input (S=65), on synthetic pulses at S=150,
     on adversarial rows at each of the detector's sample counts and on the
@@ -375,13 +609,138 @@ def check_waveform_features(wfs_main, wfs_150, wfs_pairs, rng):
                 bound_by=by, max_abs_err=err)
 
 
+def kernel_counts() -> dict:
+    """Each kernel wrapper's launch count, by name."""
+    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgrad
+    from waveformml_tpu_torch.ops.site_head import site_grouped_matmul, site_grouped_matmul_bwd
+    from waveformml_tpu_torch.ops.waveform_features import waveform_features
+
+    return {fn.__name__: fn for fn in (subm_conv_rows, site_grouped_matmul, waveform_features,
+                                       subm_conv_rows_wgrad, site_grouped_matmul_bwd)}
+
+
+def make_trainer(cfg, state, plain: bool, checkpoint_dir=None):
+    """A Trainer on the card over SubMPSD from ``state``, with the kernels
+    or (``plain``) their plain versions, forward and backward."""
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+    from waveformml_tpu_torch.engineering.trainer import Trainer
+    from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+
+    task = LitPSD(cfg)
+    task.model.load_state_dict(state)
+    for module in task.model.modules():
+        if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
+            module.plain = plain
+    return Trainer(cfg, task, checkpoint_dir=checkpoint_dir, max_epochs=TRAIN_EPOCHS)
+
+
+def run_training(cfg, state, train, val):
+    """Trainer.fit on the card, with the kernels, then with the plain
+    versions from the same init and batches; the launch counts of the
+    kernels' run, the per-step breakdown, the losses against the plain
+    run's, the first step's gradients against the plain run's, and the best
+    checkpoint served through InferenceModel. Returns the launch counts."""
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+    from waveformml_tpu_torch.inference.model import InferenceModel
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+
+    data = BlockDataModule(train, val)
+    counted = kernel_counts()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = make_trainer(cfg, state, plain=False, checkpoint_dir=ckpt_dir)
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.fit(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        steps = TRAIN_EPOCHS * len(train)
+        evals = TRAIN_EPOCHS * len(val)
+        convs = [m for m in trainer.task.model.stack.modules() if isinstance(m, RowSubMConv2d)]
+        k1_fwd = sum(1 if m.kernel_size == 1 else 2 for m in convs)
+        # d_feats: K1 again for every conv but the first (its input is the data)
+        k1_bwd = sum(1 if m.kernel_size == 1 else 2 for m in convs[1:])
+        want = {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
+                "site_grouped_matmul": (steps + evals) * 2,
+                "waveform_features": 0,
+                "subm_conv_rows_wgrad": steps * 2 * len(convs),
+                "site_grouped_matmul_bwd": steps * 3}
+        assert launches == want, (launches, want)
+        print(f"training: {TRAIN_EPOCHS} epochs x {len(train)} steps of {EVENTS_PER_CHUNK} "
+              f"events, {len(val)} validation chunk(s) an epoch, in {wall:.3f} s; launches "
+              f"{launches} (a step: K1 {k1_fwd} forward + {k1_bwd} d_feats, K2 2, "
+              f"K4 {2 * len(convs)}, K5 3); metrics {metrics}", flush=True)
+        for i, p in enumerate(trainer.step_phases):
+            print(f"training breakdown step {i}: host prep {p['host_prep_s'] * 1e3:.3f} ms, "
+                  f"copy in {p['h2d_s'] * 1e3:.3f} ms, forward + backward + optimizer "
+                  f"{p['device_ms']:.4f} ms (CUDA events), wall {p['wall_s'] * 1e3:.3f} ms, "
+                  f"{1 / p['wall_s']:.2f} steps/s, {p['events'] / p['wall_s']:.1f} events/s",
+                  flush=True)
+        losses = trainer.step_losses
+        assert len(losses) == steps and all(np.isfinite(losses)), losses
+
+        plain = make_trainer(cfg, state, plain=True)
+        for fn in counted.values():
+            fn.launches = 0
+        plain.fit(data)
+        assert all(fn.launches == 0 for fn in counted.values())
+        np.testing.assert_allclose(losses, plain.step_losses, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+        print(f"training losses {np.round(losses, 6).tolist()} match the plain versions' "
+              f"{np.round(plain.step_losses, 6).tolist()} (rtol={TRAIN_RTOL}, "
+              f"atol={TRAIN_ATOL})", flush=True)
+
+        # the first step's gradients, kernels against plain versions, each
+        # parameter to the scale GRAD_ATOL and GRAD_BN_FLOOR describe
+        grads = []
+        for use_plain in (False, True):
+            t = make_trainer(cfg, state, plain=use_plain)
+            t.training_step(t.device_batch(train[0])[0])
+            grads.append({k: p.grad for k, p in t.task.model.named_parameters()})
+        specs = t.task.model.stack.specs
+        before_bn = {f"stack.l{i}.bias" for i, s in enumerate(specs[:-1])
+                     if s[0] == "subm" and specs[i + 1][0] == "bn"}
+        largest = max(float(g.abs().max()) for g in grads[1].values())
+        ratios = []
+        for name, want_grad in grads[1].items():
+            got_grad = grads[0][name]
+            scale = float(want_grad.abs().max())
+            if name in before_bn:
+                scale = max(scale, GRAD_BN_FLOOR * largest)
+            torch.testing.assert_close(got_grad, want_grad, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL * scale,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+            diff = float((got_grad - want_grad).abs().max())
+            ratios.append(f"{name} {diff / scale:.3g} of {scale:.4g}")
+        print(f"step 1 gradients of all {len(grads[0])} parameters match the plain "
+              f"versions' (rtol={GRAD_RTOL}, atol={GRAD_ATOL}·each one's largest |gradient|, "
+              f"floored at {GRAD_BN_FLOOR}·{largest:.4g} for the conv biases before a "
+              f"BatchNorm, {sorted(before_bn)}); largest |difference| / scale: "
+              f"{'; '.join(ratios)}", flush=True)
+
+        # the best checkpoint serves the validation chunk
+        server = InferenceModel(cfg, trainer.best_ckpt_path)
+        logits = server(val[0].coords, val[0].feats)
+        assert logits.shape == (val[0].labels.shape[0], cfg.system_config.n_type)
+        assert np.isfinite(logits).all()
+        served = float(torch.nn.functional.cross_entropy(torch.from_numpy(logits),
+                                                         torch.from_numpy(val[0].labels)))
+        np.testing.assert_allclose(served, trainer.best_val_loss, rtol=1e-4)
+        print(f"best checkpoint {os.path.basename(trainer.best_ckpt_path)} serves the "
+              f"validation chunk with loss {served:.6f} (recorded "
+              f"{trainer.best_val_loss:.6f})", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
-    from waveformml_tpu_torch.datasets.synthetic import make_events, synth_waveform_pair
+    from waveformml_tpu_torch.datasets.synthetic import (labelled_block, make_events,
+                                                         synth_waveform_pair)
     from waveformml_tpu_torch.detector import MAX_RANGE
     from waveformml_tpu_torch.inference.model import InferenceModel
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
@@ -458,12 +817,21 @@ def main() -> int:
     results["site_grouped_matmul"]["max_abs_err"] = max(
         results["site_grouped_matmul"]["max_abs_err"],
         check_site_grouped_matmul_adversarial(rng, head.cin, head.features))
+    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(task.model, db)
+    results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
+                                                   d_feats_err)
+    results["subm_conv_rows_wgrad"]["max_abs_err"] = max(
+        results["subm_conv_rows_wgrad"]["max_abs_err"],
+        check_subm_conv_rows_wgrad_adversarial(rng))
+    results["site_grouped_matmul_bwd"] = check_site_grouped_matmul_bwd(task.model, db)
+    results["site_grouped_matmul_bwd"]["max_abs_err"] = max(
+        results["site_grouped_matmul_bwd"]["max_abs_err"],
+        check_site_grouped_matmul_bwd_adversarial(rng, head.cin, head.features))
 
     # -- 4. serving path ------------------------------------------------------
     server.dispatch_phases = dict.fromkeys(server.dispatch_phases, 0.0)
-    subm_conv_rows.launches = 0
-    site_grouped_matmul.launches = 0
-    waveform_features.launches = 0
+    for fn in kernel_counts().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     handles = [server.dispatch(c, f) for c, f in inputs]
     logits = [server.fetch(h) for h in handles]
@@ -485,6 +853,8 @@ def main() -> int:
     assert launches == {"subm_conv_rows": k1_grids * N_CHUNKS,
                         "site_grouped_matmul": 2 * N_CHUNKS,
                         "waveform_features": 0}, launches
+    # serving runs no backward kernel
+    assert all(fn.launches == 0 for name, fn in kernel_counts().items() if name not in launches)
     for out in logits:
         assert out.shape == (EVENTS_PER_CHUNK, cfg.system_config.n_type), out.shape
         assert np.isfinite(out).all()
@@ -532,7 +902,17 @@ def main() -> int:
           f"psd={float(psd.mean()):.4f} total={float(total.mean()):.1f} "
           f"peak={float(peak.mean()):.1f}", flush=True)
 
-    # -- 6. report ------------------------------------------------------------
+    # -- 6. training path -----------------------------------------------------
+    train_rng = np.random.default_rng(SEED + 4)
+    train = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples)
+             for _ in range(TRAIN_CHUNKS)]
+    val = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+    train_launches = run_training(cfg, state, train, val)
+    # the JSON line reports each kernel's launches on the training path where
+    # it runs there, else on the waveform-features path
+    launches = {name: train_launches[name] or launches.get(name, 0) for name in train_launches}
+
+    # -- 7. report ------------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),
@@ -540,6 +920,10 @@ def main() -> int:
                                 "waveformml_tpu/ops/site_head.py:83"),
         "waveform_features": ("cuda", "waveformml_tpu_torch/csrc/waveform_features.cu",
                               "waveformml_tpu/ops/pallas_dsp.py:113"),
+        "subm_conv_rows_wgrad": ("cuda", "waveformml_tpu_torch/csrc/row_conv_wgrad.cu",
+                                 "waveformml_tpu/ops/row_conv.py:257"),
+        "site_grouped_matmul_bwd": ("cuda", "waveformml_tpu_torch/csrc/site_head_bwd.cu",
+                                    "waveformml_tpu/ops/site_head.py:96"),
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():

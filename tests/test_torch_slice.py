@@ -128,7 +128,7 @@ def test_test_outputs_and_accuracy_match_jax(flagship):
     np.testing.assert_allclose(got["logprob"].numpy(), np.asarray(want["logprob"]),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(got["pred"].numpy(), np.asarray(want["pred"]))
-    sums = task.accuracy_sums(outputs, db)
+    sums = task.loss_and_metrics(outputs, db)[2]
     _, _, jsums = flagship["task"].loss_and_metrics(jout, jdb)
     assert float(sums["accuracy_sum"]) == float(jsums["accuracy_sum"])
     assert float(sums["accuracy_count"]) == float(jsums["accuracy_count"]) == N_EVENTS

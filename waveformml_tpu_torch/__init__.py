@@ -2,14 +2,19 @@
 
 The JAX package ``waveformml_tpu`` stays the reference; this package keeps
 its module names so each counterpart is easy to find. It imports torch and
-numpy only. What it ports so far is the serving path of the flagship sparse
-PSD classifier (``config/examples/SubMPSD.json``: ``LitPSD`` +
-``SubMPSDNet``) and the per-waveform DSP feature op, through three kernels
-written by hand:
+numpy only. What it ports so far is the flagship sparse PSD classifier
+(``config/examples/SubMPSD.json``: ``LitPSD`` + ``SubMPSDNet``), served
+(``inference.model.InferenceModel``) and trained on one device
+(``engineering.trainer.Trainer``: masked cross entropy, SGD with nesterov
+momentum, ExponentialLR, masked BatchNorm statistics), and the per-waveform
+DSP feature op, through five kernels written by hand in CUDA C++:
 
-* ``ops.row_conv.subm_conv_rows``        -- CUDA C++ gather-fused TF32 GEMM
-* ``ops.site_head.site_grouped_matmul``  -- CUDA C++ grouped GEMM + scatter-add
-* ``ops.waveform_features.waveform_features`` -- CUDA C++ per-row scan
+* ``ops.row_conv.subm_conv_rows``           -- K1, gather-fused TF32 GEMM (forward,
+  and the feature gradient with the reversed, transposed kernel)
+* ``ops.row_conv.subm_conv_rows_wgrad``     -- K4, the conv's kernel and bias gradients
+* ``ops.site_head.site_grouped_matmul``     -- K2, grouped GEMM + scatter-add
+* ``ops.site_head.site_grouped_matmul_bwd`` -- K5, its backward
+* ``ops.waveform_features.waveform_features`` -- K3, per-row scan
 
 Each kernel has a plain PyTorch version in the same module: the wrapper uses
 it for CPU tensors and launches the kernel (or raises) for CUDA tensors.

@@ -1,5 +1,7 @@
 """Synthetic detector events for tests and the chip smoke run (numpy only;
-counterpart of the generators in waveformml_tpu/datasets/synthetic.py).
+counterpart of the generators in waveformml_tpu/datasets/synthetic.py):
+unlabelled events, labelled chunks of both particle kinds and an in-memory
+data module for the trainer, and the inputs that stress the kernels.
 
 Waveforms are exponential-tail scintillation pulses on the raw ADC scale
 whose left/right amplitude ratio encodes z and whose tail fraction depends
@@ -11,6 +13,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.detector import MAX_RANGE, NX, NY, Z_SCALE
 
 
@@ -57,6 +60,44 @@ def make_events(rng: np.random.Generator, n_events: int, n_samples: int,
         "E": np.asarray(es, dtype=np.float32),
         "z": np.asarray(zs, dtype=np.float32),
     }
+
+
+def labelled_block(rng: np.random.Generator, n_events: int, n_samples: int,
+                   max_mult: int = 4) -> FileBlock:
+    """A chunk of events of both particle kinds, interleaved (the kind of
+    each event drawn at random, its label): coords [N, 3] (x, y, event),
+    waveforms scaled to [0, 1] as features, labels [n_events] int64. Chunks
+    of one kind do not train."""
+    kinds = rng.integers(0, 2, n_events)
+    coords, wfs = [], []
+    for e, kind in enumerate(kinds):
+        ev = make_events(rng, 1, n_samples, kind=int(kind), max_mult=max_mult, start_event=e)
+        coords.append(ev["coords"])
+        wfs.append(ev["waveforms"])
+    return FileBlock(coords=np.concatenate(coords),
+                     feats=(np.concatenate(wfs) / MAX_RANGE).astype(np.float32),
+                     labels=kinds.astype(np.int64))
+
+
+class BlockDataModule:
+    """In-memory ``FileBlock``s behind the data-module interface the
+    trainers take (``setup``, ``train_dataloader``, ``val_dataloader``,
+    ``test_dataloader``, each an iterable of blocks, in order)."""
+
+    def __init__(self, train, val=(), test=()):
+        self.train, self.val, self.test = list(train), list(val), list(test)
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        """Nothing to load: the blocks are in memory."""
+
+    def train_dataloader(self):
+        return list(self.train)
+
+    def val_dataloader(self):
+        return list(self.val)
+
+    def test_dataloader(self):
+        return list(self.test)
 
 
 def conv_case(rng: np.random.Generator, kind: str, n_events: int, k: int,

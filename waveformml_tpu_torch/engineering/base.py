@@ -16,6 +16,7 @@ import torch
 
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
+from waveformml_tpu_torch.nn.functional import build_criterion
 from waveformml_tpu_torch.ops.row_conv import host_neighbor_plan
 from waveformml_tpu_torch.ops.site_head import MIN_CAP, host_site_layout
 from waveformml_tpu_torch.ops.sparse import SparseBatch, bucket_size, pad_sparse
@@ -23,8 +24,8 @@ from waveformml_tpu_torch.registry import retrieve_class
 
 
 class TaskBase:
-    """Owns the model (an ``nn.Module`` on ``device``) and the host-side
-    batch preparation."""
+    """Owns the model (an ``nn.Module`` on ``device``), its criterion and
+    the host-side batch preparation."""
 
     _EVENT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
                       16384, 32768)
@@ -36,6 +37,9 @@ class TaskBase:
             raise NotImplementedError("half_precision (bf16) is not ported yet")
         self.occlude_index = getattr(config.dataset_config, "occlude_index", None)
         self.model = retrieve_class(config.net_config.net_class)(config).to(self.device)
+        self.criterion = build_criterion(
+            config.net_config.criterion_class,
+            getattr(config.net_config, "criterion_params", None))
         # grow-only per-site capacity of the head's slot layout, so that its
         # [S, MAX] shape does not flap between buckets from batch to batch
         self._site_cap = 0
@@ -103,4 +107,11 @@ class TaskBase:
     def apply_model(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Eval forward of the model over a device batch, in float32."""
         self.model.eval()
+        return self.model(self.sparse_batch(db)).float()
+
+    def model_outputs(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
+        """Forward of the model over a device batch in train mode (batch
+        statistics, running statistics updated) or eval mode, in float32,
+        under autograd as the caller has it."""
+        self.model.train(train)
         return self.model(self.sparse_batch(db)).float()

@@ -28,8 +28,8 @@ class InferenceModel:
     """A task's model with frozen weights, serving chunks of events.
 
     ``state_dict_or_path`` is a ``state_dict`` (e.g. from
-    ``convert.flax_to_state_dict``) or the path of one saved with
-    ``torch.save``. ``device=None`` means the card; pass ``device="cpu"`` to
+    ``convert.flax_to_state_dict``), the path of one saved with
+    ``torch.save``, or the path of a ``Trainer`` checkpoint. ``device=None`` means the card; pass ``device="cpu"`` to
     run the plain PyTorch versions of the kernels on the CPU.
     """
 
@@ -42,6 +42,9 @@ class InferenceModel:
         state = state_dict_or_path
         if isinstance(state, (str, os.PathLike)):
             state = torch.load(state, map_location=self.device, weights_only=True)
+            # a Trainer checkpoint holds the model's state_dict beside the
+            # optimizer's and the scheduler's
+            state = state.get("state_dict", state)
         self.task.model.load_state_dict(state)
         self.task.model.eval()
         # host prep (pad + plans), host->device copy (synchronous for

@@ -10,8 +10,7 @@ import torch
 from torch import nn
 
 from waveformml_tpu_torch.detector import NX, NY
-from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul,
-                                                site_grouped_matmul_plain)
+from waveformml_tpu_torch.ops.site_head import SiteGroupedMatmul
 from waveformml_tpu_torch.ops.sparse import SparseBatch
 
 
@@ -26,10 +25,17 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int,
 
 
 class MaskedArrayBatchNorm(nn.Module):
-    """BatchNorm over rows, some of which are padding, in eval mode: the
-    running statistics normalise every row and the caller re-zeroes the
-    padding rows. (Train-mode statistics over the real rows only come with
-    the training port.)"""
+    """BatchNorm over rows, some of which are padding (mask [N], True for
+    real rows). In train mode, which needs the mask, the statistics come
+    from the real rows only, in float32, with the count clamped to ≥ 1; the
+    rows are normalised with the biased variance, and the running statistics
+    move by torch's momentum 0.1, the running variance with the unbiased
+    (Bessel) one. In eval mode
+    the running statistics normalise every row. Either way the caller
+    re-zeroes the padding rows. Plain PyTorch under autograd, as XLA
+    computed it outside any kernel."""
+
+    momentum = 0.1           # torch semantics: running = (1 - m)·running + m·batch
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -39,12 +45,25 @@ class MaskedArrayBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "MaskedArrayBatchNorm is ported in eval mode only; call .eval()")
-        scale = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * scale * self.weight + self.bias
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            scale = torch.rsqrt(self.running_var + self.eps)
+            return (x - self.running_mean) * scale * self.weight + self.bias
+        if mask is None:
+            raise ValueError("MaskedArrayBatchNorm needs the row mask in train mode")
+        m = mask.to(torch.float32)[:, None]
+        xf = x.float()
+        count = m.sum().clamp(min=1.0)
+        mean = (xf * m).sum(0) / count
+        vsum = ((xf - mean) ** 2 * m).sum(0)
+        var = vsum / count
+        with torch.no_grad():
+            mom = self.momentum
+            unbiased = vsum / (count - 1.0).clamp(min=1.0)
+            self.running_mean.copy_((1 - mom) * self.running_mean + mom * mean)
+            self.running_var.copy_((1 - mom) * self.running_var + mom * unbiased)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 class LinearBlock(nn.Module):
@@ -78,8 +97,9 @@ class FoldedSiteLinear(nn.Module):
     The weight is ``[C·S, F]`` with row index ``c·S + x·NY + y`` (S = NX·NY),
     so it is interchangeable with a Linear over the flattened dense grid.
     Only the ``bysite`` mode is ported: the site-grouped GEMM over the host
-    slot layout in ``batch.plans`` (kernel K2). ``plain = True`` runs the
-    plain PyTorch version whatever the device, as a reference on the card.
+    slot layout in ``batch.plans`` (kernel K2, its gradient kernel K5).
+    ``plain = True`` runs the plain PyTorch versions of both whatever the
+    device, as a reference on the card.
     """
 
     def __init__(self, cin: int, features: int,
@@ -99,6 +119,6 @@ class FoldedSiteLinear(nn.Module):
                              "batch.plans (site_take/site_ev/site_s); build "
                              "batches with TaskBase.prepare_block")
         k3 = self.weight.view(self.cin, NX * NY, self.features)
-        fn = site_grouped_matmul_plain if self.plain else site_grouped_matmul
-        return fn(rows, k3, plans["site_take"], plans["site_ev"], plans["site_s"],
-                  batch.n_events, self.bias)
+        return SiteGroupedMatmul.apply(rows, k3, self.bias, plans["site_take"],
+                                       plans["site_ev"], plans["site_s"], batch.n_events,
+                                       self.plain)

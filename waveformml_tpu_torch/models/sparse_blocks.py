@@ -19,7 +19,7 @@ from torch import nn
 from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_normal_
 from waveformml_tpu_torch.models.schedules import (get_frame_contraction,
                                                    get_frame_expansion)
-from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_plain
+from waveformml_tpu_torch.ops.row_conv import SubMConvRows
 from waveformml_tpu_torch.ops.sparse import SparseBatch
 
 # layer specs: ("conv", cin, cout, k, s, p, d) / ("subm", cin, cout, k, p, key)
@@ -29,8 +29,10 @@ _ROW_OPS = ("subm", "bn", "relu", "dropout", "todense")
 
 class RowSubMConv2d(nn.Module):
     """Row-space SubM conv: weight ``[K², Cin, Cout]`` (the JAX package's
-    layout), bias ``[Cout]``. ``plain = True`` runs the plain PyTorch
-    version whatever the device, as a reference on the card."""
+    layout), bias ``[Cout]``; forward K1, backward K1 and K4
+    (``SubMConvRows``). ``plain = True`` runs the plain PyTorch versions of
+    the forward and the backward whatever the device, as a reference on the
+    card."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -45,8 +47,7 @@ class RowSubMConv2d(nn.Module):
 
     def forward(self, feats: torch.Tensor, plan: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        fn = subm_conv_rows_plain if self.plain else subm_conv_rows
-        return fn(feats, plan, self.weight, self.bias, mask)
+        return SubMConvRows.apply(feats, plan, self.weight, self.bias, mask, self.plain)
 
 
 class SparseConv2DForEZ(nn.Module):
@@ -175,7 +176,7 @@ class SparseConv2DForEZ(nn.Module):
                                    f"build batches with TaskBase.prepare_block")
                 x = getattr(self, f"l{i}")(x, batch.plans[key], mask)
             elif spec[0] == "bn":
-                x = getattr(self, f"l{i}")(x)
+                x = getattr(self, f"l{i}")(x, mask)
                 x = torch.where(mask[:, None], x, torch.zeros((), dtype=x.dtype,
                                                               device=x.device))
             elif spec[0] == "relu":

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "waveformml_tpu_torch"
-SOURCES = ("row_conv", "site_head", "waveform_features")
+SOURCES = ("row_conv", "row_conv_wgrad", "site_head", "site_head_bwd", "waveform_features")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

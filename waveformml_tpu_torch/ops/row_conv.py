@@ -7,6 +7,13 @@ detector or the row is padding). It depends on coords only, so the host
 builds it once per batch with numpy and every conv of the stack shares it.
 The conv itself is kernel K1 (``csrc/row_conv.cu``) on the card and
 ``subm_conv_rows_plain`` on the CPU.
+
+Its gradient (``SubMConvRows``, an autograd Function) follows the JAX
+package's custom VJP (waveformml_tpu/ops/row_conv.py:_subm_bwd): the
+feature gradient is K1 again, over the same plan, with the window reversed
+and the kernel transposed; the kernel and bias gradients are kernel K4
+(``csrc/row_conv_wgrad.cu``, ``subm_conv_rows_wgrad``) on the card and
+``subm_conv_rows_wgrad_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -152,3 +159,150 @@ def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor
 
 
 subm_conv_rows.launches = 0
+
+
+def transposed_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """The kernel of the feature gradient's conv: the window reversed (k →
+    K² - 1 - k) and Cin, Cout swapped, ``[K², Cout, Cin]`` contiguous. The
+    centred odd window is symmetric under negation, so the conv with it over
+    the forward's plan is the transpose of the forward conv."""
+    return torch.flip(kernel, (0,)).transpose(1, 2).contiguous()
+
+
+def subm_conv_rows_wgrad_plain(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tensor,
+                               mask: torch.Tensor, with_bias: bool = True):
+    """Plain PyTorch version of K4: ``d_kernel`` and ``d_bias`` of
+    waveformml_tpu/ops/row_conv.py:_subm_bwd, the forward's gather
+    contracted against the masked cotangent over the rows."""
+    n, c = feats.shape
+    kk = plan.shape[1]
+    g = g.masked_fill(~mask[:, None], 0)
+    padded = torch.cat([feats, feats.new_zeros(1, c)])
+    idx = torch.where(plan >= 0, plan, n).long()
+    d_kernel = (padded[idx].reshape(n, kk * c).t() @ g).reshape(kk, c, -1)
+    return d_kernel, (g.sum(0) if with_bias else None)
+
+
+def subm_conv_rows_bwd_plain(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor,
+                             mask: torch.Tensor, g: torch.Tensor, with_bias: bool = True,
+                             need_feats: bool = True):
+    """waveformml_tpu/ops/row_conv.py:_subm_bwd line for line, in plain
+    PyTorch: ``(d_feats, d_kernel, d_bias)``, ``d_feats`` None unless
+    ``need_feats``. ``d_feats`` is the conv of the masked g with the
+    reversed, transposed kernel; where the plan names another row for a
+    centre tap (duplicate sites) that is the reference's value, not the true
+    gradient."""
+    g = g.masked_fill(~mask[:, None], 0)
+    d_feats = (subm_conv_rows_plain(g, plan, transposed_kernel(kernel), None, mask)
+               if need_feats else None)
+    d_kernel, d_bias = subm_conv_rows_wgrad_plain(feats, plan, g, mask, with_bias)
+    return d_feats, d_kernel, d_bias
+
+
+_WGRAD_FUNCTIONS = {"subm_conv_rows_wgrad":
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                    "subm_conv_rows_wgrad_scratch":
+                    [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_int)]}
+
+
+def _check_wgrad(feats, plan, g, mask) -> None:
+    if feats.dim() != 2 or plan.dim() != 2 or g.dim() != 2 or mask.dim() != 1:
+        raise ValueError("expected feats [N, Cin], plan [N, K²], g [N, Cout], mask [N]")
+    n = feats.shape[0]
+    if plan.shape[0] != n or g.shape[0] != n or mask.shape != (n,):
+        raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, plan "
+                         f"{tuple(plan.shape)}, g {tuple(g.shape)}, mask {tuple(mask.shape)}")
+    tensors = (feats, plan, g, mask)
+    if any(t.device != feats.device for t in tensors):
+        raise ValueError("all operands must be on one device")
+    if feats.is_cuda:
+        if feats.dtype != torch.float32 or g.dtype != torch.float32:
+            raise TypeError("the CUDA kernel takes float32 feats and g")
+        if plan.dtype != torch.int32 or mask.dtype != torch.bool:
+            raise TypeError("the CUDA kernel takes an int32 plan and a bool mask")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("the CUDA kernel takes contiguous tensors")
+
+
+def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tensor,
+                         mask: torch.Tensor, with_bias: bool = True):
+    """Kernel and bias gradients of ``subm_conv_rows``: ``dW[k] = Σ_r
+    mask[r]·feats[plan[r, k]]ᵀ g[r]`` (absent taps zero) and ``db = Σ_r
+    mask[r]·g[r]``.
+
+    feats [N, Cin], plan [N, K²] int32, g [N, Cout], mask [N] bool →
+    (d_kernel [K², Cin, Cout], d_bias [Cout] or None). CUDA tensors run
+    kernel K4 (``csrc/row_conv_wgrad.cu``, which replaces the XLA gather +
+    contraction of waveformml_tpu/ops/row_conv.py:_subm_bwd); CPU tensors run
+    ``subm_conv_rows_wgrad_plain``. Plan entries must lie in ``[-1, N)``.
+
+    K4 lists, per block of rows and tap, the rows that have the tap and
+    multiplies only those, in fp32 FFMA, one 64×64 tile of (Cin, Cout) per
+    block; a second grid adds the blocks' partial sums in a fixed order.
+    There are no atomics, so two runs give the same bits; the sums run in
+    another order than the plain version's, so the two differ by a few ulp
+    of the sum of the magnitudes of each output's terms.
+    """
+    _check_wgrad(feats, plan, g, mask)
+    if not feats.is_cuda:
+        return subm_conv_rows_wgrad_plain(feats, plan, g, mask, with_bias)
+    n, cin = feats.shape
+    kk, cout = plan.shape[1], g.shape[1]
+    lib = native.load("row_conv_wgrad", _WGRAD_FUNCTIONS)
+    partials, centre_blocks = ctypes.c_int(), ctypes.c_int()
+    lib.subm_conv_rows_wgrad_scratch(n, kk, ctypes.byref(partials),
+                                     ctypes.byref(centre_blocks))
+    dev = feats.device
+    scratch = torch.empty(partials.value * cin * cout + centre_blocks.value * cout,
+                          dtype=torch.float32, device=dev)
+    counts = torch.empty(partials.value, dtype=torch.int32, device=dev)
+    d_kernel = torch.empty((kk, cin, cout), dtype=torch.float32, device=dev)
+    d_bias = torch.empty(cout, dtype=torch.float32, device=dev) if with_bias else None
+    err = lib.subm_conv_rows_wgrad(
+        feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
+        scratch.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr() + 4 * partials.value * cin * cout, d_kernel.data_ptr(),
+        d_bias.data_ptr() if with_bias else None, n, cin, cout, kk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(lib, err, "subm_conv_rows_wgrad")
+    # the partial sums' grid where there are rows, and the reduction's grid
+    # where there are outputs
+    subm_conv_rows_wgrad.launches += (int(n > 0 and cin > 0 and cout > 0)
+                                      + int(kk * cin * cout + (cout if with_bias else 0) > 0))
+    return d_kernel, d_bias
+
+
+subm_conv_rows_wgrad.launches = 0
+
+
+class SubMConvRows(torch.autograd.Function):
+    """``subm_conv_rows`` with the JAX package's custom VJP
+    (waveformml_tpu/ops/row_conv.py:_subm_bwd): g is masked; d_feats is K1
+    over the same plan and mask with ``transposed_kernel`` and no bias,
+    computed only where feats needs a gradient (not for the first conv of a
+    stack, whose input is the waveforms); d_kernel and d_bias are K4.
+    ``plain = True`` runs the plain forward and ``subm_conv_rows_bwd_plain``
+    instead, whatever the device. The plan and mask get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, plan, kernel, bias, mask, plain=False):
+        ctx.save_for_backward(feats, plan, kernel, mask)
+        ctx.with_bias = bias is not None
+        ctx.plain = plain
+        fn = subm_conv_rows_plain if plain else subm_conv_rows
+        return fn(feats, plan, kernel, bias, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, plan, kernel, mask = ctx.saved_tensors
+        need_feats = ctx.needs_input_grad[0]
+        if ctx.plain:
+            d_feats, d_kernel, d_bias = subm_conv_rows_bwd_plain(
+                feats, plan, kernel, mask, g, ctx.with_bias, need_feats)
+        else:
+            g = g.masked_fill(~mask[:, None], 0).contiguous()
+            d_feats = (subm_conv_rows(g, plan, transposed_kernel(kernel), None, mask)
+                       if need_feats else None)
+            d_kernel, d_bias = subm_conv_rows_wgrad(feats, plan, g, mask, ctx.with_bias)
+        return d_feats, None, d_kernel, d_bias, None, None

@@ -6,7 +6,9 @@ The host sorts a batch's rows by site into a ``[S, MAX]`` slot grid
 its site's ``[C, F]`` slice of the Linear kernel and adds the result into
 its event's output row, which starts from the Linear's bias. That is kernel
 K2 (``csrc/site_head.cu``) on the card and ``site_grouped_matmul_plain`` on
-the CPU.
+the CPU. Its gradient (``SiteGroupedMatmul``, an autograd Function) is
+kernel K5 (``csrc/site_head_bwd.cu``) on the card and
+``site_grouped_matmul_bwd_plain`` on the CPU.
 
 Encoding: ``site_take``/``site_ev`` are 1-based with 0 = empty slot and
 ``site_s`` is the 1-based site of each group, so zero padding anywhere
@@ -178,3 +180,123 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
 
 
 site_grouped_matmul.launches = 0
+
+
+def site_grouped_matmul_bwd_plain(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.Tensor,
+                                  take1: torch.Tensor, ev1: torch.Tensor, site1: torch.Tensor,
+                                  n_events: int, with_bias: bool = True):
+    """Plain PyTorch version of K5: the autodiff of
+    waveformml_tpu/ops/site_head.py:site_grouped_matmul and of the bias add
+    after it, as JAX computes it: the event gather of d_out (0 for dropped
+    slots), the two batched GEMMs and the two scatter-adds (slot 0 of the
+    rows and groups of one site add up). Returns ``(d_rows, d_k3, d_bias)``,
+    ``d_bias`` None unless ``with_bias``."""
+    g, max_slots = take1.shape
+    c, s, f = k3.shape
+    evs = ev1.reshape(-1).long()
+    live = (evs > 0) & (evs <= n_events)
+    d_padded = torch.cat([d_out, d_out.new_zeros(1, f)])
+    d_rowlog = d_padded[torch.where(live, evs - 1, n_events)].reshape(g, max_slots, f)
+    sg = (site1.long() - 1).clamp(0, s - 1)
+    kg = k3[:, sg, :].permute(1, 0, 2)                         # [G, C, F]
+    take = take1.reshape(-1).long()
+    d_rows = rows.new_zeros(rows.shape[0] + 1, c)
+    d_rows.index_add_(0, take, torch.bmm(d_rowlog, kg.transpose(1, 2)).reshape(-1, c))
+    rs = torch.cat([rows.new_zeros(1, c), rows])[take].reshape(g, max_slots, c)
+    d_k3 = k3.new_zeros(s, c, f)
+    d_k3.index_add_(0, sg, torch.bmm(rs.transpose(1, 2), d_rowlog))
+    return (d_rows[1:], d_k3.permute(1, 0, 2).contiguous(),
+            d_out.sum(0) if with_bias else None)
+
+
+_BWD_FUNCTIONS = {"site_grouped_matmul_bwd":
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                  "site_grouped_matmul_bwd_scratch":
+                  [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2}
+
+
+def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.Tensor,
+                            take1: torch.Tensor, ev1: torch.Tensor, site1: torch.Tensor,
+                            n_events: int, with_bias: bool = True):
+    """Gradients of ``site_grouped_matmul`` with its bias: d_out [n_events,
+    F] and the forward's operands → ``(d_rows [N, C], d_k3 [C, S, F],
+    d_bias [F] or None)``. CUDA tensors run kernel K5
+    (``csrc/site_head_bwd.cu``, which replaces the XLA autodiff of
+    waveformml_tpu/ops/site_head.py:site_grouped_matmul and of the bias add
+    in waveformml_tpu/models/blocks.py:FoldedSiteLinear); CPU tensors run
+    ``site_grouped_matmul_bwd_plain``.
+
+    K5 writes each filled slot's row gradient with a plain store: a row must
+    sit in at most one slot, as in every layout ``host_site_layout`` builds
+    (the plain version adds a row's slots up). It honours the forward's
+    layout rules: slot 0 is empty, ``site1`` is clamped to ``[1, S]``, slots
+    of events past ``n_events`` add nothing, and groups of one site add up.
+    It takes d_out contiguous. Three grids: zero the row gradient and sum
+    d_out for the bias by runs of events; one block per group for its rows'
+    gradients and its weight slice's; the sums over each site's groups and
+    the bias's runs. There are no atomics, so two runs give the same bits.
+    """
+    _check(rows, k3, take1, ev1, site1, None)
+    f = k3.shape[2]
+    if d_out.dim() != 2 or d_out.shape != (n_events, f):
+        raise ValueError(f"d_out {tuple(d_out.shape)} != ({n_events}, {f})")
+    if d_out.device != rows.device:
+        raise ValueError("all operands must be on one device")
+    if not rows.is_cuda:
+        return site_grouped_matmul_bwd_plain(d_out, rows, k3, take1, ev1, site1, n_events,
+                                             with_bias)
+    if d_out.dtype != torch.float32:
+        raise TypeError("the CUDA kernel takes a float32 d_out")
+    if not d_out.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous d_out")
+    g, max_slots = take1.shape
+    n, c = rows.shape
+    s = k3.shape[1]
+    lib = native.load("site_head_bwd", _BWD_FUNCTIONS)
+    groups_floats, bias_floats = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.site_grouped_matmul_bwd_scratch(g, c, f, n_events, ctypes.byref(groups_floats),
+                                        ctypes.byref(bias_floats))
+    dev = rows.device
+    scratch = torch.empty(groups_floats.value + bias_floats.value, dtype=torch.float32,
+                          device=dev)
+    d_rows = torch.empty((n, c), dtype=torch.float32, device=dev)
+    d_k3 = torch.empty((c, s, f), dtype=torch.float32, device=dev)
+    d_bias = torch.empty(f, dtype=torch.float32, device=dev) if with_bias else None
+    err = lib.site_grouped_matmul_bwd(
+        d_out.data_ptr(), rows.data_ptr(), k3.data_ptr(), take1.data_ptr(), ev1.data_ptr(),
+        site1.data_ptr(), d_rows.data_ptr(), d_k3.data_ptr(),
+        d_bias.data_ptr() if with_bias else None, scratch.data_ptr(),
+        scratch.data_ptr() + 4 * groups_floats.value, n, g, max_slots, c, s, f, n_events,
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(lib, err, "site_grouped_matmul_bwd")
+    # zeroing and bias runs where there are rows or events, the groups' grid
+    # where there are slots, the sums' grid where there are outputs
+    site_grouped_matmul_bwd.launches += (int(n > 0 or (with_bias and n_events > 0))
+                                         + int(g > 0 and max_slots > 0)
+                                         + int(c * s * f + (f if with_bias else 0) > 0))
+    return d_rows, d_k3, d_bias
+
+
+site_grouped_matmul_bwd.launches = 0
+
+
+class SiteGroupedMatmul(torch.autograd.Function):
+    """``site_grouped_matmul`` with its bias, differentiable in rows, k3 and
+    the bias: the forward is K2, the backward K5. ``plain = True`` runs the
+    plain forward and ``site_grouped_matmul_bwd_plain`` instead, whatever the
+    device. The layout gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, rows, k3, bias, take1, ev1, site1, n_events, plain=False):
+        ctx.save_for_backward(rows, k3, take1, ev1, site1)
+        ctx.n_events, ctx.with_bias, ctx.plain = n_events, bias is not None, plain
+        fn = site_grouped_matmul_plain if plain else site_grouped_matmul
+        return fn(rows, k3, take1, ev1, site1, n_events, bias)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        rows, k3, take1, ev1, site1 = ctx.saved_tensors
+        fn = site_grouped_matmul_bwd_plain if ctx.plain else site_grouped_matmul_bwd
+        d_rows, d_k3, d_bias = fn(d_out.contiguous(), rows, k3, take1, ev1, site1,
+                                  ctx.n_events, ctx.with_bias)
+        return d_rows, d_k3, d_bias, None, None, None, None, None

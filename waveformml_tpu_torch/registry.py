@@ -50,8 +50,11 @@ registry = Registry()
 
 def retrieve_class(name: str) -> Any:
     """Resolve a config class name after importing the modules whose import
-    registers the port's classes (models, tasks)."""
+    registers the port's classes (models, tasks, criteria, optimizers and
+    schedulers)."""
     for mod in ("waveformml_tpu_torch.models.nets",
-                "waveformml_tpu_torch.engineering.tasks"):
+                "waveformml_tpu_torch.engineering.tasks",
+                "waveformml_tpu_torch.nn.functional",
+                "waveformml_tpu_torch.optim"):
         importlib.import_module(mod)
     return registry.retrieve_class(name)
