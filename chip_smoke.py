@@ -69,6 +69,7 @@ SEED = 0
 TIMING_SAMPLES = 25           # CUDA-event samples per timing (median)
 REPLAYS_PER_SAMPLE = 10       # graph replays between two events
 RUN_CALLS = 20                # calls per graph where a call is timed without a replay's cost
+GRID_REPS = 20                # profiled calls per per-grid timing
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores
 # and the dense TF32 tensor-core rate
@@ -145,6 +146,42 @@ def graph_time_ms(fn, calls: int = 1) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / (REPLAYS_PER_SAMPLE * calls))
     return statistics.median(samples)
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its namespace, return type and
+    arguments: ``wgrad_centre_kernel<9, 2>``."""
+    key = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return key.split("::")[-1].replace("void ", "").strip()
+
+
+def grid_times_ms(fn, reps: int = GRID_REPS) -> dict:
+    """Device time of each grid that one ``fn()`` call launches, by kernel
+    name: the CUDA time torch.profiler records for each kernel over ``reps``
+    eager calls, divided by ``reps``. Empty where the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for event in prof.key_averages():
+        total = getattr(event, "device_time_total", None)
+        if total is None:
+            total = getattr(event, "cuda_time_total", 0.0)
+        if total > 0:
+            name = kernel_name(event.key)
+            times[name] = times.get(name, 0.0) + total / reps / 1e3
+    return times
+
+
+def grid_line(times: dict) -> str:
+    return (", ".join(f"{k} {v:.5f}" for k, v in sorted(times.items()))
+            if times else "not measured (the profiler recorded no device time)")
 
 
 def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
@@ -394,8 +431,9 @@ def check_subm_conv_rows_wgrad(model, db):
     n = mask.shape[0]
     convs = [m for m in model.stack.modules() if isinstance(m, RowSubMConv2d)]
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0,
-                  max_abs_err=0.0)
+                  max_abs_err=0.0, ms_run=0.0)
     d_feats_err = 0.0
+    d_feats_ms = d_feats_bound = 0.0
     for layer, conv in enumerate(convs):
         kk, cin, cout = conv.weight.shape
         plan = db[f"plan_k{conv.kernel_size}"]
@@ -414,16 +452,29 @@ def check_subm_conv_rows_wgrad(model, db):
         check_bitwise(lambda: subm_conv_rows_wgrad(*args), f"K4 layer {layer}")
         if layer > 0:
             weight = conv.weight.detach()
-            d_feats = subm_conv_rows(g, plan, transposed_kernel(weight), None, mask)
+            w_t = transposed_kernel(weight)
+            d_feats = subm_conv_rows(g, plan, w_t, None, mask)
             d_want = subm_conv_rows_bwd_plain(feats, plan, weight, mask, g)[0]
             torch.cuda.synchronize()
             e = max_abs_err([d_feats], [d_want], TOL["subm_conv_rows"])
+            d_ms = graph_time_ms(lambda: subm_conv_rows(g, plan, w_t, None, mask))
+            needed = int(((plan >= 0) & mask[:, None]).sum())
+            # g over the real rows (a plan names no padding row), plan, mask
+            # and W read once, d_feats written once over all N
+            d_bytes = 4 * (int(mask.sum()) * cout + n * kk + kk * cin * cout + n * cin) + n
+            d_bound = bound_ms(d_bytes, 3 * 2.0 * cin * cout * needed, TF32_FLOPS_PER_S)[0]
             print(f"K1 as d_feats, layer {layer}: N={n} K²={kk} {cout}->{cin} "
-                  f"max_abs_err={e:.3g}", flush=True)
+                  f"ms={d_ms:.5f} bound_ms={d_bound:.5f} max_abs_err={e:.3g}; grids: "
+                  f"{grid_line(grid_times_ms(lambda: subm_conv_rows(g, plan, w_t, None, mask)))}",
+                  flush=True)
             d_feats_err = max(d_feats_err, e)
+            d_feats_ms += d_ms
+            d_feats_bound += d_bound
         padded = torch.cat([feats, feats.new_zeros(1, cin)])
         idx = torch.where(plan >= 0, plan, n).long().reshape(-1)
         ms = graph_time_ms(lambda: subm_conv_rows_wgrad(*args))
+        ms_run = graph_time_ms(lambda: subm_conv_rows_wgrad(*args), calls=RUN_CALLS)
+        grids = grid_times_ms(lambda: subm_conv_rows_wgrad(*args))
         plain_ms = graph_time_ms(lambda: subm_conv_rows_wgrad_plain(*args))
         library_ms = graph_time_ms(lambda: (
             torch.mm(torch.index_select(padded, 0, idx).view(n, kk * cin).t(), g), g.sum(0)))
@@ -440,13 +491,17 @@ def check_subm_conv_rows_wgrad(model, db):
         print(f"K4 subm_conv_rows_wgrad layer {layer}: N={n} K²={kk} {cin}x{cout} ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
               f"max_abs_err={err:.3g} real rows {n_real}, row-taps {needed}, bitwise equal "
-              f"over two runs",
-              flush=True)
+              f"over two runs; in a graph of {RUN_CALLS} calls: ms={ms_run:.5f}; grids: "
+              f"{grid_line(grids)}", flush=True)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bound_ms", b_ms), ("bytes", n_bytes), ("flops", flops)):
+                         ("bound_ms", b_ms), ("bytes", n_bytes), ("flops", flops),
+                         ("ms_run", ms_run)):
             totals[key] += val
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
     totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"], TF32_FLOPS_PER_S)[1]
+    print(f"K4 over the three convs: ms={totals['ms']:.5f}, in graphs of {RUN_CALLS} calls "
+          f"{totals['ms_run']:.5f}, bound_ms={totals['bound_ms']:.5f}; K1 as d_feats at "
+          f"layers 1-2: ms={d_feats_ms:.5f} bound_ms={d_feats_bound:.5f}", flush=True)
     return totals, d_feats_err
 
 
@@ -521,8 +576,11 @@ def check_site_grouped_matmul_bwd(model, db):
         return d_out.sum(0)
 
     ms = graph_time_ms(lambda: site_grouped_matmul_bwd(*args))
+    ms_run = graph_time_ms(lambda: site_grouped_matmul_bwd(*args), calls=RUN_CALLS)
+    grids = grid_times_ms(lambda: site_grouped_matmul_bwd(*args))
     plain_ms = graph_time_ms(lambda: site_grouped_matmul_bwd_plain(*args))
     library_ms = graph_time_ms(library)
+    library_ms_run = graph_time_ms(library, calls=RUN_CALLS)
     n_live = int((live & (take_flat > 0)).sum())
     rows_read = int(torch.unique(take_flat[live & (take_flat > 0)]).numel())
     # d_out, the live slots' rows, k3 and the layout read once; d_rows, d_k3
@@ -533,8 +591,9 @@ def check_site_grouped_matmul_bwd(model, db):
     b_ms, by = bound_ms(n_bytes, 4.0 * c * f * n_live + n_events * f)
     print(f"K5 site_grouped_matmul_bwd: groups={g} MAX={m} live={n_live} C={c} F={f} "
           f"B={n_events} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-          f"bound_ms={b_ms:.6f} ({by}) max_abs_err={err:.3g}, bitwise equal over two runs",
-          flush=True)
+          f"bound_ms={b_ms:.6f} ({by}) max_abs_err={err:.3g}, bitwise equal over two runs; "
+          f"in a graph of {RUN_CALLS} calls: ms={ms_run:.5f} library_ms={library_ms_run:.5f}; "
+          f"grids: {grid_line(grids)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=by, max_abs_err=err)
 
@@ -665,13 +724,15 @@ def run_training(cfg, state, train, val):
         want = {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
                 "site_grouped_matmul": (steps + evals) * 2,
                 "waveform_features": 0,
+                # K4: the centre tap's grid and the reduction's; K5: the
+                # zero/bias grid and the groups' grid
                 "subm_conv_rows_wgrad": steps * 2 * len(convs),
-                "site_grouped_matmul_bwd": steps * 3}
+                "site_grouped_matmul_bwd": steps * 2}
         assert launches == want, (launches, want)
         print(f"training: {TRAIN_EPOCHS} epochs x {len(train)} steps of {EVENTS_PER_CHUNK} "
               f"events, {len(val)} validation chunk(s) an epoch, in {wall:.3f} s; launches "
               f"{launches} (a step: K1 {k1_fwd} forward + {k1_bwd} d_feats, K2 2, "
-              f"K4 {2 * len(convs)}, K5 3); metrics {metrics}", flush=True)
+              f"K4 {2 * len(convs)}, K5 2); metrics {metrics}", flush=True)
         for i, p in enumerate(trainer.step_phases):
             print(f"training breakdown step {i}: host prep {p['host_prep_s'] * 1e3:.3f} ms, "
                   f"copy in {p['h2d_s'] * 1e3:.3f} ms, forward + backward + optimizer "

@@ -4,8 +4,9 @@ head (K5) in their plain versions against ``jax.vjp`` of the JAX functions,
 a float64 gradcheck of the row conv's autograd Function, masked BatchNorm in
 train mode against flax, ``LitPSD.loss_and_metrics`` against the JAX task,
 and SGD (nesterov) with ExponentialLR against ``waveformml_tpu.optim``. On
-the card (``cuda`` marker): K4 and K5 against their plain versions, their
-bitwise determinism and their refusal of what they do not take.
+the card (``cuda`` marker): K4 and K5 against their plain versions, also
+on the shapes and layouts their designs treat apart, their bitwise
+determinism and their refusal of what they do not take.
 
 Inputs come from numpy generators; JAX is imported inside the tests, so
 that the card tests run where there is no JAX."""
@@ -15,6 +16,7 @@ import torch
 
 from waveformml_tpu_torch.datasets.synthetic import (SITE_LAYOUT_FEATURES, conv_case,
                                                      site_layout_case)
+from waveformml_tpu_torch.detector import NX, NY
 from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm
 from waveformml_tpu_torch.ops.row_conv import (SubMConvRows, host_neighbor_plan,
                                                subm_conv_rows_bwd_plain, subm_conv_rows_wgrad,
@@ -26,6 +28,7 @@ from waveformml_tpu_torch.ops.site_head import (SiteGroupedMatmul, host_site_lay
 CONV_KINDS = ("clustered", "dense_cluster", "duplicate_sites", "isolated_sites")
 LAYOUTS = [pytest.param((name,), id=name) for name in SITE_LAYOUT_FEATURES]
 LAYOUTS.append(pytest.param(SITE_LAYOUT_FEATURES, id="all"))
+S = NX * NY
 
 
 @pytest.fixture
@@ -403,6 +406,14 @@ K4_CASES = [
     pytest.param("isolated_sites", 3, 130, 104, 300, None, id="isolated_sites"),
     pytest.param("clustered", 3, 5, 3, 1000, None, id="3-5-3"),
     pytest.param("clustered", 3, 56, 200, 1000, 78 * 64 + 37, id="ragged-56-200"),
+    # the shapes K4's design treats apart: a last row block cut short, Cout
+    # of one 8-column tile, k = 1 at layer 0's widths, Cin + 1 over one
+    # block's 144 channels
+    pytest.param("clustered", 3, 130, 104, 2000, 12288 - 61, id="rows-not-a-block-multiple"),
+    pytest.param("clustered", 3, 130, 8, 1000, None, id="3-130-8"),
+    pytest.param("clustered", 1, 130, 104, 1000, None, id="1-130-104"),
+    pytest.param("duplicate_sites", 3, 130, 104, 1000, None, id="duplicate_sites-130-104"),
+    pytest.param("clustered", 3, 300, 40, 500, None, id="3-300-40"),
 ]
 
 
@@ -448,6 +459,69 @@ def test_k4_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         subm_conv_rows_wgrad(feats, plan[:-1], g, mask)
     assert subm_conv_rows_wgrad.launches == before
+
+
+def _check_k4(args):
+    """K4 against its plain version (each output within 1e-5 times the sum
+    of its terms' magnitudes), two grids a call, the same bits twice."""
+    feats, plan, g, mask = args
+    want = subm_conv_rows_wgrad_plain(feats, plan, g, mask)
+    scale = subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask)
+    before = subm_conv_rows_wgrad.launches
+    got = subm_conv_rows_wgrad(feats, plan, g, mask)
+    again = subm_conv_rows_wgrad(feats, plan, g, mask)
+    torch.cuda.synchronize()
+    assert subm_conv_rows_wgrad.launches == before + 4
+    _within_terms(got, want, scale)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 500], ids=["no-rows", "no-real-row"])
+def test_k4_without_real_rows_on_card(cuda, n):
+    """No row, or rows that are all padding: zero gradients (with no row,
+    the reduction's grid alone writes them)."""
+    rng = np.random.default_rng(3)
+    feats = torch.from_numpy(rng.normal(size=(n, 130)).astype(np.float32)).to(cuda)
+    plan = torch.from_numpy(rng.integers(-1, max(n, 1), size=(n, 9)).astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, 104)).astype(np.float32)).to(cuda)
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    before = subm_conv_rows_wgrad.launches
+    d_kernel, d_bias = subm_conv_rows_wgrad(feats, plan, g, mask)
+    torch.cuda.synchronize()
+    assert subm_conv_rows_wgrad.launches == before + (2 if n else 1)
+    assert not d_kernel.any() and not d_bias.any()
+    if n:
+        _check_k4((feats, plan, g, mask))
+
+
+@pytest.mark.cuda
+def test_k4_plan_naming_other_rows_on_card(cuda):
+    """Every plan entry a random row or -1: each tap present for most
+    rows, its source any row, the centre tap's too."""
+    rng = np.random.default_rng(4)
+    n = 3001
+    feats = rng.normal(size=(n, 130)).astype(np.float32)
+    plan = rng.integers(-1, n, size=(n, 9)).astype(np.int32)
+    g = rng.normal(size=(n, 104)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    _check_k4([torch.from_numpy(a).to(cuda) for a in (feats, plan, g, mask)])
+
+
+@pytest.mark.cuda
+def test_k4_tap_in_one_block_on_card(cuda):
+    """Isolated sites but for one pair of neighbours: each of two taps is
+    present for one row, in one row block."""
+    rng = np.random.default_rng(5)
+    coords, feats, _, _, mask = conv_case(rng, "isolated_sites", 6000, 3, 130, 104)
+    j = 3001
+    x, y = coords[j, 0], coords[j, 1]
+    coords[j + 1] = [x + 1 if x + 1 < NX else x - 1, y, coords[j, 2]]
+    plan = host_neighbor_plan(coords, mask, 6000, 3)
+    assert (np.delete(plan, 4, axis=1) >= 0).sum() == 2
+    g = rng.normal(size=(feats.shape[0], 104)).astype(np.float32)
+    _check_k4([torch.from_numpy(a).to(cuda) for a in (feats, plan, g, mask)])
 
 
 def _within_terms(got, want, scale, tol=1e-5):
@@ -520,7 +594,7 @@ def test_k5_matches_plain_on_card(cuda, features):
     got = site_grouped_matmul_bwd(*args, n_events)
     again = site_grouped_matmul_bwd(*args, n_events)
     torch.cuda.synchronize()
-    assert site_grouped_matmul_bwd.launches == before + 6    # three grids, twice
+    assert site_grouped_matmul_bwd.launches == before + 4    # two grids, twice
     _within_terms(got, want, scale)
     for a, c in zip(got, again):
         assert torch.equal(a, c)
@@ -557,3 +631,95 @@ def test_k5_gets_a_contiguous_d_out_from_linear(cuda):
     y.register_hook(lambda grad: seen.append(grad.is_contiguous()))
     torch.nn.Linear(50, 2, device=cuda)(y).sum().backward()
     assert seen == [True]
+
+
+def _layout(rng, site1, n_rows, n_events, max_slots, empty_groups=(), c=8, f=50):
+    """d_out and a hand-made slot layout: each of n_rows - 7 rows in one
+    slot of a random group not in ``empty_groups``, its event up to
+    n_events + 20 (those past n_events add nothing)."""
+    groups = len(site1)
+    take = np.zeros((groups, max_slots), np.int32)
+    ev = np.zeros((groups, max_slots), np.int32)
+    allowed = np.setdiff1d(np.arange(groups), empty_groups)
+    fill = np.zeros(groups, np.int64)
+    for r in range(n_rows - 7):
+        gi = rng.choice(allowed[fill[allowed] < max_slots])
+        take[gi, fill[gi]] = r + 1
+        ev[gi, fill[gi]] = rng.integers(1, n_events + 21)
+        fill[gi] += 1
+    for gi in range(groups):
+        perm = rng.permutation(max_slots)
+        take[gi], ev[gi] = take[gi, perm], ev[gi, perm]
+    rows = np.zeros((n_rows, c), np.float32)
+    rows[:n_rows - 7] = rng.normal(size=(n_rows - 7, c))
+    k3 = (rng.normal(size=(c, S, f)) / np.sqrt(c * S)).astype(np.float32)
+    d_out = rng.normal(size=(n_events, f)).astype(np.float32)
+    return [d_out, rows, k3, take, ev, np.asarray(site1, np.int32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["site-in-three-groups", "sites-out-of-range",
+                                  "empty-groups", "few-events", "fewer-groups-than-sites",
+                                  "other-widths"])
+def test_k5_layouts_on_card(cuda, case):
+    """Stitched layouts (a site in several groups, sites out of range),
+    empty groups, events past n_events, sites with no group, at the
+    training head's widths (C, F) = (8, 50), which the kernel compiles
+    for, and at others, which it takes at run time."""
+    rng = np.random.default_rng(6)
+    site1 = list(range(1, S + 1))
+    empty, n_events, c, f = (), 4096, 8, 50
+    if case == "site-in-three-groups":
+        site1 += [5, 5, 9]
+    elif case == "sites-out-of-range":
+        site1 += [0, -4, S + 3, 2 * S]
+    elif case == "empty-groups":
+        site1 += [3, 3]
+        empty = (2, 10, S, S + 1)
+    elif case == "few-events":
+        n_events = 40
+    elif case == "other-widths":
+        site1 += [3, 3]
+        c, f = 5, 37
+    else:
+        site1 = [1, 17, 17, S]
+    arrays = _layout(rng, site1, 3000, n_events, 64 if len(site1) > 4 else 1024, empty, c, f)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    want = site_grouped_matmul_bwd_plain(*args, n_events)
+    scale = site_grouped_matmul_bwd_plain(*(a.abs() for a in args[:3]), *args[3:], n_events)
+    before = site_grouped_matmul_bwd.launches
+    got = site_grouped_matmul_bwd(*args, n_events)
+    again = site_grouped_matmul_bwd(*args, n_events)
+    torch.cuda.synchronize()
+    assert site_grouped_matmul_bwd.launches == before + 4      # two grids, twice
+    _within_terms(got, want, scale)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k4_k5_on_two_streams_at_once(cuda):
+    """K4 and K5 keep no state between calls: calls on two streams at once
+    (K5 on a stitched layout, whose sites sum by tickets) each agree with
+    the plain versions."""
+    k4_args = _k4_args(cuda, "clustered", 3, 130, 104, 1000, None)
+    rng = np.random.default_rng(8)
+    k5_args = [torch.from_numpy(a).to(cuda) for a in
+               _layout(rng, list(range(1, S + 1)) + [5, 5, 9], 3000, 4096, 64)]
+    feats, plan, g, mask = k4_args
+    want4 = subm_conv_rows_wgrad_plain(*k4_args)
+    scale4 = subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask)
+    want5 = site_grouped_matmul_bwd_plain(*k5_args, 4096)
+    scale5 = site_grouped_matmul_bwd_plain(*(a.abs() for a in k5_args[:3]), *k5_args[3:], 4096)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append((subm_conv_rows_wgrad(*k4_args),
+                             site_grouped_matmul_bwd(*k5_args, 4096)))
+    torch.cuda.synchronize()
+    for got4, got5 in outs:
+        _within_terms(got4, want4, scale4)
+        _within_terms(got5, want5, scale5)

@@ -47,7 +47,8 @@
 // * fp32 accuracy on TF32 units: each operand x is split into big =
 //   tf32(x) and small = tf32(x - big), and each product is taken as
 //   small·big + big·small + big·big (the dropped small·small term is
-//   ~2^-22 |x·y|). Single-pass TF32 would keep ~3 digits.
+//   ~2^-22 |x·y|). Single-pass TF32 would keep ~3 digits. The split, the
+//   mma and the cp.async helpers are tf32_mma.cuh's, shared with K4.
 // * Staging: a block's steps are (segment of BM listed rows, BK-channel
 //   slice of Cin); each step's gathered rows (cp.async, 16, 8 or 4 bytes a
 //   copy, zero past Cin) and W[k] slice (one TMA bulk copy when the slice
@@ -62,9 +63,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int BM = 32;            // rows per block, centre tap
+constexpr int BM = 32;           // rows per block, centre tap
 constexpr int SPARSE_ROWS = 256;  // rows per block, each other tap
 constexpr int LIST = SPARSE_ROWS > BM ? SPARSE_ROWS : BM;  // compacted list capacity
 constexpr int BK = 32;            // input channels per pipeline step
@@ -98,49 +101,6 @@ size_t smem_bytes(int ws) {
   return sizeof(float) * (size_t)NSTAGE * (BM * GS + w_words(ws)) +
          sizeof(int) * ((size_t)BM + 2 * (size_t)LIST);
 }
-
-// x rounded to the nearest TF32 (10 mantissa bits), as the bits of a float:
-// add half a TF32 ulp to the magnitude and clear the 13 low bits (cheaper
-// than cvt.rna.tf32.f32, with the same result except on ties)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-// c += a · b on one m16n8k8 tile (A row-major 16x8, B column-major 8x8)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy `vec` floats (4, 8 or 16 bytes) from global to shared memory, or
-// zero-fill them when `valid` is false (src is then not read).
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid, int vec) {
-  const uint32_t d = smem_addr(dst);
-  const int bytes = valid ? vec * 4 : 0;
-  if (vec == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-  } else if (vec == 2) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // A bulk copy through the Tensor Memory Accelerator, completing on an
 // mbarrier in shared memory.

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` at first use and loaded with
 ctypes. No PyTorch headers are included, so a build takes seconds. The
 libraries go to ``build/waveformml_tpu_torch/`` at the repository root,
-named by a hash of the source and the flags, so an edited source is rebuilt
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt
 and an unchanged one is reused. ``build()`` starts one ``nvcc`` per missing
 library, all at once, and waits for all of them.
 """
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers in csrc/ count too: a source may include any of them
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -200,10 +200,9 @@ def subm_conv_rows_bwd_plain(feats: torch.Tensor, plan: torch.Tensor, kernel: to
 
 
 _WGRAD_FUNCTIONS = {"subm_conv_rows_wgrad":
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                     "subm_conv_rows_wgrad_scratch":
-                    [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                     ctypes.POINTER(ctypes.c_int)]}
+                    [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2}
 
 
 def _check_wgrad(feats, plan, g, mask) -> None:
@@ -237,12 +236,17 @@ def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tenso
     contraction of waveformml_tpu/ops/row_conv.py:_subm_bwd); CPU tensors run
     ``subm_conv_rows_wgrad_plain``. Plan entries must lie in ``[-1, N)``.
 
-    K4 lists, per block of rows and tap, the rows that have the tap and
-    multiplies only those, in fp32 FFMA, one 64×64 tile of (Cin, Cout) per
-    block; a second grid adds the blocks' partial sums in a fixed order.
-    There are no atomics, so two runs give the same bits; the sums run in
-    another order than the plain version's, so the two differ by a few ulp
-    of the sum of the magnitudes of each output's terms.
+    K4 takes the centre tap, present for every real row, as a split-K GEMM
+    on the tensor cores (TF32 with a 3-pass split, fp32 accuracy): each
+    block owns a range of rows and the whole (Cin + 1, Cout) tile, so feats
+    and g are read once, and db is row Cin of the product (a column of ones
+    where the mask is on). Clusters of 8 blocks sum their tiles through
+    distributed shared memory in rank order; a second grid, programmatically
+    dependent, sums the clusters' partials in order and multiplies the other
+    taps' row pairs, which the first grid listed from one coalesced read of
+    the plan. There are no float atomics, so two runs give the same bits;
+    the sums run in another order than the plain version's, so the two
+    differ by a few ulp of the sum of the magnitudes of each output's terms.
     """
     _check_wgrad(feats, plan, g, mask)
     if not feats.is_cuda:
@@ -250,26 +254,23 @@ def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tenso
     n, cin = feats.shape
     kk, cout = plan.shape[1], g.shape[1]
     lib = native.load("row_conv_wgrad", _WGRAD_FUNCTIONS)
-    partials, centre_blocks = ctypes.c_int(), ctypes.c_int()
-    lib.subm_conv_rows_wgrad_scratch(n, kk, ctypes.byref(partials),
-                                     ctypes.byref(centre_blocks))
+    floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.subm_conv_rows_wgrad_scratch(n, cin, cout, kk, ctypes.byref(floats), ctypes.byref(ints))
     dev = feats.device
-    scratch = torch.empty(partials.value * cin * cout + centre_blocks.value * cout,
-                          dtype=torch.float32, device=dev)
-    counts = torch.empty(partials.value, dtype=torch.int32, device=dev)
+    partial = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    lists = torch.empty(ints.value, dtype=torch.int32, device=dev)
     d_kernel = torch.empty((kk, cin, cout), dtype=torch.float32, device=dev)
     d_bias = torch.empty(cout, dtype=torch.float32, device=dev) if with_bias else None
     err = lib.subm_conv_rows_wgrad(
         feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
-        scratch.data_ptr(), counts.data_ptr(),
-        scratch.data_ptr() + 4 * partials.value * cin * cout, d_kernel.data_ptr(),
+        partial.data_ptr(), lists.data_ptr(), d_kernel.data_ptr(),
         d_bias.data_ptr() if with_bias else None, n, cin, cout, kk,
         torch.cuda.current_stream(dev).cuda_stream)
     native.check_launch(lib, err, "subm_conv_rows_wgrad")
-    # the partial sums' grid where there are rows, and the reduction's grid
-    # where there are outputs
-    subm_conv_rows_wgrad.launches += (int(n > 0 and cin > 0 and cout > 0)
-                                      + int(kk * cin * cout + (cout if with_bias else 0) > 0))
+    # where there are outputs: the centre tap's grid where there are rows,
+    # and the reduction's grid
+    if kk * cin * cout + (cout if with_bias else 0) > 0:
+        subm_conv_rows_wgrad.launches += int(n > 0 and cout > 0) + 1
     return d_kernel, d_bias
 
 

@@ -212,7 +212,7 @@ def site_grouped_matmul_bwd_plain(d_out: torch.Tensor, rows: torch.Tensor, k3: t
 _BWD_FUNCTIONS = {"site_grouped_matmul_bwd":
                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                   "site_grouped_matmul_bwd_scratch":
-                  [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2}
+                  [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2}
 
 
 def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.Tensor,
@@ -231,10 +231,17 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
     (the plain version adds a row's slots up). It honours the forward's
     layout rules: slot 0 is empty, ``site1`` is clamped to ``[1, S]``, slots
     of events past ``n_events`` add nothing, and groups of one site add up.
-    It takes d_out contiguous. Three grids: zero the row gradient and sum
-    d_out for the bias by runs of events; one block per group for its rows'
-    gradients and its weight slice's; the sums over each site's groups and
-    the bias's runs. There are no atomics, so two runs give the same bits.
+    It takes d_out contiguous. Two grids: the first zeroes the row gradient
+    and the sites' tickets and sums d_out for the bias by runs of events;
+    the second, a
+    programmatic dependent launch, gives each group a block for its rows'
+    gradients and its weight slice's, which it stores into ``d_k3`` where
+    its site has no other group, and otherwise the last of the site's
+    groups to finish (an integer ticket in the call's scratch, which the
+    first grid zeroes) sums them in group order; its block 0 sums the
+    bias's runs. There are no float atomics, so two runs give the same
+    bits, and no state outlives a call, so calls on several streams may run
+    at once.
     """
     _check(rows, k3, take1, ev1, site1, None)
     f = k3.shape[2]
@@ -254,7 +261,7 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
     s = k3.shape[1]
     lib = native.load("site_head_bwd", _BWD_FUNCTIONS)
     groups_floats, bias_floats = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.site_grouped_matmul_bwd_scratch(g, c, f, n_events, ctypes.byref(groups_floats),
+    lib.site_grouped_matmul_bwd_scratch(g, c, s, f, n_events, ctypes.byref(groups_floats),
                                         ctypes.byref(bias_floats))
     dev = rows.device
     scratch = torch.empty(groups_floats.value + bias_floats.value, dtype=torch.float32,
@@ -269,11 +276,11 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
         scratch.data_ptr() + 4 * groups_floats.value, n, g, max_slots, c, s, f, n_events,
         torch.cuda.current_stream(dev).cuda_stream)
     native.check_launch(lib, err, "site_grouped_matmul_bwd")
-    # zeroing and bias runs where there are rows or events, the groups' grid
-    # where there are slots, the sums' grid where there are outputs
-    site_grouped_matmul_bwd.launches += (int(n > 0 or (with_bias and n_events > 0))
-                                         + int(g > 0 and max_slots > 0)
-                                         + int(c * s * f + (f if with_bias else 0) > 0))
+    # zeroing and bias runs where there are rows, events or outputs (the
+    # tickets), the groups' grid where there are outputs
+    outputs = c * s * f + (f if with_bias else 0) > 0
+    site_grouped_matmul_bwd.launches += (int(n > 0 or (with_bias and n_events > 0) or outputs)
+                                         + int(outputs))
     return d_rows, d_k3, d_bias
 
 
