@@ -27,9 +27,16 @@ order, it:
    gradient (reversed, transposed kernel) at convs 1-2;
 4. serves SubMPSD (config/examples/SubMPSD.json widths, seeded random
    weights and head bias) through ``InferenceModel`` over 4 chunks of 4096
-   synthetic events, checks every launch count and holds the logits
-   against the same model run with the plain versions on the card and,
-   for a few events, on the CPU;
+   synthetic events, each chunk one packed pinned copy in, one replay of
+   its layout's CUDA graph and an asynchronous copy out; checks the
+   graphs, replays and every launch count (those of the replays, counted
+   at capture, and of the eager warm-up of a new layout), prints where the
+   serving time goes, and holds the logits against the eager forward and
+   the plain versions on the card and, for a few events, the CPU; serves
+   the chunks' int16 ADC counts through an on-card ``preprocess`` and
+   ``postprocess`` against the float32 path; and streams the chunks
+   double-buffered (chunk i+1 dispatched before chunk i is fetched)
+   against synchronous calls;
 5. runs ``waveform_features`` over the first PMT's half of those chunks'
    waveforms and checks its launch count and outputs;
 6. trains SubMPSD from the same weights with ``Trainer.fit`` (SGD with
@@ -39,7 +46,13 @@ order, it:
    breakdown (host prep, copy in, device time of forward + backward +
    optimizer, wall), holds the per-step losses and the first step's
    gradients against the same run with the plain versions, and serves the
-   validation chunk from the best checkpoint;
+   validation chunk from the best checkpoint; then, each through a
+   ``DataLoaderLite`` with a background thread over 5 chunks an epoch:
+   accumulation of 2 micro-steps (one carried across the epoch) with the
+   global-norm clip engaged on the first optimizer step, against the plain
+   versions; AdamW with CosineAnnealingLR; and a fit of 2 epochs, saved and
+   resumed by a new Trainer for a third, against 3 epochs in one fit; each
+   run's launch counts and per-step breakdown;
 7. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the features path), the card line again, and as
    its last line ``{"ok": true, "device": {...}}``.
@@ -678,9 +691,11 @@ def kernel_counts() -> dict:
                                        subm_conv_rows_wgrad, site_grouped_matmul_bwd)}
 
 
-def make_trainer(cfg, state, plain: bool, checkpoint_dir=None):
+def make_trainer(cfg, state, plain: bool, checkpoint_dir=None, max_epochs=TRAIN_EPOCHS,
+                 **kwargs):
     """A Trainer on the card over SubMPSD from ``state``, with the kernels
-    or (``plain``) their plain versions, forward and backward."""
+    or (``plain``) their plain versions, forward and backward; ``kwargs``
+    are the Trainer's other arguments."""
     from waveformml_tpu_torch.engineering.tasks import LitPSD
     from waveformml_tpu_torch.engineering.trainer import Trainer
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
@@ -691,7 +706,58 @@ def make_trainer(cfg, state, plain: bool, checkpoint_dir=None):
     for module in task.model.modules():
         if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
             module.plain = plain
-    return Trainer(cfg, task, checkpoint_dir=checkpoint_dir, max_epochs=TRAIN_EPOCHS)
+    return Trainer(cfg, task, checkpoint_dir=checkpoint_dir, max_epochs=max_epochs, **kwargs)
+
+
+def training_launches(model, steps: int, evals: int) -> dict:
+    """The kernel launches of ``steps`` training micro-steps and ``evals``
+    validation batches of SubMPSD."""
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+
+    convs = [m for m in model.stack.modules() if isinstance(m, RowSubMConv2d)]
+    k1_fwd = sum(1 if m.kernel_size == 1 else 2 for m in convs)
+    # d_feats: K1 again for every conv but the first (its input is the data)
+    k1_bwd = sum(1 if m.kernel_size == 1 else 2 for m in convs[1:])
+    return {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
+            "site_grouped_matmul": (steps + evals) * 2,
+            "waveform_features": 0,
+            # K4: the centre tap's grid and the reduction's; K5: the
+            # zero/bias grid and the groups' grid
+            "subm_conv_rows_wgrad": steps * 2 * len(convs),
+            "site_grouped_matmul_bwd": steps * 2}
+
+
+def counted_fit(trainer, data, label: str) -> dict:
+    """``trainer.fit(data)`` with every kernel's count set to 0 just
+    before and read just after; asserts the launches of its micro-steps
+    and validations and prints its per-step breakdown. Returns the
+    counts."""
+    counted = kernel_counts()
+    epoch0 = trainer.current_epoch
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    steps = len(trainer.step_losses)
+    epochs = trainer.current_epoch - epoch0
+    want = training_launches(trainer.task.model, steps, epochs * len(data.val_dataloader()))
+    assert launches == want, (label, launches, want)
+    print(f"{label}: {epochs} epochs, {steps} steps of {EVENTS_PER_CHUNK} events "
+          f"in {wall:.3f} s, {trainer.waveforms_per_second:.1f} waveforms/s; launches "
+          f"{launches}; metrics {metrics}", flush=True)
+    for i, p in enumerate(trainer.step_phases):
+        device = ("not measured" if p["device_ms"] is None
+                  else f"{p['device_ms']:.4f} ms (CUDA events)")
+        print(f"{label} breakdown step {i}: host prep {p['host_prep_s'] * 1e3:.3f} ms, "
+              f"copy in {p['h2d_s'] * 1e3:.3f} ms, forward + backward + optimizer "
+              f"{device}, wall {p['wall_s'] * 1e3:.3f} ms, "
+              f"{1 / p['wall_s']:.2f} steps/s, {p['events'] / p['wall_s']:.1f} events/s",
+              flush=True)
+    assert len(trainer.step_losses) == steps and all(np.isfinite(trainer.step_losses))
+    return launches
 
 
 def run_training(cfg, state, train, val):
@@ -702,51 +768,18 @@ def run_training(cfg, state, train, val):
     checkpoint served through InferenceModel. Returns the launch counts."""
     from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
     from waveformml_tpu_torch.inference.model import InferenceModel
-    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
 
     data = BlockDataModule(train, val)
-    counted = kernel_counts()
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer = make_trainer(cfg, state, plain=False, checkpoint_dir=ckpt_dir)
-        for fn in counted.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        metrics = trainer.fit(data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counted.items()}
-        steps = TRAIN_EPOCHS * len(train)
-        evals = TRAIN_EPOCHS * len(val)
-        convs = [m for m in trainer.task.model.stack.modules() if isinstance(m, RowSubMConv2d)]
-        k1_fwd = sum(1 if m.kernel_size == 1 else 2 for m in convs)
-        # d_feats: K1 again for every conv but the first (its input is the data)
-        k1_bwd = sum(1 if m.kernel_size == 1 else 2 for m in convs[1:])
-        want = {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
-                "site_grouped_matmul": (steps + evals) * 2,
-                "waveform_features": 0,
-                # K4: the centre tap's grid and the reduction's; K5: the
-                # zero/bias grid and the groups' grid
-                "subm_conv_rows_wgrad": steps * 2 * len(convs),
-                "site_grouped_matmul_bwd": steps * 2}
-        assert launches == want, (launches, want)
-        print(f"training: {TRAIN_EPOCHS} epochs x {len(train)} steps of {EVENTS_PER_CHUNK} "
-              f"events, {len(val)} validation chunk(s) an epoch, in {wall:.3f} s; launches "
-              f"{launches} (a step: K1 {k1_fwd} forward + {k1_bwd} d_feats, K2 2, "
-              f"K4 {2 * len(convs)}, K5 2); metrics {metrics}", flush=True)
-        for i, p in enumerate(trainer.step_phases):
-            print(f"training breakdown step {i}: host prep {p['host_prep_s'] * 1e3:.3f} ms, "
-                  f"copy in {p['h2d_s'] * 1e3:.3f} ms, forward + backward + optimizer "
-                  f"{p['device_ms']:.4f} ms (CUDA events), wall {p['wall_s'] * 1e3:.3f} ms, "
-                  f"{1 / p['wall_s']:.2f} steps/s, {p['events'] / p['wall_s']:.1f} events/s",
-                  flush=True)
+        launches = counted_fit(trainer, data, "training")
         losses = trainer.step_losses
-        assert len(losses) == steps and all(np.isfinite(losses)), losses
 
         plain = make_trainer(cfg, state, plain=True)
-        for fn in counted.values():
+        for fn in kernel_counts().values():
             fn.launches = 0
         plain.fit(data)
-        assert all(fn.launches == 0 for fn in counted.values())
+        assert all(fn.launches == 0 for fn in kernel_counts().values())
         np.testing.assert_allclose(losses, plain.step_losses, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
         print(f"training losses {np.round(losses, 6).tolist()} match the plain versions' "
               f"{np.round(plain.step_losses, 6).tolist()} (rtol={TRAIN_RTOL}, "
@@ -794,6 +827,83 @@ def run_training(cfg, state, train, val):
     return launches
 
 
+def run_training_flags(cfg, state, train, val):
+    """The Trainer's arguments on the card, each run through a
+    ``DataLoaderLite`` that collates on a background thread
+    (``num_workers=1``): accumulation of 2 micro-steps over an odd number
+    of blocks an epoch with the global-norm clip engaged on the first
+    optimizer step, with the kernels (training blocks shuffled) and against
+    the plain versions; AdamW with CosineAnnealingLR; and a fit of 2
+    epochs, saved and resumed by a new Trainer for a third, against 3
+    epochs in one fit."""
+    from waveformml_tpu_torch.config import Config, to_dict
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+
+    def data(shuffle=False):
+        return BlockDataModule(train, val, batch_size=1, shuffle=shuffle, num_workers=1,
+                               seed=SEED)
+
+    # the clip: half the norm of the first optimizer step's gradient (the
+    # mean of the first two micro-steps' gradients, unclipped)
+    probe = make_trainer(cfg, state, plain=True, accumulate_grad_batches=2)
+    for block in list(data(shuffle=True).train_dataloader())[:2]:
+        probe.training_step(probe.device_batch(block)[0])
+    norm = float(torch.sqrt(sum(p.grad.pow(2).sum() for p in probe.params)))
+    clip = 0.5 * norm
+    kw = dict(accumulate_grad_batches=2, gradient_clip_val=clip)
+    carried = []
+
+    class Carry:
+        def on_validation_end(self, trainer, metrics, epoch):
+            carried.append(trainer.multi_steps.mini_step)
+
+    acc = make_trainer(cfg, state, plain=False, callbacks=[Carry()], **kw)
+    counted_fit(acc, data(shuffle=True), "training, accumulate 2 + clip")
+    assert carried == [(len(train) * (e + 1)) % 2 for e in range(TRAIN_EPOCHS)], carried
+    assert carried[0] == 1
+    plain = make_trainer(cfg, state, plain=True, **kw)
+    plain.fit(data(shuffle=True))
+    np.testing.assert_allclose(acc.step_losses, plain.step_losses, rtol=TRAIN_RTOL,
+                               atol=TRAIN_ATOL)
+    print(f"accumulate 2 over {len(train)} blocks an epoch (a micro-step carried across the "
+          f"epoch), clip {clip:.6g} = half the first optimizer step's gradient norm "
+          f"{norm:.6g}: losses {np.round(acc.step_losses, 6).tolist()} match the plain "
+          f"versions' {np.round(plain.step_losses, 6).tolist()} (rtol={TRAIN_RTOL}, "
+          f"atol={TRAIN_ATOL})", flush=True)
+
+    adamw = to_dict(cfg)
+    adamw["optimize_config"].update({
+        "optimizer_class": "optim.AdamW", "lr": 1e-3, "optimizer_params": {"weight_decay": 0.01},
+        "scheduler_class": "lr_scheduler.CosineAnnealingLR",
+        "scheduler_params": {"T_max": TRAIN_EPOCHS, "eta_min": 1e-5}})
+    adam = make_trainer(Config(adamw), state, plain=False)
+    counted_fit(adam, data(), "training, AdamW + CosineAnnealingLR")
+    lr = adam.optimizer.param_groups[0]["lr"]
+    assert lr == adam.scheduler.lr() and abs(lr - 1e-5) < 1e-12, lr
+    print(f"AdamW + CosineAnnealingLR: losses {np.round(adam.step_losses, 6).tolist()}, "
+          f"lr after {TRAIN_EPOCHS} epochs {lr:.6g}", flush=True)
+
+    whole = make_trainer(cfg, state, plain=False, max_epochs=TRAIN_EPOCHS + 1)
+    whole.fit(data())
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        first = make_trainer(cfg, state, plain=False, checkpoint_dir=ckpt_dir)
+        first.fit(data())
+        path = os.path.join(ckpt_dir, "last.ckpt")
+        first.save_checkpoint(path)
+        resumed = make_trainer(cfg, state, plain=False, max_epochs=TRAIN_EPOCHS + 1)
+        resumed.load_checkpoint(path, restore_training=True)
+    assert resumed.current_epoch == TRAIN_EPOCHS
+    assert resumed.best_val_loss == first.best_val_loss < float("inf")
+    assert resumed.scheduler.state_dict() == first.scheduler.state_dict()
+    counted_fit(resumed, data(), "training, resumed")
+    tail = whole.step_losses[-len(train):]
+    np.testing.assert_allclose(resumed.step_losses, tail, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+    print(f"resumed at epoch {TRAIN_EPOCHS} (best val_loss {resumed.best_val_loss:.6f}): losses "
+          f"{np.round(resumed.step_losses, 6).tolist()} match an uninterrupted "
+          f"{TRAIN_EPOCHS + 1}-epoch fit's last epoch {np.round(tail, 6).tolist()} "
+          f"(rtol={TRAIN_RTOL}, atol={TRAIN_ATOL})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -803,6 +913,7 @@ def main() -> int:
     from waveformml_tpu_torch.datasets.synthetic import (labelled_block, make_events,
                                                          synth_waveform_pair)
     from waveformml_tpu_torch.detector import MAX_RANGE
+    from waveformml_tpu_torch.engineering.base import pack_db
     from waveformml_tpu_torch.inference.model import InferenceModel
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.nets import SubMPSDNet
@@ -847,8 +958,8 @@ def main() -> int:
     t0 = time.perf_counter()
     server(*inputs[0])                       # loads the kernels' libraries
     torch.cuda.synchronize()
-    print(f"first chunk (library load, allocator warm-up): "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"first chunk (library load, allocator warm-up, capture of its layout): "
+          f"{time.perf_counter() - t0:.3f} s, {len(server.graphs)} graph(s)", flush=True)
 
     # -- 3. kernels against their plain versions ------------------------------
     probe = torch.zeros(16, device="cuda")
@@ -889,63 +1000,134 @@ def main() -> int:
         results["site_grouped_matmul_bwd"]["max_abs_err"],
         check_site_grouped_matmul_bwd_adversarial(rng, head.cin, head.features))
 
-    # -- 4. serving path ------------------------------------------------------
+    # -- 4. serving path: one CUDA graph per batch layout ---------------------
     server.dispatch_phases = dict.fromkeys(server.dispatch_phases, 0.0)
+    server.capture_s = 0.0
+    graphs_before = len(server.graphs)
+    for g in server.graphs.values():
+        g.replays = 0
     for fn in kernel_counts().values():
         fn.launches = 0
     t0 = time.perf_counter()
     handles = [server.dispatch(c, f) for c, f in inputs]
     logits = [server.fetch(h) for h in handles]
     wall = time.perf_counter() - t0
-    launches = {"subm_conv_rows": subm_conv_rows.launches,
-                "site_grouped_matmul": site_grouped_matmul.launches,
-                "waveform_features": waveform_features.launches}
+    replayed = server.replay_launches()
+    eager = {name: fn.launches for name, fn in kernel_counts().items()}
+    launches = {name: eager[name] + replayed[name] for name in eager}
+    new_graphs = len(server.graphs) - graphs_before
+    replays = sum(g.replays for g in server.graphs.values())
     n_events = N_CHUNKS * EVENTS_PER_CHUNK
     n_rows = sum(c.shape[0] for c, _ in inputs)
     print(f"serving: {N_CHUNKS} chunks, {n_events} events, {n_rows} waveform pairs "
-          f"in {wall:.4f} s = {n_events / wall:.1f} events/s; launches {launches}",
-          flush=True)
+          f"in {wall:.4f} s = {n_events / wall:.1f} events/s; graphs {len(server.graphs)} "
+          f"({new_graphs} captured in this run), {replays} replays; launches {launches}, "
+          f"of which from replays {replayed}", flush=True)
     # K1: one grid per conv for the centre tap, one more for a K² > 1 conv's
-    # other taps
+    # other taps; K2: one grid writes the head's bias into the event rows,
+    # one adds the slots' products. Each chunk is one replay; a layout new
+    # in this run also ran once eagerly before its capture.
     k1_grids = sum(1 if m.kernel_size == 1 else 2 for m in task.model.stack.modules()
                    if isinstance(m, RowSubMConv2d))
-    # K2: one grid writes the head's bias into the event rows, one adds the
-    # slots' products
-    assert launches == {"subm_conv_rows": k1_grids * N_CHUNKS,
-                        "site_grouped_matmul": 2 * N_CHUNKS,
-                        "waveform_features": 0}, launches
-    # serving runs no backward kernel
-    assert all(fn.launches == 0 for name, fn in kernel_counts().items() if name not in launches)
+    per_chunk = dict.fromkeys(launches, 0)
+    per_chunk.update(subm_conv_rows=k1_grids, site_grouped_matmul=2)
+    assert replays == N_CHUNKS, replays
+    assert replayed == {k: v * N_CHUNKS for k, v in per_chunk.items()}, replayed
+    assert eager == {k: v * new_graphs for k, v in per_chunk.items()}, eager
     for out in logits:
         assert out.shape == (EVENTS_PER_CHUNK, cfg.system_config.n_type), out.shape
         assert np.isfinite(out).all()
     # where the serving time goes: the host-clock phases of that run, and
     # the device forward of one chunk as a CUDA-graph replay
     forward_ms = graph_time_ms(lambda: task.apply_model(db))
-    phases = " ".join(f"{k[:-2]} {v * 1e3 / N_CHUNKS:.3f}"
-                      for k, v in server.dispatch_phases.items())
-    print(f"serving breakdown (ms/chunk): {phases}; device forward "
-          f"{forward_ms:.4f}; wall {wall * 1e3 / N_CHUNKS:.3f}; device busy share "
-          f"{N_CHUNKS * forward_ms / (wall * 1e3):.4f}", flush=True)
+    names = {"host_prep_s": "host prep (pad, plans, pack)", "h2d_s": "copy in",
+             "launch_s": "replay + copy out", "fetch_s": "fetch"}
+    phases = "; ".join(f"{names[k]} {v * 1e3 / N_CHUNKS:.3f} ({v / wall:.1%})"
+                       for k, v in server.dispatch_phases.items())
+    packed = [sum(leaf[4] for leaf in spec) for spec in server.graphs]
+    # host prep split: prepare_block (pad, plans) and the pack into pinned
+    # memory, medians of 10 of each on the first chunk
+    prep_t, pack_t = [], []
+    blk = FileBlock(coords0, feats0, np.zeros(EVENTS_PER_CHUNK, np.int64))
+    for _ in range(10):
+        t1 = time.perf_counter()
+        db_host = task.prepare_block(blk, task.row_bucket(blk), task.event_bucket(blk))
+        t2 = time.perf_counter()
+        pack_db(db_host, pin_memory=True)
+        pack_t.append(time.perf_counter() - t2)
+        prep_t.append(t2 - t1)
+    print(f"serving host prep of one chunk: prepare_block {statistics.median(prep_t) * 1e3:.3f} "
+          f"ms, pack into pinned memory {statistics.median(pack_t) * 1e3:.3f} ms (medians of "
+          f"10)", flush=True)
+    print(f"serving breakdown (ms/chunk, share of wall): {phases}; capture of new layouts "
+          f"{server.capture_s * 1e3:.3f} ms in all; device forward {forward_ms:.4f}; wall "
+          f"{wall * 1e3 / N_CHUNKS:.3f}; device busy share "
+          f"{N_CHUNKS * forward_ms / (wall * 1e3):.4f}; {n_events / wall:.1f} events/s; "
+          f"packed chunk bytes {packed}", flush=True)
 
+    # the graph path against the eager forward with the kernels and the
+    # graph path with the plain versions, on the card
     reference = InferenceModel(cfg, state)
     for module in reference.task.model.modules():
         if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
             module.plain = True
-    agree = 0
+    agree, err_eager = 0, 0.0
     for (c, f), out in zip(inputs, logits):
         want = reference(c, f)
         np.testing.assert_allclose(out, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
         agree += int((out.argmax(-1) == want.argmax(-1)).sum())
+        blk = FileBlock(c, f, np.zeros(EVENTS_PER_CHUNK, np.int64))
+        direct = task.apply_model(task.to_device(task.prepare_block(
+            blk, task.row_bucket(blk), task.event_bucket(blk))))[:EVENTS_PER_CHUNK]
+        direct = direct.cpu().numpy()
+        np.testing.assert_allclose(out, direct, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        err_eager = max(err_eager, float(np.abs(out - direct).max()))
     small = coords0[:, -1] < 64
     cpu = InferenceModel(cfg, state, device="cpu")(coords0[small], feats0[small])
     card_small = server(coords0[small], feats0[small])
     np.testing.assert_allclose(card_small, cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
     np.testing.assert_allclose(card_small, logits[0][:64], rtol=LOGIT_RTOL,
                                atol=LOGIT_ATOL)
-    print(f"logits match the plain versions on the card (rtol={LOGIT_RTOL}, "
-          f"atol={LOGIT_ATOL}); argmax agrees on {agree}/{n_events} events; "
-          f"64 events match the CPU run", flush=True)
+    print(f"logits of the graph path match the eager forward (largest |difference| "
+          f"{err_eager:.3g}) and the plain versions on the card (rtol={LOGIT_RTOL}, "
+          f"atol={LOGIT_ATOL}); argmax agrees on {agree}/{n_events} events; 64 events "
+          f"match the CPU run", flush=True)
+
+    # int16 ADC counts scaled on the card (preprocess), log-probabilities
+    # taken on the card (postprocess), against float32 features scaled on
+    # the host through the float32 server
+    adc = [np.rint(ch["waveforms"]).astype(np.int16) for ch in chunks]
+    server16 = InferenceModel(
+        cfg, state, preprocess=lambda c, f, m: f.float() / MAX_RANGE,
+        postprocess=lambda out, c, m: torch.log_softmax(out, dim=-1))
+    err16 = 0.0
+    for (c, _), raw in zip(inputs, adc):
+        got = server16(c, raw)
+        want = torch.log_softmax(torch.from_numpy(
+            server(c, raw / np.float32(MAX_RANGE))), dim=-1).numpy()
+        np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        err16 = max(err16, float(np.abs(got - want).max()))
+    packed16 = [sum(leaf[4] for leaf in spec) for spec in server16.graphs]
+    print(f"int16 preprocess + log-softmax postprocess on the card: {N_CHUNKS} chunks match "
+          f"the float32 path (largest |difference| {err16:.3g}); packed chunk bytes "
+          f"{packed16} against {packed}", flush=True)
+
+    # double-buffered: chunk i+1 dispatched before chunk i is fetched
+    sync = [server(c, f) for c, f in inputs]
+    streamed, pending = [], server.dispatch(*inputs[0])
+    for c, f in inputs[1:]:
+        nxt = server.dispatch(c, f)
+        streamed.append(server.fetch(pending))
+        pending = nxt
+    streamed.append(server.fetch(pending))
+    err_stream = 0.0
+    for got, want in zip(streamed, sync):
+        np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        err_stream = max(err_stream, float(np.abs(got - want).max()))
+    print(f"double-buffered dispatch/fetch matches synchronous calls (largest |difference| "
+          f"{err_stream:.3g}: K1's atomics vary the last bits between runs); graphs "
+          f"{len(server.graphs)}, replays {sum(g.replays for g in server.graphs.values())} "
+          f"since the serving run's start", flush=True)
 
     # -- 5. waveform-features path --------------------------------------------
     waveform_features.launches = 0
@@ -969,6 +1151,9 @@ def main() -> int:
              for _ in range(TRAIN_CHUNKS)]
     val = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
     train_launches = run_training(cfg, state, train, val)
+    # the Trainer's arguments, over an odd number of blocks an epoch
+    run_training_flags(cfg, state, train + [labelled_block(train_rng, EVENTS_PER_CHUNK,
+                                                           n_samples)], val)
     # the JSON line reports each kernel's launches on the training path where
     # it runs there, else on the waveform-features path
     launches = {name: train_launches[name] or launches.get(name, 0) for name in train_launches}

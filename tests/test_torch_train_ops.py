@@ -337,7 +337,7 @@ def test_sgd_and_exponential_lr_match_jax(rng, opt_params):
     import optax
 
     from waveformml_tpu import optim as wopt
-    from waveformml_tpu_torch.optim import build_optimizer, build_scheduler
+    from waveformml_tpu_torch.optim import build_optimizer, build_scheduler, set_learning_rate
 
     shapes = [(5, 3), (3,), (2, 2, 2)]
     init = [rng.normal(size=s).astype(np.float32) for s in shapes]
@@ -348,7 +348,7 @@ def test_sgd_and_exponential_lr_match_jax(rng, opt_params):
     jsched = wopt.build_scheduler("lr_scheduler.ExponentialLR", 0.01, {"gamma": 0.9})
     params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in init]
     opt = build_optimizer("optim.SGD", params, 0.01, opt_params)
-    sched = build_scheduler("lr_scheduler.ExponentialLR", opt, {"gamma": 0.9})
+    sched = build_scheduler("lr_scheduler.ExponentialLR", 0.01, {"gamma": 0.9})
     for epoch in range(3):
         for step in range(4):
             g = grads[epoch * 4 + step]
@@ -359,8 +359,8 @@ def test_sgd_and_exponential_lr_match_jax(rng, opt_params):
             opt.step()
         lr = jsched.step()
         jstate = wopt.set_learning_rate(jstate, lr)
-        sched.step()
-        assert sched.get_last_lr() == [pytest.approx(lr, rel=1e-12)]
+        set_learning_rate(opt, sched.step())
+        assert sched.lr() == pytest.approx(lr, rel=1e-12)
         assert opt.param_groups[0]["lr"] == pytest.approx(0.01 * 0.9 ** (epoch + 1), rel=1e-12)
         for p, jp in zip(params, jparams):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), rtol=1e-6,
@@ -368,29 +368,32 @@ def test_sgd_and_exponential_lr_match_jax(rng, opt_params):
 
 
 def test_optim_refuses_what_is_not_ported():
-    from waveformml_tpu_torch.optim import build_optimizer, build_scheduler
+    """Every optimizer and scheduler of the JAX registry is ported: only an
+    unknown name and nesterov without momentum are refused. A checkpoint's
+    optimizer and scheduler states resume the schedule at its epoch."""
+    from waveformml_tpu_torch.optim import build_optimizer, build_scheduler, set_learning_rate
 
     params = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(ValueError, match="nesterov"):
         build_optimizer("optim.SGD", params, 0.1, {"nesterov": True})
-    with pytest.raises(KeyError, match="not ported"):
-        build_optimizer("optim.Adam", params, 0.1)
+    with pytest.raises(KeyError, match="unknown optimizer"):
+        build_optimizer("optim.Adagrad", params, 0.1)
+    with pytest.raises(KeyError, match="unknown scheduler"):
+        build_scheduler("lr_scheduler.OneCycleLR", 0.1)
+    for name in ("optim.SGD", "optim.Adam", "optim.AdamW", "optim.RMSprop"):
+        build_optimizer(name, params, 0.1)
     opt = build_optimizer("SGD", params, 0.1)
-    with pytest.raises(KeyError, match="not ported"):
-        build_scheduler("lr_scheduler.StepLR", opt)
-    assert build_scheduler(None, opt) is None
-    sched = build_scheduler("ExponentialLR", opt, {"gamma": 0.5})
+    assert build_scheduler(None, 0.1) is None
+    sched = build_scheduler("ExponentialLR", 0.1, {"gamma": 0.5})
     opt.step()
-    sched.step()
+    set_learning_rate(opt, sched.step())
     assert opt.param_groups[0]["lr"] == pytest.approx(0.05)
-    # a checkpoint's optimizer and scheduler states resume the schedule at
-    # its epoch
     fresh = build_optimizer("SGD", params, 0.1)
-    resumed = build_scheduler("ExponentialLR", fresh, {"gamma": 0.5})
+    resumed = build_scheduler("ExponentialLR", 0.1, {"gamma": 0.5})
     fresh.load_state_dict(opt.state_dict())
     resumed.load_state_dict(sched.state_dict())
-    resumed.step()
-    assert resumed.last_epoch == 2 and resumed.get_last_lr() == [pytest.approx(0.025)]
+    assert fresh.param_groups[0]["lr"] == pytest.approx(0.05)
+    assert resumed.step() == pytest.approx(0.025) and resumed.epoch == 2
 
 
 # -- K4 and K5 on the card --------------------------------------------------------

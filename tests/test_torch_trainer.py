@@ -126,7 +126,7 @@ def test_batchnorm_running_stats_match_jax(trajectories, layer, stat):
 
 def test_scheduler_stepped_once_per_epoch(trajectories):
     trainer = trajectories["trainer"]
-    assert trainer.current_epoch == EPOCHS and trainer.scheduler.last_epoch == EPOCHS
+    assert trainer.current_epoch == EPOCHS and trainer.scheduler.epoch == EPOCHS
     assert trainer.optimizer.param_groups[0]["lr"] == pytest.approx(0.01 * 0.9 ** EPOCHS)
     assert len(trainer.step_phases) == EPOCHS * STEPS
     phase = trainer.step_phases[0]
@@ -137,14 +137,17 @@ def test_scheduler_stepped_once_per_epoch(trajectories):
 
 
 def test_best_checkpoint_serves_through_inference_model(trajectories):
-    """The checkpoint holds the model, optimizer and scheduler state and the
-    epoch; InferenceModel takes it and serves the validation blocks with the
+    """The checkpoint holds the model, optimizer, scheduler and gradient
+    accumulation state, the epoch, the step and the best validation loss;
+    InferenceModel takes it and serves the validation blocks with the
     loss the trainer recorded for that epoch (rtol 1e-5)."""
     trainer = trajectories["trainer"]
     path = trainer.best_ckpt_path
     assert path is not None and f"val_loss={trainer.best_val_loss:.2f}.ckpt" in path
     ckpt = torch.load(path, weights_only=True)
-    assert sorted(ckpt) == ["epoch", "optimizer", "scheduler", "state_dict"]
+    assert sorted(ckpt) == ["best_val_loss", "epoch", "multi_steps", "optimizer",
+                            "scheduler", "state_dict", "step"]
+    assert ckpt["best_val_loss"] == trainer.best_val_loss and ckpt["multi_steps"] is None
     server = InferenceModel(trajectories["cfg"], path, device="cpu")
     loss_sum, count = 0.0, 0
     for block in trajectories["val"]:

@@ -4,10 +4,13 @@ The JAX package ``waveformml_tpu`` stays the reference; this package keeps
 its module names so each counterpart is easy to find. It imports torch and
 numpy only. What it ports so far is the flagship sparse PSD classifier
 (``config/examples/SubMPSD.json``: ``LitPSD`` + ``SubMPSDNet``), served
-(``inference.model.InferenceModel``) and trained on one device
-(``engineering.trainer.Trainer``: masked cross entropy, SGD with nesterov
-momentum, ExponentialLR, masked BatchNorm statistics), and the per-waveform
-DSP feature op, through five kernels written by hand in CUDA C++:
+(``inference.model.InferenceModel``: a CUDA graph per batch layout, on-device
+pre- and post-processing) and trained on one device
+(``engineering.trainer.Trainer``: masked cross entropy, the JAX package's
+optimizers and epoch schedulers, clipping, accumulation, early stopping,
+resume, ``lr_find``; masked BatchNorm statistics; ``datasets.data_module``
+loaders), and the per-waveform DSP feature op, through five kernels written
+by hand in CUDA C++:
 
 * ``ops.row_conv.subm_conv_rows``           -- K1, gather-fused TF32 GEMM (forward,
   and the feature gradient with the reversed, transposed kernel)

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from waveformml_tpu_torch.datasets.data_module import DataLoaderLite
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.detector import MAX_RANGE, NX, NY, Z_SCALE
 
@@ -82,22 +83,37 @@ def labelled_block(rng: np.random.Generator, n_events: int, n_samples: int,
 class BlockDataModule:
     """In-memory ``FileBlock``s behind the data-module interface the
     trainers take (``setup``, ``train_dataloader``, ``val_dataloader``,
-    ``test_dataloader``, each an iterable of blocks, in order)."""
+    ``test_dataloader``). Without a ``batch_size`` each loader is the list
+    of blocks, in order; with one, a ``DataLoaderLite`` over them that
+    collates ``batch_size`` blocks a batch, shuffles the training blocks
+    with ``seed`` where ``shuffle`` (never the validation or test blocks)
+    and loads on a background thread where ``num_workers > 0``."""
 
-    def __init__(self, train, val=(), test=()):
+    def __init__(self, train, val=(), test=(), batch_size: Optional[int] = None,
+                 shuffle: bool = False, num_workers: int = 0, seed: int = 0):
         self.train, self.val, self.test = list(train), list(val), list(test)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = num_workers
+        self.seed = seed
 
     def setup(self, stage: Optional[str] = None) -> None:
         """Nothing to load: the blocks are in memory."""
 
+    def _loader(self, blocks, shuffle: bool):
+        if self.batch_size is None:
+            return list(blocks)
+        return DataLoaderLite(blocks, batch_size=self.batch_size, shuffle=shuffle,
+                              num_workers=self.num_workers, seed=self.seed)
+
     def train_dataloader(self):
-        return list(self.train)
+        return self._loader(self.train, self.shuffle)
 
     def val_dataloader(self):
-        return list(self.val)
+        return self._loader(self.val, False)
 
     def test_dataloader(self):
-        return list(self.test)
+        return self._loader(self.test, False)
 
 
 def conv_case(rng: np.random.Generator, kind: str, n_events: int, k: int,

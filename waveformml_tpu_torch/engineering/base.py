@@ -5,11 +5,12 @@
 row bucket and an event bucket and builds every plan the model reads
 (``model.plan_requirements()``): the ``[N, K²]`` neighbour plans and the
 ``[S, MAX]`` site layout. ``sparse_batch`` turns such a dict, once on the
-device, into the model's ``SparseBatch``.
+device, into the model's ``SparseBatch``. ``to_device`` ships such a dict
+to the card as one packed copy (``pack_db``, ``unpack_db``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +22,48 @@ from waveformml_tpu_torch.ops.row_conv import host_neighbor_plan
 from waveformml_tpu_torch.ops.site_head import MIN_CAP, host_site_layout
 from waveformml_tpu_torch.ops.sparse import SparseBatch, bucket_size, pad_sparse
 from waveformml_tpu_torch.registry import retrieve_class
+
+#: a packed batch's layout: (key, shape, numpy dtype string, byte offset,
+#: bytes) per leaf, sorted by key
+PackSpec = Tuple[Tuple[str, Tuple[int, ...], str, int, int], ...]
+#: leaves start at multiples of this many bytes, so that each one's bytes
+#: view as its dtype (``Tensor.view(dtype)`` needs an offset that is a
+#: multiple of the element size)
+PACK_ALIGN = 16
+
+
+def pack_db(db: Dict[str, np.ndarray], pin_memory: bool = False
+            ) -> Tuple[torch.Tensor, PackSpec]:
+    """Every leaf of a prepared batch in ONE uint8 host tensor (pinned with
+    ``pin_memory``, from PyTorch's pinned allocator, which holds a block
+    until the copies out of it have finished), each leaf at a multiple of
+    ``PACK_ALIGN`` bytes in its own native-endian dtype (int64 labels stay
+    int64); returns the buffer and its layout."""
+    leaves, spec, off = [], [], 0
+    for k in sorted(db):
+        v = np.asarray(db[k])
+        shape = tuple(v.shape)  # before ascontiguousarray, which makes 0-d 1-d
+        if v.dtype.byteorder not in ("=", "|"):
+            v = v.astype(v.dtype.newbyteorder("="))
+        v = np.ascontiguousarray(v)
+        off = -(-off // PACK_ALIGN) * PACK_ALIGN
+        spec.append((k, shape, v.dtype.str, off, v.nbytes))
+        leaves.append(v)
+        off += v.nbytes
+    buf = torch.empty(max(off, 1), dtype=torch.uint8, pin_memory=pin_memory)
+    host = buf.numpy()
+    for v, (_, _, _, o, nb) in zip(leaves, spec):
+        host[o:o + nb] = v.reshape(-1).view(np.uint8)
+    return buf, tuple(spec)
+
+
+def unpack_db(buf: torch.Tensor, spec: PackSpec) -> Dict[str, torch.Tensor]:
+    """The leaves of a packed batch as views of ``buf`` (on any device)."""
+    out = {}
+    for k, shape, dt, off, nb in spec:
+        dtype = torch.from_numpy(np.empty(0, np.dtype(dt))).dtype
+        out[k] = buf[off:off + nb].view(dtype).view(shape)
+    return out
 
 
 class TaskBase:
@@ -88,8 +131,13 @@ class TaskBase:
 
     # -- device-side ----------------------------------------------------------
     def to_device(self, db: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in db.items()}
+        """A prepared batch on the task's device. On the card: packed into
+        one pinned buffer, copied with one asynchronous copy and viewed
+        leaf by leaf; on the CPU, the arrays as tensors."""
+        if self.device.type == "cpu":
+            return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in db.items()}
+        buf, spec = pack_db(db, pin_memory=True)
+        return unpack_db(buf.to(self.device, non_blocking=True), spec)
 
     def sparse_batch(self, db: Dict[str, torch.Tensor]) -> SparseBatch:
         plans = {k[len("plan_"):]: v for k, v in db.items() if k.startswith("plan_")}

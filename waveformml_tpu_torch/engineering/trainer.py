@@ -1,13 +1,16 @@
 """Single-device trainer (counterpart of the one-device path of
 waveformml_tpu/engineering/trainer.py).
 
-``Trainer(config, task, device=None).fit(data_module)`` trains the task's
-model with the config's optimizer and epoch scheduler: per epoch, one step
-per training block (host pad + plans, copy to the device, forward, masked
-loss, backward, optimizer step), validation every ``validation_freq``
-epochs, the best checkpoint by ``val_loss``, then one scheduler step. Blocks
-go through the task's ``prepare_block`` and ``to_device`` in the order the
-data module gives them. ``device=None`` means the card.
+``Trainer(config, task, device=None, ...).fit(data_module)`` trains the
+task's model with the config's optimizer and epoch scheduler: per epoch,
+one micro-step per training block (host pad + plans, copy to the device,
+forward, masked loss, backward), the optimizer stepped on every
+``accumulate_grad_batches``-th micro-step with the mean of their gradients,
+clipped to ``gradient_clip_val`` by global norm; then validation every
+``validation_freq`` epochs, the best checkpoint by ``val_loss``, the
+callbacks, early stopping, and one scheduler step. Blocks go through the
+task's ``prepare_block`` and ``to_device`` in the order the data module
+gives them. ``device=None`` means the card.
 
 Each step's host-clock phases and, on the card, the device time of its
 forward, backward and optimizer step (CUDA events, read once per epoch so
@@ -15,11 +18,12 @@ that no step waits for the device) are kept in ``step_phases``.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,7 +31,9 @@ import torch
 from waveformml_tpu_torch.config import to_dict
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
-from waveformml_tpu_torch.optim import build_optimizer, build_scheduler
+from waveformml_tpu_torch.engineering.callbacks import EarlyStopping
+from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_scheduler,
+                                        clip_by_global_norm_, set_learning_rate)
 
 log = logging.getLogger(__name__)
 
@@ -35,29 +41,71 @@ log = logging.getLogger(__name__)
 class Trainer:
     """Fit, validate and test a task's model on one device.
 
-    ``checkpoint_dir``: where the best checkpoint goes (none without it),
-    one ``torch.save`` file ``epoch=E-val_loss=V.ckpt`` holding the model's
-    ``state_dict``, the optimizer's and the scheduler's state and the epoch.
-    ``max_epochs`` defaults to the config's ``total_epoch``. A non-finite
-    epoch loss ends ``fit``.
+    The arguments are the JAX ``Trainer``'s that a single device uses:
+
+    * ``callbacks``: objects whose ``on_validation_end(trainer, metrics,
+      epoch)``, ``on_train_end(trainer)`` and ``on_test_end(trainer,
+      metrics)`` are called where they exist;
+    * ``checkpoint_dir``: where the best checkpoint goes (none without it),
+      one ``torch.save`` file ``epoch=E-val_loss=V.ckpt`` (``save_checkpoint``);
+    * ``max_epochs``: defaults to the config's ``total_epoch``;
+    * ``limit_{train,val,test}_batches``: a float ≤ 1.0 is a fraction of
+      the loader's batches (at least one), anything else a count;
+      ``overfit_batches`` sets the training and validation limits;
+    * ``terminate_on_nan``: a non-finite epoch loss ends ``fit``;
+    * ``early_stopping_patience``: ``fit`` stops once ``val_loss`` has not
+      improved for that many validations, before the epoch's scheduler step;
+    * ``gradient_clip_val``: optax's ``clip_by_global_norm``;
+    * ``accumulate_grad_batches``: optax's ``MultiSteps`` (the mean of k
+      micro-steps' gradients, clipped as a whole; BatchNorm statistics move
+      every micro-step; the count runs on across epochs);
+    * ``seed``: seeds ``generator``, the training step's random stream
+      (no op of the ported models draws from it yet: dropout raises in
+      train mode).
     """
 
     def __init__(self, config, task, device: Optional[Union[str, torch.device]] = None,
-                 checkpoint_dir: Optional[str] = None, max_epochs: Optional[int] = None):
+                 callbacks: Optional[List] = None, checkpoint_dir: Optional[str] = None,
+                 max_epochs: Optional[int] = None,
+                 limit_train_batches: Optional[float] = None,
+                 limit_val_batches: Optional[float] = None,
+                 limit_test_batches: Optional[float] = None,
+                 overfit_batches: Optional[float] = None,
+                 terminate_on_nan: bool = True,
+                 early_stopping_patience: int = 5,
+                 gradient_clip_val: Optional[float] = None,
+                 accumulate_grad_batches: int = 1,
+                 seed: int = 0):
         self.config = config
         self.task = task
         self.device = resolve_device(device)
         task.device = self.device
         task.model.to(self.device)
         oc = config.optimize_config
+        self.callbacks = list(callbacks or [])
+        self.checkpoint_dir = checkpoint_dir
         self.max_epochs = max_epochs if max_epochs is not None else oc.total_epoch
         self.validation_freq = getattr(oc, "validation_freq", 1)
-        self.checkpoint_dir = checkpoint_dir
-        self.optimizer = build_optimizer(oc.optimizer_class, task.model.parameters(), oc.lr,
+        self.limit_train_batches = limit_train_batches
+        self.limit_val_batches = limit_val_batches
+        self.limit_test_batches = limit_test_batches
+        self.overfit_batches = overfit_batches
+        self.terminate_on_nan = terminate_on_nan
+        self.gradient_clip_val = gradient_clip_val
+        self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.lr = oc.lr
+        self.params = list(task.model.parameters())
+        self.optimizer = build_optimizer(oc.optimizer_class, self.params, oc.lr,
                                          to_dict(getattr(oc, "optimizer_params", None) or {}))
-        self.scheduler = build_scheduler(getattr(oc, "scheduler_class", None), self.optimizer,
+        self.scheduler = build_scheduler(getattr(oc, "scheduler_class", None), oc.lr,
                                          to_dict(getattr(oc, "scheduler_params", None) or {}))
+        self.multi_steps = (MultiSteps(self.params, self.accumulate_grad_batches)
+                            if self.accumulate_grad_batches > 1 else None)
+        self.early_stopping = EarlyStopping(patience=early_stopping_patience)
         self.current_epoch = 0
+        #: micro-steps taken, as the JAX TrainState's ``step``
+        self.global_step = 0
         self.best_val_loss = math.inf
         self.best_ckpt_path: Optional[str] = None
         #: every training step's loss, in order
@@ -66,6 +114,8 @@ class Trainer:
         #: off the card), wall_s (from its start to the next step's), events
         self.step_phases: List[Dict[str, Any]] = []
         self.test_metrics: Dict[str, float] = {}
+        self._epoch_wall: List[float] = []
+        self._epoch_rows: List[float] = []
 
     # -- batches ----------------------------------------------------------------------
     def device_batch(self, block: FileBlock) -> Tuple[Dict[str, torch.Tensor], float, float]:
@@ -81,40 +131,77 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------------------
     def training_step(self, db: Dict[str, torch.Tensor]):
-        """One optimizer step on a device batch: ``loss = loss_sum /
-        max(weight, 1e-12)``, backward, step. Returns the loss and the
-        metric sums (device tensors, detached); the parameters' ``.grad``
-        hold this step's gradients until the next step."""
+        """One micro-step on a device batch: ``loss = loss_sum / max(weight,
+        1e-12)`` and its backward, then, on every ``accumulate_grad_batches``-th
+        micro-step, the optimizer step with the micro-steps' mean gradient,
+        clipped by ``gradient_clip_val``. Returns the loss and the metric
+        sums (device tensors, detached). The parameters' ``.grad`` hold the
+        gradients the optimizer stepped with, or this micro-step's own where
+        it did not step, until the next micro-step."""
         outputs = self.task.model_outputs(db, train=True)
         loss_sum, weight, metrics = self.task.loss_and_metrics(outputs, db)
         loss = loss_sum / weight.clamp(min=1e-12)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        self.optimizer.step()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.multi_steps is not None:
+            grads = self.multi_steps.update(grads)
+        if grads is not None:
+            if self.gradient_clip_val:
+                clip_by_global_norm_(grads, float(self.gradient_clip_val))
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            self.optimizer.step()
+        self.global_step += 1
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     # -- loops ------------------------------------------------------------------------
+    @staticmethod
+    def _limit(loader, limit: Optional[float]) -> int:
+        """The number of batches to take of ``loader``: all without a limit,
+        a fraction for a float ≤ 1.0 (at least one), else a count."""
+        if limit is None:
+            return len(loader)
+        if limit <= 1.0 and isinstance(limit, float):
+            return max(1, int(len(loader) * limit))
+        return min(len(loader), int(limit))
+
     def fit(self, data_module) -> Dict[str, float]:
         data_module.setup("fit")
         train_loader = data_module.train_dataloader()
         data_module.setup("test")
         val_loader = data_module.val_dataloader()
+        if self.overfit_batches:
+            self.limit_train_batches = self.overfit_batches
+            self.limit_val_batches = self.overfit_batches
         metrics: Dict[str, float] = {}
         while self.current_epoch < self.max_epochs:
             t0 = time.perf_counter()
             metrics.update(self._train_epoch(train_loader))
-            if (self.current_epoch + 1) % self.validation_freq == 0:
-                val_metrics = self._eval_epoch(val_loader, "val")
+            val_ran = (self.current_epoch + 1) % self.validation_freq == 0
+            if val_ran:
+                val_metrics = self._eval_epoch(val_loader, "val", self.limit_val_batches)
                 metrics.update(val_metrics)
                 self._maybe_checkpoint(val_metrics)
+                for cb in self.callbacks:
+                    if hasattr(cb, "on_validation_end"):
+                        cb.on_validation_end(self, val_metrics, self.current_epoch)
+                if self.early_stopping.update(val_metrics):
+                    log.info("early stopping at epoch %d", self.current_epoch)
+                    break
             if self.scheduler is not None:
-                self.scheduler.step()
+                # a plateau scheduler sees only a fresh validation loss
+                set_learning_rate(self.optimizer, self.scheduler.step(
+                    metrics.get("val_loss") if val_ran else None))
             log.info("epoch %d done in %.1fs: %s", self.current_epoch,
                      time.perf_counter() - t0, metrics)
             self.current_epoch += 1
-            if not math.isfinite(metrics.get("train_loss", 0.0)):
+            if self.terminate_on_nan and not math.isfinite(metrics.get("train_loss", 0.0)):
                 log.error("non-finite loss: terminating")
                 break
+        for cb in self.callbacks:
+            if hasattr(cb, "on_train_end"):
+                cb.on_train_end(self)
         return metrics
 
     def _train_epoch(self, loader) -> Dict[str, float]:
@@ -122,7 +209,9 @@ class Trainer:
         losses: List[torch.Tensor] = []
         agg: Dict[str, torch.Tensor] = {}
         phases: List[Dict[str, Any]] = []
-        for block in loader:
+        t_epoch = time.perf_counter()
+        rows = 0
+        for block in _take(loader, self._limit(loader, self.limit_train_batches)):
             start = time.perf_counter()
             db, host_prep_s, h2d_s = self.device_batch(block)
             events = (torch.cuda.Event(enable_timing=True),
@@ -134,11 +223,14 @@ class Trainer:
                 events[1].record()
             losses.append(loss)
             _accumulate(agg, metrics)
+            rows += int(block.coords.shape[0])
             phases.append({"start": start, "host_prep_s": host_prep_s, "h2d_s": h2d_s,
                            "events": int(block.labels.shape[0]), "cuda_events": events})
         # one wait per epoch: the losses and events are read after it
         step_losses = [float(x) for x in losses]
         end = time.perf_counter()
+        self._epoch_wall.append(end - t_epoch)
+        self._epoch_rows.append(rows)
         for i, p in enumerate(phases):
             ev = p.pop("cuda_events")
             p["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
@@ -150,11 +242,11 @@ class Trainer:
         return out
 
     @torch.no_grad()
-    def _eval_epoch(self, loader, prefix: str, collect: Optional[List] = None
-                    ) -> Dict[str, float]:
+    def _eval_epoch(self, loader, prefix: str, limit: Optional[float] = None,
+                    collect: Optional[List] = None) -> Dict[str, float]:
         loss_sum, weight = 0.0, 0.0
         agg: Dict[str, torch.Tensor] = {}
-        for block in loader:
+        for block in _take(loader, self._limit(loader, limit)):
             db = self.device_batch(block)[0]
             outputs = self.task.model_outputs(db, train=False)
             ls, w, metrics = self.task.loss_and_metrics(outputs, db)
@@ -171,24 +263,52 @@ class Trainer:
 
     def validate(self, data_module) -> Dict[str, float]:
         data_module.setup("test")
-        return self._eval_epoch(data_module.val_dataloader(), "val")
+        return self._eval_epoch(data_module.val_dataloader(), "val", self.limit_val_batches)
 
     def test(self, data_module) -> List[Dict[str, np.ndarray]]:
         """Test outputs of every test block (``logits``, ``pred``,
         ``logprob`` over its real events), in order; the test metrics go to
-        ``test_metrics``."""
+        ``test_metrics`` and to the callbacks' ``on_test_end``."""
         data_module.setup("test")
         outputs: List[Dict[str, np.ndarray]] = []
-        self.test_metrics = self._eval_epoch(data_module.test_dataloader(), "test", outputs)
+        self.test_metrics = self._eval_epoch(data_module.test_dataloader(), "test",
+                                             self.limit_test_batches, outputs)
+        for cb in self.callbacks:
+            if hasattr(cb, "on_test_end"):
+                cb.on_test_end(self, self.test_metrics)
         return outputs
 
     # -- checkpoints ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
+        """One ``torch.save`` file: the model's ``state_dict``, the
+        optimizer's, the scheduler's and the gradient accumulation's state,
+        the epoch, the micro-step count and the best validation loss."""
         torch.save({"state_dict": self.task.model.state_dict(),
                     "optimizer": self.optimizer.state_dict(),
                     "scheduler": (self.scheduler.state_dict()
                                   if self.scheduler is not None else None),
-                    "epoch": self.current_epoch}, path)
+                    "multi_steps": (self.multi_steps.state_dict()
+                                    if self.multi_steps is not None else None),
+                    "epoch": self.current_epoch, "step": self.global_step,
+                    "best_val_loss": self.best_val_loss}, path)
+
+    def load_checkpoint(self, path: str, restore_training: bool = False) -> None:
+        """Load a checkpoint's weights; with ``restore_training`` also the
+        optimizer, the scheduler, the gradient accumulation, the epoch, the
+        micro-step count and the best validation loss, so that ``fit``
+        resumes at the saved epoch."""
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        self.task.model.load_state_dict(ckpt["state_dict"])
+        if not restore_training:
+            return
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        if self.scheduler is not None and ckpt.get("scheduler") is not None:
+            self.scheduler.load_state_dict(ckpt["scheduler"])
+        if self.multi_steps is not None and ckpt.get("multi_steps") is not None:
+            self.multi_steps.load_state_dict(ckpt["multi_steps"])
+        self.current_epoch = ckpt["epoch"]
+        self.global_step = ckpt.get("step", 0)
+        self.best_val_loss = ckpt.get("best_val_loss", math.inf)
 
     def _maybe_checkpoint(self, val_metrics: Dict[str, float]) -> None:
         vl = val_metrics.get("val_loss")
@@ -203,6 +323,76 @@ class Trainer:
         self.save_checkpoint(path)
         self.best_ckpt_path = path
         log.info("saved best checkpoint: %s", path)
+
+    # -- LR finder --------------------------------------------------------------------
+    def lr_find(self, data_module, min_lr: float = 1e-6, max_lr: float = 1.0,
+                num_steps: int = 60) -> float:
+        """Train with the lr swept over ``num_steps`` log-spaced values from
+        ``min_lr`` to ``max_lr`` (the training blocks cycled), stopping at a
+        non-finite loss or, after 10 steps, at a loss above 4× the lowest;
+        put the weights, BatchNorm statistics, optimizer and accumulation
+        state back, and return the lr where the loss fell fastest
+        (``np.gradient``), or the config's lr with fewer than 3 finite
+        losses."""
+        data_module.setup("fit")
+        loader = data_module.train_dataloader()
+        saved = (copy.deepcopy(self.task.model.state_dict()),
+                 copy.deepcopy(self.optimizer.state_dict()),
+                 self.multi_steps.state_dict() if self.multi_steps is not None else None,
+                 self.global_step)
+        lrs = np.logspace(math.log10(min_lr), math.log10(max_lr), num_steps)
+        losses: List[float] = []
+        it = iter(loader)
+        for lr in lrs:
+            try:
+                block = next(it)
+            except StopIteration:
+                it = iter(loader)
+                block = next(it)
+            set_learning_rate(self.optimizer, float(lr))
+            losses.append(float(self.training_step(self.device_batch(block)[0])[0]))
+            if not math.isfinite(losses[-1]) or (len(losses) > 10 and
+                                                 losses[-1] > 4 * min(losses)):
+                lrs = lrs[:len(losses)]
+                break
+        self.task.model.load_state_dict(saved[0])
+        self.optimizer.load_state_dict(saved[1])
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.multi_steps is not None:
+            self.multi_steps.load_state_dict(saved[2])
+        self.global_step = saved[3]
+        losses_arr = np.asarray(losses)
+        valid = np.isfinite(losses_arr)
+        if valid.sum() < 3:
+            return self.lr
+        best = float(np.asarray(lrs)[valid][int(np.argmin(np.gradient(losses_arr[valid])))])
+        log.info("lr_find suggests lr=%.3g", best)
+        return best
+
+    @property
+    def waveforms_per_second(self) -> Optional[float]:
+        """Training throughput in real (unpadded) waveform rows per second
+        of epoch wall time (which ends with the epoch's wait for its
+        losses), or None before an epoch has run."""
+        if not self._epoch_wall:
+            return None
+        return sum(self._epoch_rows) / max(sum(self._epoch_wall), 1e-12)
+
+
+def _take(loader, n: int) -> Iterator:
+    """The first ``n`` items of ``loader``; the loader's iterator is closed
+    after them (which stops a prefetch thread)."""
+    it = iter(loader)
+    try:
+        for _ in range(n):
+            try:
+                yield next(it)
+            except StopIteration:
+                return
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
 
 def _accumulate(agg: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor]) -> None:

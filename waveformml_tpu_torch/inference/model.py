@@ -2,26 +2,64 @@
 waveformml_tpu/inference/model.py).
 
 ``InferenceModel`` pads each ragged chunk of events to a row bucket and an
-event bucket, builds the model's plans on the host, copies the batch to the
-device and runs the eval forward. ``dispatch`` returns without waiting for
-the device, so the host can prepare the next chunk while the card runs
-this one; ``fetch`` waits, copies back and strips the padding.
-``dispatch_phases`` sums the host-clock seconds of each phase over calls.
+event bucket, builds the model's plans on the host and packs the whole
+prepared batch into one pinned host buffer (``engineering.base.pack_db``).
+On the card, each layout of that buffer (the row bucket, the event bucket,
+the site capacity, the dtypes) is captured once as a CUDA graph, the JAX
+package's compiled program per layout; every chunk then costs one copy in
+to that graph's static buffer, one replay and an asynchronous copy of the
+outputs into pinned host memory, with nothing waiting for the card until
+``fetch``. On the CPU the forward runs eagerly. ``dispatch_phases`` sums
+the host-clock seconds of each phase over calls.
 """
 from __future__ import annotations
 
+import logging
 import os
 import time
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
+from waveformml_tpu_torch.engineering.base import PackSpec, pack_db, unpack_db
+from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgrad
+from waveformml_tpu_torch.ops.site_head import site_grouped_matmul, site_grouped_matmul_bwd
+from waveformml_tpu_torch.ops.waveform_features import waveform_features
 from waveformml_tpu_torch.registry import retrieve_class
 
-Handle = Tuple[torch.Tensor, int]
+log = logging.getLogger(__name__)
+
+#: the kernel wrappers whose launches a captured graph counts
+KERNELS = (subm_conv_rows, site_grouped_matmul, waveform_features, subm_conv_rows_wgrad,
+           site_grouped_matmul_bwd)
+
+
+class Handle(NamedTuple):
+    """A dispatched chunk: its outputs (on the host, or being copied there
+    until ``ready`` has passed), its real rows and events and its buckets."""
+
+    out: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    n_rows: int
+    n_events: int
+    row_bucket: int
+    event_bucket: int
+
+
+class _Graph:
+    """One layout's captured forward: its static input buffer and output,
+    the kernel launches one replay makes, and its replays so far."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, static_in: torch.Tensor,
+                 static_out: torch.Tensor, launches: Dict[str, int]):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.launches = launches
+        self.replays = 0
 
 
 class InferenceModel:
@@ -29,13 +67,28 @@ class InferenceModel:
 
     ``state_dict_or_path`` is a ``state_dict`` (e.g. from
     ``convert.flax_to_state_dict``), the path of one saved with
-    ``torch.save``, or the path of a ``Trainer`` checkpoint. ``device=None`` means the card; pass ``device="cpu"`` to
-    run the plain PyTorch versions of the kernels on the CPU.
+    ``torch.save``, or the path of a ``Trainer`` checkpoint. ``device=None``
+    means the card; pass ``device="cpu"`` to run the plain PyTorch versions
+    of the kernels on the CPU.
+
+    ``preprocess(coords, feats, mask) -> feats`` and ``postprocess(outputs,
+    coords, mask) -> outputs`` run on the device, inside the captured
+    forward: with a ``preprocess`` the raw ``vals`` dtype ships as it is
+    (e.g. int16 ADC counts, half the bytes of float32), without one ``vals``
+    are cast to float32 on the host. ``output_unit`` ("row", "event" or
+    "auto") says whether the outputs' leading axis is the padded rows or
+    the padded events, for ``fetch`` to cut; "auto" infers it from the
+    shape and takes events, with a warning, where both buckets are equal.
+    A graph capture that fails raises.
     """
 
     def __init__(self, config, state_dict_or_path: Union[str, os.PathLike,
                                                          Dict[str, torch.Tensor]],
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 preprocess: Optional[Callable] = None,
+                 postprocess: Optional[Callable] = None, output_unit: str = "auto"):
+        if output_unit not in ("auto", "row", "event"):
+            raise ValueError(f"output_unit must be auto/row/event, got {output_unit!r}")
         self.config = config
         self.device = resolve_device(device)
         self.task = retrieve_class(config.run_config.run_class)(config, self.device)
@@ -47,43 +100,134 @@ class InferenceModel:
             state = state.get("state_dict", state)
         self.task.model.load_state_dict(state)
         self.task.model.eval()
-        # host prep (pad + plans), host->device copy (synchronous for
-        # pageable numpy memory), forward launch, and fetch (device wait +
-        # device->host copy), summed over calls
+        self.preprocess = preprocess
+        self.postprocess = postprocess
+        self.output_unit = output_unit
+        self._warned_ambiguous = False
+        #: captured forward per packed-batch layout (on the card)
+        self.graphs: Dict[PackSpec, _Graph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        #: host-clock seconds summed over calls: host prep (pad, plans,
+        #: pack), the copy in, the launch (a graph replay and the enqueue of
+        #: the copy out on the card; the eager forward on the CPU) and the
+        #: fetch (wait for the outputs, un-pad)
         self.dispatch_phases = {"host_prep_s": 0.0, "h2d_s": 0.0,
                                 "launch_s": 0.0, "fetch_s": 0.0}
+        #: host-clock seconds of warming up and capturing new layouts
+        self.capture_s = 0.0
 
+    # -- the forward --------------------------------------------------------------------
+    def _forward(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.preprocess is not None:
+            db = dict(db)
+            db["feats"] = self.preprocess(db["coords"], db["feats"], db["mask"])
+        out = self.task.apply_model(db)
+        if self.postprocess is not None:
+            out = self.postprocess(out, db["coords"], db["mask"])
+        return out
+
+    def _capture(self, packed: torch.Tensor, spec: PackSpec) -> _Graph:
+        """Warm a new layout up eagerly on a side stream (loads the kernels'
+        libraries and sets their one-time attributes), then capture its
+        forward over a static input buffer into the shared memory pool."""
+        static_in = torch.empty(packed.shape, dtype=torch.uint8, device=self.device)
+        static_in.copy_(packed, non_blocking=True)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._forward(unpack_db(static_in, spec))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = {fn.__name__: fn.captured for fn in KERNELS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            static_out = self._forward(unpack_db(static_in, spec))
+        launches = {fn.__name__: fn.captured - before[fn.__name__] for fn in KERNELS}
+        return _Graph(graph, static_in, static_out, launches)
+
+    def replay_launches(self) -> Dict[str, int]:
+        """Kernel launches made by graph replays so far, by wrapper name:
+        each graph's launches per replay (counted at its capture) times its
+        replays."""
+        out = {fn.__name__: 0 for fn in KERNELS}
+        for g in self.graphs.values():
+            for name, n in g.launches.items():
+                out[name] += n * g.replays
+        return out
+
+    # -- serving ------------------------------------------------------------------------
     def dispatch(self, coords: np.ndarray, vals: np.ndarray) -> Handle:
         """Pad, build plans, copy and launch the forward of one chunk
         (coords [N, 3] with event ids 0..B-1, vals [N, F]) without waiting
-        for the device; returns a handle for ``fetch``."""
+        for the device; returns a handle for ``fetch``. Its outputs are its
+        own: later dispatches do not overwrite them."""
         n = coords.shape[0]
         n_events = int(coords[:, -1].max()) + 1 if n else 0
-        vals = np.asarray(vals, dtype=np.float32)
+        vals = np.asarray(vals)
+        if self.preprocess is None and vals.dtype != np.float32:
+            vals = vals.astype(np.float32)
         t0 = time.perf_counter()
         block = FileBlock(coords=np.asarray(coords, dtype=np.int32), feats=vals,
                           labels=np.zeros((max(1, n_events),), np.int64))
-        db = self.task.prepare_block(block, self.task.row_bucket(block),
-                                     self.task.event_bucket(block))
-        t1 = time.perf_counter()
-        dev = self.task.to_device(db)
-        t2 = time.perf_counter()
-        out = self.task.apply_model(dev)
+        rb, eb = self.task.row_bucket(block), self.task.event_bucket(block)
+        db = self.task.prepare_block(block, rb, eb)
+        if self.device.type == "cpu":
+            t1 = time.perf_counter()
+            dev = self.task.to_device(db)
+            t2 = time.perf_counter()
+            out, ready = self._forward(dev), None
+        else:
+            packed, spec = pack_db(db, pin_memory=True)
+            g = self.graphs.get(spec)
+            if g is None:
+                tc = time.perf_counter()
+                g = self.graphs[spec] = self._capture(packed, spec)
+                self.capture_s += time.perf_counter() - tc
+                t0 += time.perf_counter() - tc
+            t1 = time.perf_counter()
+            g.static_in.copy_(packed, non_blocking=True)
+            t2 = time.perf_counter()
+            g.graph.replay()
+            g.replays += 1
+            out = torch.empty(g.static_out.shape, dtype=g.static_out.dtype, pin_memory=True)
+            out.copy_(g.static_out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
         t3 = time.perf_counter()
         self.dispatch_phases["host_prep_s"] += t1 - t0
         self.dispatch_phases["h2d_s"] += t2 - t1
         self.dispatch_phases["launch_s"] += t3 - t2
-        return out, n_events
+        return Handle(out, ready, n, n_events, rb, eb)
 
     def fetch(self, handle: Handle) -> np.ndarray:
-        """Wait for a dispatched chunk and return its per-event outputs
-        without the padding events."""
-        out, n_events = handle
+        """Wait for a dispatched chunk and return its outputs without the
+        padding: the real events of per-event outputs, the real rows of
+        per-row ones (``output_unit``)."""
         t0 = time.perf_counter()
-        result = out[:n_events].cpu().numpy()
+        if handle.ready is not None:
+            handle.ready.synchronize()
+        out = handle.out.numpy()
+        result = self._unpad(out, handle)
         self.dispatch_phases["fetch_s"] += time.perf_counter() - t0
         return result
 
+    def _unpad(self, out: np.ndarray, h: Handle) -> np.ndarray:
+        if self.output_unit == "row" and out.shape[0] == h.row_bucket:
+            return out[:h.n_rows]
+        if self.output_unit == "event" and out.shape[0] == h.event_bucket:
+            return out[:h.n_events]
+        if out.shape[0] == h.event_bucket:
+            if (self.output_unit == "auto" and h.event_bucket == h.row_bucket
+                    and not self._warned_ambiguous):
+                self._warned_ambiguous = True
+                log.warning("row bucket == event bucket (%d): cannot tell per-row "
+                            "from per-event outputs; assuming per-event. Construct "
+                            "InferenceModel with output_unit='row'/'event' to "
+                            "disambiguate.", h.row_bucket)
+            return out[:h.n_events]
+        if out.shape[0] == h.row_bucket:
+            return out[:h.n_rows]
+        return out
+
     def __call__(self, coords: np.ndarray, vals: np.ndarray) -> np.ndarray:
-        """Ragged chunk → per-event model outputs [B, n_type] (synchronous)."""
+        """Ragged chunk → model outputs without the padding (synchronous)."""
         return self.fetch(self.dispatch(coords, vals))

@@ -17,7 +17,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "waveformml_tpu_torch"
@@ -103,3 +105,14 @@ def check_launch(lib: ctypes.CDLL, err: int, kernel: str) -> None:
     if err != 0:
         msg = lib.wf_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+
+
+def count_launches(fn: Callable, grids: int) -> None:
+    """Count ``grids`` launches of a kernel wrapper ``fn``: in
+    ``fn.launches`` where they run now, in ``fn.captured`` where the current
+    stream is capturing a CUDA graph (they run only when the graph replays,
+    and whoever replays it counts them)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += grids
+    else:
+        fn.launches += grids

@@ -154,11 +154,11 @@ def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor
     native.check_launch(lib, err, "subm_conv_rows")
     if n and cout:
         # the centre tap's grid, and for K² > 1 the other taps' grid
-        subm_conv_rows.launches += 1 if kk == 1 else 2
+        native.count_launches(subm_conv_rows, 1 if kk == 1 else 2)
     return out
 
 
-subm_conv_rows.launches = 0
+subm_conv_rows.launches = subm_conv_rows.captured = 0
 
 
 def transposed_kernel(kernel: torch.Tensor) -> torch.Tensor:
@@ -270,11 +270,11 @@ def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tenso
     # where there are outputs: the centre tap's grid where there are rows,
     # and the reduction's grid
     if kk * cin * cout + (cout if with_bias else 0) > 0:
-        subm_conv_rows_wgrad.launches += int(n > 0 and cout > 0) + 1
+        native.count_launches(subm_conv_rows_wgrad, int(n > 0 and cout > 0) + 1)
     return d_kernel, d_bias
 
 
-subm_conv_rows_wgrad.launches = 0
+subm_conv_rows_wgrad.launches = subm_conv_rows_wgrad.captured = 0
 
 
 class SubMConvRows(torch.autograd.Function):

@@ -175,11 +175,11 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
     native.check_launch(lib, err, "site_grouped_matmul")
     if n_events and f:
         # the bias grid, and where there are slots the products' grid
-        site_grouped_matmul.launches += 2 if g and max_slots else 1
+        native.count_launches(site_grouped_matmul, 2 if g and max_slots else 1)
     return out[:, :f]
 
 
-site_grouped_matmul.launches = 0
+site_grouped_matmul.launches = site_grouped_matmul.captured = 0
 
 
 def site_grouped_matmul_bwd_plain(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.Tensor,
@@ -279,12 +279,12 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
     # zeroing and bias runs where there are rows, events or outputs (the
     # tickets), the groups' grid where there are outputs
     outputs = c * s * f + (f if with_bias else 0) > 0
-    site_grouped_matmul_bwd.launches += (int(n > 0 or (with_bias and n_events > 0) or outputs)
-                                         + int(outputs))
+    native.count_launches(site_grouped_matmul_bwd,
+                          int(n > 0 or (with_bias and n_events > 0) or outputs) + int(outputs))
     return d_rows, d_k3, d_bias
 
 
-site_grouped_matmul_bwd.launches = 0
+site_grouped_matmul_bwd.launches = site_grouped_matmul_bwd.captured = 0
 
 
 class SiteGroupedMatmul(torch.autograd.Function):

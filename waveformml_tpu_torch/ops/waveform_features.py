@@ -171,8 +171,8 @@ def waveform_features(wfs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         wfs.data_ptr(), *(o.data_ptr() for o in outs), n, s, wfs.stride(0),
         rows, stride, torch.cuda.current_stream(wfs.device).cuda_stream)
     native.check_launch(lib, err, "waveform_features")
-    waveform_features.launches += 1
+    native.count_launches(waveform_features, 1)
     return outs
 
 
-waveform_features.launches = 0
+waveform_features.launches = waveform_features.captured = 0
