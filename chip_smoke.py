@@ -53,7 +53,20 @@ order, it:
    versions; AdamW with CosineAnnealingLR; and a fit of 2 epochs, saved and
    resumed by a new Trainer for a third, against 3 epochs in one fit; each
    run's launch counts and per-step breakdown;
-7. prints one JSON line describing every kernel (launches: those of the
+7. runs SubMPSD_w128.json as shipped (``half_precision``: bf16 features,
+   float32 parameters; 130→104→110→116→122→128 stack, 128·154→199→2 head)
+   from seeded random weights: K1 at its 5 convs and as d_feats, K2 at
+   (128, 199), K4 and K5 against their plain versions with their times,
+   bounds and launches a chunk and a step; 4 chunks of 4096 events served
+   through ``InferenceModel`` (float16 features shipped) against the plain
+   versions on the card; 2 epochs × 4 steps of ``Trainer.fit`` against the
+   plain versions' run (the half-precision tolerances of the CPU tests);
+8. runs the CLI (``waveformml_tpu_torch.main``) for 2 epochs and a test
+   pass: ``main`` over HDF5 class directories written by the port's
+   writer where h5py is installed, else ``run`` over in-memory blocks,
+   saying which on its own line; asserts ``version_0``, its checkpoint,
+   the ``fit:``/``test:`` keys and the kernels' launches;
+9. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the features path), the card line again, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -63,6 +76,7 @@ result. Times are CUDA-event medians of CUDA-graph replays (device time
 with warm L2, no host launch cost, but with the card's own few µs per
 replay, printed as the timing floor; K2 is also timed 20 calls to a graph).
 """
+import ast
 import json
 import os
 import statistics
@@ -76,6 +90,9 @@ import torch
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "config", "examples", "SubMPSD.json")
+# the compute-heavy width, in half precision as shipped (bf16 features,
+# float32 parameters)
+CONFIG_W128 = os.path.join(os.path.dirname(CONFIG), "SubMPSD_w128.json")
 N_CHUNKS = 4
 EVENTS_PER_CHUNK = 4096       # events per batch of the repository's benchmark
 SEED = 0
@@ -120,6 +137,16 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 TRAIN_EPOCHS, TRAIN_CHUNKS, VAL_CHUNKS = 2, 4, 1
 TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4
 GRAD_RTOL, GRAD_ATOL, GRAD_BN_FLOOR = 1e-3, 1e-4, 1e-2
+# w128 phase: the first conv rounds its sums to bf16, so a last-bit
+# difference between K1 and its plain version can flip one rounding there;
+# its logits and losses are held to the half-precision tolerances of the
+# CPU tests against the JAX package (tests/test_torch_half.py)
+HALF_LOGIT_RTOL, HALF_LOGIT_ATOL = 1e-2, 2e-3
+HALF_LOSS_RTOL = 1e-3
+# CLI phase: HDF5 class directories (where h5py is installed) of this many
+# files of this many events a class, and the splits' events a class
+CLI_FILES, CLI_EVENTS_PER_FILE = 4, 512
+CLI_SPLITS = {"n_train": 1024, "n_validate": 512, "n_test": 512, "shuffled_size": 1024}
 
 
 def card_line() -> str:
@@ -244,8 +271,11 @@ def check_subm_conv_rows_adversarial(rng) -> float:
     return err
 
 
-def check_subm_conv_rows(model, db):
-    """K1 at the three convs of the SubMPSD stack, on one chunk's batch."""
+def check_subm_conv_rows(model, db, feats0, tag=""):
+    """K1 at each conv of the SubM stack, on one chunk's batch: the first
+    conv's input ``feats0`` (the batch's features as the task gives them
+    to the model, widened to float32), the others random; lines begin
+    with ``tag``."""
     from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_plain,
                                                    take_row_taps)
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
@@ -260,7 +290,7 @@ def check_subm_conv_rows(model, db):
         kk, cin, cout = conv.weight.shape
         plan = db[f"plan_k{conv.kernel_size}"]
         if layer == 0:
-            feats = db["feats"]
+            feats = feats0
         else:
             feats = torch.randn(n, cin, device="cuda", generator=gen)
             feats = torch.where(mask[:, None], feats, 0.0).contiguous()
@@ -285,7 +315,7 @@ def check_subm_conv_rows(model, db):
         # three TF32 passes over the row-taps the data needs
         flops = 3 * 2.0 * cin * cout * needed
         b_ms, by = bound_ms(n_bytes, flops, TF32_FLOPS_PER_S)
-        print(f"K1 subm_conv_rows layer {layer}: N={n} K²={kk} {cin}->{cout} "
+        print(f"{tag}K1 subm_conv_rows layer {layer}: N={n} K²={kk} {cin}->{cout} "
               f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
               f"bound_ms={b_ms:.5f} ({by}) max_abs_err={err:.3g} row-taps needed "
               f"{needed} of {n * kk}, computed {computed} as the kernel counted them "
@@ -351,9 +381,9 @@ def check_site_grouped_matmul_adversarial(rng, c, f) -> float:
     return err
 
 
-def check_site_grouped_matmul(model, db):
-    """K2 at the SubMPSD head (C=8, F=50, with its bias) on one chunk's slot
-    layout."""
+def check_site_grouped_matmul(model, db, tag=""):
+    """K2 at the SubMPSD head (with its bias; C=8, F=50 at SubMPSD.json's
+    widths) on one chunk's slot layout; lines begin with ``tag``."""
     from waveformml_tpu_torch.detector import NX, NY
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul,
                                                     site_grouped_matmul_plain)
@@ -399,7 +429,7 @@ def check_site_grouped_matmul(model, db):
     rows_read = int(torch.unique(take[live]).numel())
     n_bytes = 4 * (rows_read * c + k3.numel() + 2 * g * m + g + f + n_events * f)
     b_ms, by = bound_ms(n_bytes, 2.0 * c * f * n_live)
-    print(f"K2 site_grouped_matmul: {layout} C={c} F={f} B={n_events} ms={ms:.5f} "
+    print(f"{tag}K2 site_grouped_matmul: {layout} C={c} F={f} B={n_events} ms={ms:.5f} "
           f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.6f} "
           f"({n_bytes} bytes, {rows_read} rows gathered) max_abs_err={err:.3g}; in a graph of {RUN_CALLS} calls: ms={ms_run:.5f} "
           f"library_ms={library_ms_run:.5f}", flush=True)
@@ -428,11 +458,13 @@ def check_bitwise(fn, label: str) -> None:
         assert torch.equal(a, b), f"{label}: two runs differ"
 
 
-def check_subm_conv_rows_wgrad(model, db):
-    """K4 at the three convs of the SubMPSD stack on one chunk's batch (each
-    layer's input, and a masked cotangent of its output width), bitwise
-    determinism, and K1 as d_feats at layers 1-2 against the plain
-    _subm_bwd d_feats."""
+def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
+    """K4 at each conv of the SubM stack on one chunk's batch (each layer's
+    input, the first one's ``feats0``, and a masked cotangent of its output
+    width, rounded to bf16 at the first conv where ``half``, as its
+    backward rounds it), bitwise determinism, and K1 as d_feats at the
+    other layers against the plain _subm_bwd d_feats; lines begin with
+    ``tag``."""
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
     from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_bwd_plain,
                                                    subm_conv_rows_wgrad,
@@ -451,12 +483,14 @@ def check_subm_conv_rows_wgrad(model, db):
         kk, cin, cout = conv.weight.shape
         plan = db[f"plan_k{conv.kernel_size}"]
         if layer == 0:
-            feats = db["feats"]
+            feats = feats0
         else:
             feats = torch.relu(torch.randn(n, cin, device="cuda", generator=gen))
             feats = torch.where(mask[:, None], feats, 0.0).contiguous()
         g = torch.randn(n, cout, device="cuda", generator=gen) / n ** 0.5
         g = torch.where(mask[:, None], g, 0.0).contiguous()
+        if half and layer == 0:
+            g = g.to(torch.bfloat16).float()
         args = (feats, plan, g, mask)
         got = subm_conv_rows_wgrad(*args)
         want = subm_conv_rows_wgrad_plain(*args)
@@ -476,7 +510,7 @@ def check_subm_conv_rows_wgrad(model, db):
             # and W read once, d_feats written once over all N
             d_bytes = 4 * (int(mask.sum()) * cout + n * kk + kk * cin * cout + n * cin) + n
             d_bound = bound_ms(d_bytes, 3 * 2.0 * cin * cout * needed, TF32_FLOPS_PER_S)[0]
-            print(f"K1 as d_feats, layer {layer}: N={n} K²={kk} {cout}->{cin} "
+            print(f"{tag}K1 as d_feats, layer {layer}: N={n} K²={kk} {cout}->{cin} "
                   f"ms={d_ms:.5f} bound_ms={d_bound:.5f} max_abs_err={e:.3g}; grids: "
                   f"{grid_line(grid_times_ms(lambda: subm_conv_rows(g, plan, w_t, None, mask)))}",
                   flush=True)
@@ -501,7 +535,7 @@ def check_subm_conv_rows_wgrad(model, db):
         # are < 1e-4 of that and left out)
         flops = 3 * 2.0 * cin * cout * needed
         b_ms, by = bound_ms(n_bytes, flops, TF32_FLOPS_PER_S)
-        print(f"K4 subm_conv_rows_wgrad layer {layer}: N={n} K²={kk} {cin}x{cout} ms={ms:.5f} "
+        print(f"{tag}K4 subm_conv_rows_wgrad layer {layer}: N={n} K²={kk} {cin}x{cout} ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
               f"max_abs_err={err:.3g} real rows {n_real}, row-taps {needed}, bitwise equal "
               f"over two runs; in a graph of {RUN_CALLS} calls: ms={ms_run:.5f}; grids: "
@@ -512,9 +546,10 @@ def check_subm_conv_rows_wgrad(model, db):
             totals[key] += val
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
     totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"], TF32_FLOPS_PER_S)[1]
-    print(f"K4 over the three convs: ms={totals['ms']:.5f}, in graphs of {RUN_CALLS} calls "
-          f"{totals['ms_run']:.5f}, bound_ms={totals['bound_ms']:.5f}; K1 as d_feats at "
-          f"layers 1-2: ms={d_feats_ms:.5f} bound_ms={d_feats_bound:.5f}", flush=True)
+    print(f"{tag}K4 over the {len(convs)} convs: ms={totals['ms']:.5f}, in graphs of {RUN_CALLS} "
+          f"calls {totals['ms_run']:.5f}, bound_ms={totals['bound_ms']:.5f}; K1 as d_feats at "
+          f"layers 1-{len(convs) - 1}: ms={d_feats_ms:.5f} bound_ms={d_feats_bound:.5f}",
+          flush=True)
     return totals, d_feats_err
 
 
@@ -542,9 +577,10 @@ def check_subm_conv_rows_wgrad_adversarial(rng) -> float:
     return err
 
 
-def check_site_grouped_matmul_bwd(model, db):
-    """K5 at the SubMPSD head (C=8, F=50, with its bias) on one chunk's slot
-    layout, bitwise determinism included."""
+def check_site_grouped_matmul_bwd(model, db, tag=""):
+    """K5 at the SubMPSD head (with its bias; C=8, F=50 at SubMPSD.json's
+    widths) on one chunk's slot layout, bitwise determinism included;
+    lines begin with ``tag``."""
     from waveformml_tpu_torch.detector import NX, NY
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul_bwd,
                                                     site_grouped_matmul_bwd_plain)
@@ -602,7 +638,7 @@ def check_site_grouped_matmul_bwd(model, db):
                    + n * c + c * s * f + f)
     # two products of 2·C·F FLOP per live slot (d_rows, d_k3) and the bias sum
     b_ms, by = bound_ms(n_bytes, 4.0 * c * f * n_live + n_events * f)
-    print(f"K5 site_grouped_matmul_bwd: groups={g} MAX={m} live={n_live} C={c} F={f} "
+    print(f"{tag}K5 site_grouped_matmul_bwd: groups={g} MAX={m} live={n_live} C={c} F={f} "
           f"B={n_events} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
           f"bound_ms={b_ms:.6f} ({by}) max_abs_err={err:.3g}, bitwise equal over two runs; "
           f"in a graph of {RUN_CALLS} calls: ms={ms_run:.5f} library_ms={library_ms_run:.5f}; "
@@ -691,6 +727,15 @@ def kernel_counts() -> dict:
                                        subm_conv_rows_wgrad, site_grouped_matmul_bwd)}
 
 
+def zero_counts() -> None:
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counts().items()}
+
+
 def make_trainer(cfg, state, plain: bool, checkpoint_dir=None, max_epochs=TRAIN_EPOCHS,
                  **kwargs):
     """A Trainer on the card over SubMPSD from ``state``, with the kernels
@@ -732,15 +777,13 @@ def counted_fit(trainer, data, label: str) -> dict:
     before and read just after; asserts the launches of its micro-steps
     and validations and prints its per-step breakdown. Returns the
     counts."""
-    counted = kernel_counts()
     epoch0 = trainer.current_epoch
-    for fn in counted.values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     metrics = trainer.fit(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = read_counts()
     steps = len(trainer.step_losses)
     epochs = trainer.current_epoch - epoch0
     want = training_launches(trainer.task.model, steps, epochs * len(data.val_dataloader()))
@@ -776,10 +819,9 @@ def run_training(cfg, state, train, val):
         losses = trainer.step_losses
 
         plain = make_trainer(cfg, state, plain=True)
-        for fn in kernel_counts().values():
-            fn.launches = 0
+        zero_counts()
         plain.fit(data)
-        assert all(fn.launches == 0 for fn in kernel_counts().values())
+        assert not any(read_counts().values())
         np.testing.assert_allclose(losses, plain.step_losses, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
         print(f"training losses {np.round(losses, 6).tolist()} match the plain versions' "
               f"{np.round(plain.step_losses, 6).tolist()} (rtol={TRAIN_RTOL}, "
@@ -904,6 +946,202 @@ def run_training_flags(cfg, state, train, val):
           f"(rtol={TRAIN_RTOL}, atol={TRAIN_ATOL})", flush=True)
 
 
+def run_w128(chunks, train, val):
+    """SubMPSD_w128.json as shipped (bf16 features, published widths:
+    130→104→110→116→122 k=3, 122→128 k=1, head 128·154→199→2), seeded
+    random weights and head bias: K1 at its 5 convs and as d_feats, K2,
+    K4 and K5 at those shapes against their plain versions (K4 and K5
+    bitwise over two runs, too); 4 serving chunks of 4096 events through
+    ``InferenceModel`` (float16 features shipped, the bf16 cast inside the
+    graph), against the plain versions on the card; and 2 epochs × 4 steps
+    of ``Trainer.fit``, against the plain versions' run. Returns each
+    kernel's numbers at these shapes."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+    from waveformml_tpu_torch.detector import MAX_RANGE
+    from waveformml_tpu_torch.inference.model import InferenceModel
+    from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
+    from waveformml_tpu_torch.models.nets import SubMPSDNet
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+
+    cfg = load_config(CONFIG_W128)
+    assert cfg.system_config.half_precision
+    gen = torch.Generator().manual_seed(SEED + 10)
+    model = SubMPSDNet(cfg, generator=gen)
+    with torch.no_grad():
+        model.head0.bias.normal_(generator=gen)
+    state = model.state_dict()
+    # float16 features, as half precision's datasets give them
+    inputs = [(ch["coords"], (ch["waveforms"] / MAX_RANGE).astype(np.float16))
+              for ch in chunks]
+    server = InferenceModel(cfg, state)
+    t0 = time.perf_counter()
+    server(*inputs[0])
+    torch.cuda.synchronize()
+    print(f"w128 first chunk (capture of its layout): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    task = server.task
+    block = FileBlock(inputs[0][0], inputs[0][1], np.zeros(EVENTS_PER_CHUNK, np.int64))
+    db = task.to_device(task.prepare_block(block, task.row_bucket(block),
+                                           task.event_bucket(block)))
+    assert db["feats"].dtype == torch.float16
+    # the first conv's input as its forward gives it to K1: bf16, widened
+    feats0 = task._features(db).float().contiguous()
+    convs = [m for m in task.model.stack.modules() if isinstance(m, RowSubMConv2d)]
+    print(f"w128 stack: {[tuple(m.weight.shape) for m in convs]}, head C={task.model.head0.cin} "
+          f"F={task.model.head0.features}", flush=True)
+    results = {"subm_conv_rows": check_subm_conv_rows(task.model, db, feats0, tag="w128 "),
+               "site_grouped_matmul": check_site_grouped_matmul(task.model, db, tag="w128 ")}
+    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(
+        task.model, db, feats0, half=True, tag="w128 ")
+    results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
+                                                   d_feats_err)
+    results["site_grouped_matmul_bwd"] = check_site_grouped_matmul_bwd(task.model, db,
+                                                                       tag="w128 ")
+
+    # serving: each chunk one replay of its layout's graph
+    for g in server.graphs.values():
+        g.replays = 0
+    graphs_before = len(server.graphs)
+    zero_counts()
+    t0 = time.perf_counter()
+    handles = [server.dispatch(c, f) for c, f in inputs]
+    logits = [server.fetch(h) for h in handles]
+    wall = time.perf_counter() - t0
+    eager, replayed = read_counts(), server.replay_launches()
+    launches = {k: eager[k] + replayed[k] for k in eager}
+    new_graphs = len(server.graphs) - graphs_before
+    k1_grids = sum(1 if m.kernel_size == 1 else 2 for m in convs)
+    per_chunk = dict.fromkeys(launches, 0)
+    per_chunk.update(subm_conv_rows=k1_grids, site_grouped_matmul=2)
+    assert sum(g.replays for g in server.graphs.values()) == N_CHUNKS
+    assert replayed == {k: v * N_CHUNKS for k, v in per_chunk.items()}, replayed
+    assert eager == {k: v * new_graphs for k, v in per_chunk.items()}, eager
+    forward_ms = graph_time_ms(lambda: task.apply_model(db))
+    n_events = N_CHUNKS * EVENTS_PER_CHUNK
+    print(f"w128 serving: {N_CHUNKS} chunks, {n_events} events in {wall:.4f} s = "
+          f"{n_events / wall:.1f} events/s; device forward {forward_ms:.4f} ms a chunk; "
+          f"launches {launches}, of which from replays {replayed}; packed chunk bytes "
+          f"{[sum(leaf[4] for leaf in spec) for spec in server.graphs]}", flush=True)
+    reference = InferenceModel(cfg, state)
+    for module in reference.task.model.modules():
+        if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
+            module.plain = True
+    agree, err = 0, 0.0
+    for (c, f), out in zip(inputs, logits):
+        assert out.shape == (EVENTS_PER_CHUNK, cfg.system_config.n_type)
+        assert np.isfinite(out).all()
+        want = reference(c, f)
+        np.testing.assert_allclose(out, want, rtol=HALF_LOGIT_RTOL, atol=HALF_LOGIT_ATOL)
+        agree += int((out.argmax(-1) == want.argmax(-1)).sum())
+        err = max(err, float(np.abs(out - want).max()))
+    print(f"w128 logits match the plain versions on the card (largest |difference| {err:.3g}, "
+          f"rtol={HALF_LOGIT_RTOL}, atol={HALF_LOGIT_ATOL}); argmax agrees on "
+          f"{agree}/{n_events} events", flush=True)
+
+    # training, float16 features as the datasets give them
+    def half(blocks):
+        return [FileBlock(b.coords, b.feats.astype(np.float16), b.labels) for b in blocks]
+
+    data = BlockDataModule(half(train), half(val))
+    trainer = make_trainer(cfg, state, plain=False)
+    step = counted_fit(trainer, data, "w128 training")
+    plain = make_trainer(cfg, state, plain=True)
+    zero_counts()
+    plain.fit(data)
+    assert not any(read_counts().values())
+    np.testing.assert_allclose(trainer.step_losses, plain.step_losses, rtol=HALF_LOSS_RTOL)
+    print(f"w128 training losses {np.round(trainer.step_losses, 6).tolist()} match the plain "
+          f"versions' {np.round(plain.step_losses, 6).tolist()} (rtol={HALF_LOSS_RTOL})",
+          flush=True)
+    a_step = training_launches(task.model, 1, 0)
+    for name, r in results.items():
+        print(f"w128 {name}: ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
+              f"max_abs_err={r['max_abs_err']:.3g}; launches a serving chunk "
+              f"{per_chunk[name]}, a training step {a_step[name]}; in the training run "
+              f"{step[name]}", flush=True)
+    return results
+
+
+def run_cli(train, val) -> None:
+    """The CLI (``waveformml_tpu_torch.main``) on the card, SubMPSD.json's
+    widths, 2 epochs and a test pass, with the kernels' counts set to 0
+    before and read after. Where h5py is installed: over two class
+    directories of HDF5 files that the port's writer writes (the HDF5
+    readers, the offline shuffle and ``PSDDataModule``), through
+    ``main``; otherwise ``run`` over the in-memory blocks. Asserts the run
+    directory ``version_0``, its checkpoint and the ``fit:``/``test:``
+    keys."""
+    import contextlib
+    import glob
+    import io
+
+    from waveformml_tpu_torch import main as cli
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import (BlockDataModule,
+                                                         write_classification_dirs)
+    from waveformml_tpu_torch.io.hdf5 import available
+
+    with tempfile.TemporaryDirectory() as tmp, open(CONFIG) as f:
+        cfg = json.load(f)
+        cfg["system_config"]["model_base_path"] = os.path.join(tmp, "model")
+        hdf5 = available()
+        t0 = time.perf_counter()
+        if hdf5:
+            data = os.path.join(tmp, "data")
+            write_classification_dirs(data, cfg["dataset_config"]["paths"], CLI_FILES,
+                                      CLI_EVENTS_PER_FILE, cfg["system_config"]["n_samples"],
+                                      seed=SEED + 5)
+            cfg["dataset_config"].update(base_path=data, **CLI_SPLITS)
+        path = os.path.join(tmp, "SubMPSD.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        argv = [path, "-t", "--max_epochs", "2"]
+        written = time.perf_counter() - t0
+        out = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if hdf5:
+                rc = cli.main(argv)
+                if rc != 0:
+                    raise RuntimeError(f"the CLI exited with {rc}")
+            else:
+                args = cli.build_parser().parse_args(argv)
+                cli.run(load_config(path), args, BlockDataModule(train, val, val))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        if not hdf5:
+            print("CLI phase: h5py is not installed, so the HDF5 readers did not run; "
+                  "run() of the CLI drove a BlockDataModule of the in-memory training "
+                  "blocks instead", flush=True)
+        printed = {}
+        for line in text.splitlines():
+            for tag in ("fit", "test"):
+                if line.startswith(f"{tag}: "):
+                    printed[tag] = ast.literal_eval(line[len(tag) + 2:])
+        run_dir = os.path.join(tmp, "model", cfg["system_config"]["model_name"], "runs",
+                               cfg["run_config"]["exp_name"], "version_0")
+        ckpts = glob.glob(os.path.join(run_dir, "epoch=*-val_loss=*.ckpt"))
+        assert os.path.isfile(os.path.join(run_dir, "run_info.json")) and len(ckpts) == 1
+        assert set(printed["fit"]) == {"train_loss", "train_accuracy", "val_loss",
+                                       "val_accuracy"}, printed
+        assert set(printed["test"]) == {"test_loss", "test_accuracy"}, printed
+        assert all(launches[k] > 0 for k in ("subm_conv_rows", "site_grouped_matmul",
+                                             "subm_conv_rows_wgrad",
+                                             "site_grouped_matmul_bwd")), launches
+        print(f"CLI phase: HDF5 read: {'yes' if hdf5 else 'no (h5py absent)'}; data written "
+              f"in {written:.2f} s; main/run of 2 epochs and a test pass in {wall:.2f} s "
+              f"(wall, host clock); {os.path.relpath(ckpts[0], tmp)}; launches {launches}; "
+              f"fit {printed['fit']}; test {printed['test']}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -979,7 +1217,7 @@ def main() -> int:
          for _ in range(4097)])).cuda()
     wfs_pairs = torch.from_numpy(np.concatenate([ch["waveforms"] for ch in chunks])).cuda()
     results = {
-        "subm_conv_rows": check_subm_conv_rows(task.model, db),
+        "subm_conv_rows": check_subm_conv_rows(task.model, db, db["feats"]),
         "site_grouped_matmul": check_site_grouped_matmul(task.model, db),
         "waveform_features": check_waveform_features(wfs_main, wfs_150, wfs_pairs, rng),
     }
@@ -989,7 +1227,8 @@ def main() -> int:
     results["site_grouped_matmul"]["max_abs_err"] = max(
         results["site_grouped_matmul"]["max_abs_err"],
         check_site_grouped_matmul_adversarial(rng, head.cin, head.features))
-    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(task.model, db)
+    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(task.model, db,
+                                                                              db["feats"])
     results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
                                                    d_feats_err)
     results["subm_conv_rows_wgrad"]["max_abs_err"] = max(
@@ -1006,14 +1245,13 @@ def main() -> int:
     graphs_before = len(server.graphs)
     for g in server.graphs.values():
         g.replays = 0
-    for fn in kernel_counts().values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     handles = [server.dispatch(c, f) for c, f in inputs]
     logits = [server.fetch(h) for h in handles]
     wall = time.perf_counter() - t0
     replayed = server.replay_launches()
-    eager = {name: fn.launches for name, fn in kernel_counts().items()}
+    eager = read_counts()
     launches = {name: eager[name] + replayed[name] for name in eager}
     new_graphs = len(server.graphs) - graphs_before
     replays = sum(g.replays for g in server.graphs.values())
@@ -1158,7 +1396,13 @@ def main() -> int:
     # it runs there, else on the waveform-features path
     launches = {name: train_launches[name] or launches.get(name, 0) for name in train_launches}
 
-    # -- 7. report ------------------------------------------------------------
+    # -- 7. SubMPSD_w128.json in half precision -------------------------------
+    run_w128(chunks, train, val)
+
+    # -- 8. the CLI -----------------------------------------------------------
+    run_cli(train, val)
+
+    # -- 9. report ------------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),

@@ -9,7 +9,8 @@ setup(
                  "capabilities of WaveformML"),
     packages=find_packages(include=["waveformml_tpu", "waveformml_tpu.*",
                                     "waveformml_tpu_torch*"]),
-    package_data={"waveformml_tpu": ["config_requirements.json"]},
+    package_data={"waveformml_tpu": ["config_requirements.json"],
+                  "waveformml_tpu_torch": ["config_requirements.json"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "h5py", "scipy",

@@ -99,7 +99,7 @@ def trajectories(tmp_path_factory):
                       checkpoint_dir=str(tmp_path_factory.mktemp("ckpt")))
     metrics = trainer.fit(BlockDataModule(train, val, val))
     return dict(cfg=cfg, trainer=trainer, metrics=metrics, jax_losses=jax_losses,
-                jax_stats=jax_stats, val=val)
+                jax_stats=jax_stats, val=val, jtrainer=jtrainer)
 
 
 def test_losses_match_jax_step_by_step(trajectories):
@@ -161,15 +161,53 @@ def test_best_checkpoint_serves_through_inference_model(trajectories):
 def test_test_returns_the_test_outputs(trajectories):
     trainer = trajectories["trainer"]
     val = trajectories["val"]
-    outputs = trainer.test(BlockDataModule([], [], val))
+    outputs, blocks = [], []
+
+    def collect(block, db, test_out):
+        blocks.append(block)
+        outputs.append(test_out)
+
+    metrics = trainer.test(BlockDataModule([], [], val), collect=collect)
     assert len(outputs) == len(val)
-    for out, block in zip(outputs, val):
+    for out, block, want in zip(outputs, blocks, val):
+        assert block is want
         assert sorted(out) == ["logits", "logprob", "pred"]
         assert out["logits"].shape == (block.labels.shape[0], 2)
         np.testing.assert_array_equal(out["pred"], out["logits"].argmax(-1))
-    assert set(trainer.test_metrics) == {"test_loss", "test_accuracy"}
+    assert set(metrics) == {"test_loss", "test_accuracy"}
     assert trainer.validate(BlockDataModule([], val))["val_loss"] == pytest.approx(
-        trainer.test_metrics["test_loss"])
+        metrics["test_loss"])
+
+
+def test_test_metrics_match_the_jax_trainer_test(trajectories):
+    """Trainer.test returns the test metrics under the JAX Trainer's keys,
+    equal to its Trainer.test on the same weights and blocks, and hands
+    each block's outputs to ``collect`` as the JAX one does."""
+    import jax
+    import jax.numpy as jnp
+    from flax.traverse_util import unflatten_dict
+
+    from waveformml_tpu_torch.convert import state_dict_to_flax
+
+    trainer, jt, val = trajectories["trainer"], trajectories["jtrainer"], trajectories["val"]
+    variables = unflatten_dict({k: jnp.asarray(v) for k, v in
+                                state_dict_to_flax(trainer.task.model.state_dict()).items()},
+                               sep="/")
+    jt.state.params = jax.device_put(variables["params"])
+    jt.state.batch_stats = jax.device_put(variables["batch_stats"])
+    jax_logits, logits = [], []
+    want = jt.test(BlockDataModule([], [], val),
+                   collect=lambda block, db, out: jax_logits.append(
+                       np.asarray(out["logits"])[0, :block.labels.shape[0]]))
+    got = trainer.test(BlockDataModule([], [], val),
+                       collect=lambda block, db, out: logits.append(out["logits"]))
+    assert set(got) == set(want) == {"test_loss", "test_accuracy"}
+    # the JAX package sums the accuracy in float32
+    assert got["test_accuracy"] == pytest.approx(want["test_accuracy"], rel=1e-6)
+    assert got["test_loss"] == pytest.approx(want["test_loss"], rel=1e-5)
+    assert len(logits) == len(jax_logits) == len(val)
+    for a, b in zip(logits, jax_logits):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_trainer_needs_cuda_without_a_device(monkeypatch):

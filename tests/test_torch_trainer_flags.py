@@ -322,8 +322,11 @@ def test_callbacks_and_throughput():
     trainer = _port_trainer(CFG, init, 2, callbacks=[Recorder()], accumulate_grad_batches=2,
                             limit_test_batches=1)
     trainer.fit(BlockDataModule(TRAIN, VAL))
-    outputs = trainer.test(BlockDataModule([], [], VAL))
+    outputs = []
+    metrics = trainer.test(BlockDataModule([], [], VAL),
+                           collect=lambda block, db, out: outputs.append(out))
     assert len(outputs) == 1
+    assert sorted(metrics) == ["test_accuracy", "test_loss"]
     # after the first epoch's 5 micro-steps one is carried
     assert calls == [("val", 0, 1), ("val", 1, 0), ("train_end",),
                      ("test_end", ["test_accuracy", "test_loss"])]

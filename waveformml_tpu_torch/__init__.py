@@ -9,8 +9,11 @@ pre- and post-processing) and trained on one device
 (``engineering.trainer.Trainer``: masked cross entropy, the JAX package's
 optimizers and epoch schedulers, clipping, accumulation, early stopping,
 resume, ``lr_find``; masked BatchNorm statistics; ``datasets.data_module``
-loaders), and the per-waveform DSP feature op, through five kernels written
-by hand in CUDA C++:
+loaders), from HDF5 class directories (``datasets.pulse_dataset``,
+``PSDDataModule``; h5py is imported only when files are read) through the
+CLI (``python -m waveformml_tpu_torch.main``) to a checkpoint, in float32
+or ``half_precision`` (``SubMPSD_w128.json``), and the per-waveform DSP
+feature op, through five kernels written by hand in CUDA C++:
 
 * ``ops.row_conv.subm_conv_rows``           -- K1, gather-fused TF32 GEMM (forward,
   and the feature gradient with the reversed, transposed kernel)

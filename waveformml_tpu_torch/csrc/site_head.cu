@@ -47,7 +47,11 @@
 //   ~1.5x the float4 time and scalar adds ~4x.
 // * Shapes: a template on (C, F). The serving head (C, F) = (8, 50)
 //   has its own instantiation, with no runtime divide in its loops; every
-//   other shape runs the same code with C and F given at run time.
+//   other shape runs the same code with C and F given at run time. Where
+//   the weight slice and a tile's rows together exceed the block's shared
+//   memory (SubMPSD_w128's head, (C, F) = (128, 199): 100 KB of weights
+//   and 128 KB of rows), the rows are not staged: each product reads its
+//   slot's row from global memory (L1), by the listed row index.
 //
 // The adds of one event's slots land in an order that varies from run to
 // run, so an output that sums m slots (its event's rows at this head, ≤ 4
@@ -102,6 +106,8 @@ __host__ __device__ inline int weight_words(int c, int f) {
 
 // Block g owns site group g. CT, FT: C and F at compile time (0: c_rt,
 // f_rt at run time). vec_rows: C % 4 == 0 and rows 16-byte aligned.
+// stage_rows: the tile's rows are gathered into shared memory (always so
+// for a compile-time shape).
 template <int CT, int FT>
 __global__ void __launch_bounds__(THREADS)
 site_grouped_matmul_kernel(const float* __restrict__ rows,
@@ -111,9 +117,10 @@ site_grouped_matmul_kernel(const float* __restrict__ rows,
                            const int32_t* __restrict__ site1,
                            float* __restrict__ out,
                            int c_rt, int s, int f_rt, int ldo, int max_slots, int n_events,
-                           int vec_rows) {
+                           int vec_rows, int stage_rows) {
   const int c = CT ? CT : c_rt;
   const int f = FT ? FT : f_rt;
+  const bool staged = CT ? true : stage_rows != 0;
   const int fv = (f + VEC - 1) / VEC;     // vectors of an output row
   const int fp = fv * VEC;                // staged weight row, zero past f
   extern __shared__ __align__(16) float smem[];
@@ -121,6 +128,7 @@ site_grouped_matmul_kernel(const float* __restrict__ rows,
   float* rs = smem + weight_words(c, f);              // [THREADS, c] the tile's rows, by slot
   __shared__ int slot_s[THREADS];                     // the tile's live slots, listed
   __shared__ int ev_s[THREADS];                       // 0-based event of each listed slot
+  __shared__ int take_s[THREADS];                     // 0-based row of each listed slot
   __shared__ int warp_n[WARPS];                       // live slots of each warp's part of a tile
 
   const int g = blockIdx.x;
@@ -142,7 +150,7 @@ site_grouped_matmul_kernel(const float* __restrict__ rows,
     const int take = slot < max_slots ? take_g[slot] : 0;
     const int ev = slot < max_slots ? ev_g[slot] : 0;
     const bool live = take > 0 && ev > 0 && ev <= n_events;
-    if (live) {
+    if (live && staged) {
       const float* src = rows + (int64_t)(take - 1) * c;
       if (vec_rows) {
         for (int k = 0; k < c / 4; ++k)
@@ -164,6 +172,7 @@ site_grouped_matmul_kernel(const float* __restrict__ rows,
       const int pos = base + __popc(b & ((1u << lane) - 1u));
       slot_s[pos] = t;
       ev_s[pos] = ev - 1;
+      take_s[pos] = take - 1;
     }
     __syncthreads();
     if (n == 0) continue;
@@ -176,7 +185,7 @@ site_grouped_matmul_kernel(const float* __restrict__ rows,
     for (int i = t; i < n * fv; i += THREADS) {
       const int m = i / fv;
       const int j = (i - m * fv) * VEC;
-      const float* r = rs + slot_s[m] * c;
+      const float* r = staged ? rs + slot_s[m] * c : rows + (int64_t)take_s[m] * c;
       const float* w = kg + j;
       float acc[VEC];
 #pragma unroll
@@ -213,7 +222,24 @@ int launch(const float* rows, const float* k3, const float* bias, const int32_t*
   if (err != cudaSuccess || groups == 0 || max_slots == 0) return static_cast<int>(err);
 
   auto* kernel = site_grouped_matmul_kernel<CT, FT>;
-  const size_t smem = sizeof(float) * ((size_t)weight_words(c, f) + (size_t)THREADS * c);
+  const size_t weight_bytes = sizeof(float) * weight_words(c, f);
+  const size_t rows_bytes = sizeof(float) * (size_t)THREADS * c;
+  int stage_rows = 1;
+  if (CT == 0) {
+    // stage a tile's rows only where they fit beside the weight slice and
+    // the static lists
+    static int optin = 0;
+    if (optin == 0) {
+      int device = 0;
+      err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const size_t static_bytes = sizeof(int) * (3 * THREADS + WARPS);
+    stage_rows = weight_bytes + rows_bytes + static_bytes <= static_cast<size_t>(optin);
+  }
+  const size_t smem = weight_bytes + (stage_rows ? rows_bytes : 0);
   static size_t allowed = 0;
   err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -231,7 +257,8 @@ int launch(const float* rows, const float* k3, const float* bias, const int32_t*
   config.attrs = &attr;
   config.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(&config, kernel, rows, k3, take1, ev1, site1, out,
-                                             c, s, f, ldo, max_slots, n_events, vec_rows));
+                                             c, s, f, ldo, max_slots, n_events, vec_rows,
+                                             stage_rows));
 }
 
 }  // namespace

@@ -40,7 +40,12 @@
 //   each listed slot's d_rows row. So all its loads and products overlap
 //   grid 1. The training head's (C, F) = (8, 50) has an instantiation of
 //   its own (loops unrolled, indices divided by constants); other widths
-//   take the runtime one.
+//   take the runtime one. Where the weight slice, its gradient and a tile's
+//   rows and d_out rows exceed the block's shared memory (SubMPSD_w128's
+//   head, (C, F) = (128, 199): 199 KB for the slice and its gradient
+//   alone), the listed slots are staged and multiplied a chunk of fewer
+//   slots at a time (the largest power of two that fits, 16 there), in
+//   list order, so the sums keep a fixed order.
 // * The sum over a site's groups needs no third grid: where the site has
 //   one group (G = S, every layout host_site_layout builds) the block
 //   stores its gradient into d_k3 directly. Otherwise it writes it to a
@@ -60,7 +65,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = THREADS;       // slots a group's block lists and stages at a time
+constexpr int TILE = THREADS;       // slots a group's block lists at a time (and stages, where they fit)
 constexpr int ZERO_ROWS = 256;      // d_rows rows a block of grid 1 zeroes
 constexpr int BIAS_EVENTS = 64;     // d_out rows a block of grid 1 sums for d_bias
 
@@ -112,16 +117,20 @@ zero_rows_bias_kernel(const float* __restrict__ d_out, float* __restrict__ d_row
 }
 
 // Bytes of grid 2's dynamic shared memory: the weight slice and the group's
-// gradient [C, F] each, the staged rows [TILE, C] and d_out rows [TILE, F],
+// gradient [C, F] each, the staged rows [tile, C] and d_out rows [tile, F],
 // then the clamped site of every group and the groups of the block's site.
-size_t group_smem_bytes(int c, int f, int groups) {
-  return sizeof(float) * (2 * (size_t)c * f + (size_t)TILE * (c + f)) +
+size_t group_smem_bytes(int c, int f, int groups, int tile) {
+  return sizeof(float) * (2 * (size_t)c * f + (size_t)tile * (c + f)) +
          sizeof(int) * 2 * (size_t)groups;
 }
 
+// Bytes of grid 2's static shared memory.
+constexpr size_t GROUP_STATIC_BYTES = sizeof(int) * (2 * TILE + WARPS + 2) + sizeof(float) * THREADS;
+
 // (CT, FT): the head's (C, F) where known at compile time (the training
 // head's (8, 50), so that its loops unroll and its indices divide by
-// constants), else (0, 0) and the runtime c, f.
+// constants), else (0, 0) and the runtime c, f. tile_arg: listed slots
+// staged at a time for a runtime shape (TILE for a compile-time one).
 template <int CT, int FT>
 __global__ void __launch_bounds__(THREADS)
 site_head_bwd_kernel(const float* __restrict__ d_out, const float* __restrict__ rows,
@@ -130,15 +139,17 @@ site_head_bwd_kernel(const float* __restrict__ d_out, const float* __restrict__ 
                      const float* __restrict__ bias_part, float* __restrict__ d_rows,
                      float* __restrict__ d_k3, float* __restrict__ d_bias,
                      float* __restrict__ dkg_part, int* __restrict__ tickets, int groups,
-                     int max_slots, int c_arg, int s, int f_arg, int n_events, int bias_parts) {
+                     int max_slots, int c_arg, int s, int f_arg, int n_events, int bias_parts,
+                     int tile_arg) {
   const int c = CT ? CT : c_arg, f = FT ? FT : f_arg;
+  const int tile = CT ? TILE : tile_arg;
   extern __shared__ __align__(16) float smem[];
   const int cf = c * f;
   float* kg = smem;                 // [c, f] the group's weight slice
   float* acc = kg + cf;             // [c, f] the group's weight gradient
-  float* rs = acc + cf;             // [TILE, c] rows of the listed slots (0 where not live)
-  float* ds = rs + TILE * c;        // [TILE, f] d_out rows of the listed slots (0 where not live)
-  int* site_s = reinterpret_cast<int*>(ds + TILE * f);   // [groups] clamped site of each group
+  float* rs = acc + cf;             // [tile, c] rows of a chunk of listed slots (0 where not live)
+  float* ds = rs + tile * c;        // [tile, f] their d_out rows (0 where not live)
+  int* site_s = reinterpret_cast<int*>(ds + tile * f);   // [groups] clamped site of each group
   int* same_s = site_s + groups;    // the groups of this block's site, in group order
   __shared__ int take_s[TILE];      // 0-based row of each listed slot
   __shared__ int ev_s[TILE];        // 0-based event of each listed slot, -1 where not live
@@ -224,50 +235,58 @@ site_head_bwd_kernel(const float* __restrict__ d_out, const float* __restrict__ 
       __syncthreads();
       if (cnt == 0) continue;
 
-      // -- gather the listed slots' rows and d_out rows (a thread's loads are
-      //    independent: unrolled, they are in flight together) ----------------
+      // -- the listed slots a chunk of at most `tile` at a time, in list order
+#pragma unroll 1
+      for (int k0 = 0; k0 < cnt; k0 += tile) {
+        const int kn = min(cnt - k0, tile);
+        if (k0 > 0) __syncthreads();  // the last chunk's readers of rs and ds are done
+        const int* take_k = take_s + k0;
+        const int* ev_k = ev_s + k0;
+        // -- gather the chunk's rows and d_out rows (a thread's loads are
+        //    independent: unrolled, they are in flight together) --------------
 #pragma unroll 4
-      for (int i = t; i < cnt * c; i += THREADS) {
-        const int m = i / c, cc = i - m * c;
-        rs[i] = ev_s[m] >= 0 ? rows[(int64_t)take_s[m] * c + cc] : 0.f;
-      }
+        for (int i = t; i < kn * c; i += THREADS) {
+          const int m = i / c, cc = i - m * c;
+          rs[i] = ev_k[m] >= 0 ? rows[(int64_t)take_k[m] * c + cc] : 0.f;
+        }
 #pragma unroll 4
-      for (int i = t; i < cnt * f; i += THREADS) {
-        const int m = i / f, ff = i - m * f;
-        ds[i] = ev_s[m] >= 0 ? d_out[(int64_t)ev_s[m] * f + ff] : 0.f;
-      }
-      __syncthreads();
+        for (int i = t; i < kn * f; i += THREADS) {
+          const int m = i / f, ff = i - m * f;
+          ds[i] = ev_k[m] >= 0 ? d_out[(int64_t)ev_k[m] * f + ff] : 0.f;
+        }
+        __syncthreads();
 
-      // -- the group's weight gradient, slot by slot in list order -------------
-      // (four independent chains over the slots m ≡ 0..3 mod 4, added in
-      // that order: a fixed order with a quarter of the latency)
-      for (int i = t; i < cf; i += THREADS) {
-        const int cc = i / f, ff = i - cc * f;
-        float v[4] = {acc[i], 0.f, 0.f, 0.f};
-        int m = 0;
-        for (; m + 4 <= cnt; m += 4) {
+        // -- the group's weight gradient, slot by slot in list order -----------
+        // (four independent chains over the slots m ≡ 0..3 mod 4, added in
+        // that order: a fixed order with a quarter of the latency)
+        for (int i = t; i < cf; i += THREADS) {
+          const int cc = i / f, ff = i - cc * f;
+          float v[4] = {acc[i], 0.f, 0.f, 0.f};
+          int m = 0;
+          for (; m + 4 <= kn; m += 4) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            v[u] = fmaf(rs[(m + u) * c + cc], ds[(m + u) * f + ff], v[u]);
+            for (int u = 0; u < 4; ++u)
+              v[u] = fmaf(rs[(m + u) * c + cc], ds[(m + u) * f + ff], v[u]);
+          }
+          for (int u = 0; m < kn; ++m, ++u) v[u] = fmaf(rs[m * c + cc], ds[m * f + ff], v[u]);
+          acc[i] = (v[0] + v[1]) + (v[2] + v[3]);
         }
-        for (int u = 0; m < cnt; ++m, ++u) v[u] = fmaf(rs[m * c + cc], ds[m * f + ff], v[u]);
-        acc[i] = (v[0] + v[1]) + (v[2] + v[3]);
-      }
-      // -- d_rows of the listed slots: d_out row times the slice, transposed,
-      //    stored once grid 1 has zeroed d_rows -----------------------------------
-      asm volatile("griddepcontrol.wait;\n" ::: "memory");
-      for (int i = t; i < cnt * c; i += THREADS) {
-        const int m = i / c, cc = i - m * c;
-        const float* d = ds + m * f;
-        const float* w = kg + cc * f;
-        float v[4] = {0.f, 0.f, 0.f, 0.f};
-        int ff = 0;
-        for (; ff + 4 <= f; ff += 4) {
+        // -- d_rows of the chunk's slots: d_out row times the slice,
+        //    transposed, stored once grid 1 has zeroed d_rows ------------------
+        asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        for (int i = t; i < kn * c; i += THREADS) {
+          const int m = i / c, cc = i - m * c;
+          const float* d = ds + m * f;
+          const float* w = kg + cc * f;
+          float v[4] = {0.f, 0.f, 0.f, 0.f};
+          int ff = 0;
+          for (; ff + 4 <= f; ff += 4) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) v[u] = fmaf(d[ff + u], w[ff + u], v[u]);
+            for (int u = 0; u < 4; ++u) v[u] = fmaf(d[ff + u], w[ff + u], v[u]);
+          }
+          for (int u = 0; ff < f; ++ff, ++u) v[u] = fmaf(d[ff], w[ff], v[u]);
+          d_rows[(int64_t)take_k[m] * c + cc] = (v[0] + v[1]) + (v[2] + v[3]);
         }
-        for (int u = 0; ff < f; ++ff, ++u) v[u] = fmaf(d[ff], w[ff], v[u]);
-        d_rows[(int64_t)take_s[m] * c + cc] = (v[0] + v[1]) + (v[2] + v[3]);
       }
     }
   }
@@ -314,9 +333,25 @@ int launch_groups(const float* d_out, const float* rows, const float* k3, const 
                   int groups, int max_slots, int c, int s, int f, int n_events, int bias_parts,
                   cudaStream_t st) {
   auto kernel = site_head_bwd_kernel<CT, FT>;
-  const size_t smem = group_smem_bytes(c, f, groups);
+  int tile = TILE;
+  if (CT == 0) {
+    // stage the listed slots in the largest power-of-two chunk that fits
+    // beside the weight slice and its gradient
+    static int optin = 0;
+    if (optin == 0) {
+      int device = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    while (tile > 1 &&
+           group_smem_bytes(c, f, groups, tile) + GROUP_STATIC_BYTES > static_cast<size_t>(optin))
+      tile /= 2;
+  }
+  const size_t smem = group_smem_bytes(c, f, groups, tile);
   static size_t allowed =   // dynamic shared memory allowed so far, beside the static
-      48 * 1024 - sizeof(int) * (2 * TILE + WARPS + 2) - sizeof(float) * THREADS;
+      48 * 1024 - GROUP_STATIC_BYTES;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -337,7 +372,8 @@ int launch_groups(const float* d_out, const float* rows, const float* k3, const 
   config.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(&config, kernel, d_out, rows, k3, take1, ev1, site1,
                                              bias_part, d_rows, d_k3, d_bias, dkg_part, tickets,
-                                             groups, max_slots, c, s, f, n_events, bias_parts));
+                                             groups, max_slots, c, s, f, n_events, bias_parts,
+                                             tile));
 }
 
 }  // namespace

@@ -1,16 +1,20 @@
 """Host data loading (counterpart of waveformml_tpu/datasets/data_module.py):
 ``collate_blocks`` joins file blocks into one batch block, ``DataLoaderLite``
 shuffles, batches and collates a dataset's blocks, optionally on a
-background thread. Numpy only; batches stay on the host until the trainer
-pads them and copies them to the device."""
+background thread, and ``PSDDataModule`` builds the training, validation
+and test datasets and their loaders from a config. Numpy only; batches stay
+on the host until the trainer pads them and copies them to the device."""
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+import logging
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from waveformml_tpu_torch.config import to_dict
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.ops.sparse import consecutive_event_index
+from waveformml_tpu_torch.registry import registry, retrieve_class
 from waveformml_tpu_torch.utils.util import prefetch_iter
 
 
@@ -55,11 +59,13 @@ class DataLoaderLite:
     ``shuffle`` the item order is drawn anew each epoch from
     ``np.random.default_rng(seed)``; ``drop_last`` drops a short last batch;
     ``num_workers > 0`` loads batches on a background thread, up to
-    ``prefetch_depth`` ahead."""
+    ``prefetch_depth`` ahead. Other keyword arguments (a config's
+    ``dataloader_params`` for torch's loader, such as ``pin_memory``) are
+    ignored."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 0, seed: int = 0, prefetch_depth: int = 4,
-                 drop_last: bool = False):
+                 drop_last: bool = False, **_ignored):
         self.dataset = dataset
         self.batch_size = max(1, int(batch_size))
         self.shuffle = shuffle
@@ -93,3 +99,121 @@ class DataLoaderLite:
                 yield self._load(b)
             return
         yield from prefetch_iter((self._load(b) for b in batches), depth=self.prefetch_depth)
+
+
+@registry.register("PSDDataModule", aliases=("PSDDataModule.PSDDataModule",))
+class PSDDataModule:
+    """The training, validation and test datasets of a config and their
+    loaders. ``dataset_config`` names the dataset class and its
+    ``dataset_params``; ``n_train``, ``n_validate`` and ``n_test`` are events
+    per directory of each split. The validation split excludes the training
+    files and the test split both, so no two splits share a file. With
+    ``"data_prep": "shuffle"`` the training files are first interleaved
+    into combined files (``write_shuffled``). ``train_config``,
+    ``val_config`` and ``test_config`` restore a split from a saved dataset
+    JSON instead. Loaders take ``dataloader_params`` (``batch_size`` counts
+    file blocks); the training loader shuffles. ``half_precision`` makes the
+    datasets return float16 features (``use_half``)."""
+
+    def __init__(self, config):
+        self.log = logging.getLogger(__name__)
+        self.config = config
+        dc = config.dataset_config
+        self.half_precision = bool(getattr(config.system_config, "half_precision", False))
+        if "use_half" not in dc.dataset_params:
+            dc.dataset_params["use_half"] = self.half_precision
+        self.ntype = len(dc.paths)
+        self.total_train = dc.n_train * self.ntype
+        self.dataset_class = retrieve_class(dc.dataset_class)
+        self.train_dataset = None
+        self.val_dataset = None
+        self.test_dataset = None
+        self.train_excludes: List[str] = []
+
+    def _dataset_params(self, which: str = "dataset_params") -> Dict:
+        dc = self.config.dataset_config
+        params = getattr(dc, which, None)
+        if params is None:
+            params = dc.dataset_params
+        return to_dict(params)
+
+    def gen_train_dataset(self) -> None:
+        if self.train_dataset is not None:
+            return
+        dc = self.config.dataset_config
+        if "train_config" in dc:
+            self.train_dataset = self.dataset_class.retrieve_config(
+                dc.train_config, self.half_precision)
+            self.log.info("Using train dataset from %s.", dc.train_config)
+        else:
+            self.train_dataset = self.dataset_class(
+                self.config, "train", dc.n_train, **self._dataset_params())
+            self.log.info("Training dataset generated.")
+        self.train_excludes = self.train_dataset.get_file_list()
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        """Build the datasets a stage needs: "fit" (or "train") the
+        training split, "test" (or "validate") the validation and test
+        splits, None all three."""
+        dc = self.config.dataset_config
+        if stage in ("fit", "train", None):
+            self.gen_train_dataset()
+            if getattr(dc, "data_prep", None) == "shuffle":
+                if "train_config" in dc:
+                    self.log.warning(
+                        "You specified a training dataset and shuffling data prep; "
+                        "shuffling only supports directory lists. Skipping shuffle.")
+                else:
+                    self.train_dataset.write_shuffled()
+        if stage in ("test", "validate", None):
+            self.gen_train_dataset()
+            if self.val_dataset is None:
+                if "val_config" in dc:
+                    self.val_dataset = self.dataset_class.retrieve_config(
+                        dc.val_config, self.half_precision)
+                else:
+                    n_validate = getattr(dc, "n_validate", None)
+                    if n_validate is None:
+                        n_validate = getattr(dc, "n_test", None)
+                    if n_validate is None:
+                        self.log.warning("dataset_config has no n_validate/n_test; using "
+                                         "n_train for the validation split size")
+                        n_validate = dc.n_train
+                    self.val_dataset = self.dataset_class(
+                        self.config, "validate", n_validate,
+                        file_excludes=self.train_excludes, **self._dataset_params())
+                    self.log.info("Validation dataset generated.")
+            if self.test_dataset is None and "n_test" not in dc and "test_config" not in dc:
+                self.log.warning("dataset_config has no n_test; using the validation "
+                                 "dataset for testing")
+                self.test_dataset = self.val_dataset
+            if self.test_dataset is None:
+                if "test_config" in dc:
+                    self.test_dataset = self.dataset_class.retrieve_config(
+                        dc.test_config, self.half_precision)
+                else:
+                    excludes = self.train_excludes + self.val_dataset.get_file_list()
+                    params_key = ("test_dataset_params" if "test_dataset_params" in dc
+                                  else "dataset_params")
+                    self.test_dataset = self.dataset_class(
+                        self.config, "test", dc.n_test, file_excludes=excludes,
+                        **self._dataset_params(params_key))
+                    self.log.info("Test dataset generated.")
+
+    def _loader_params(self) -> Dict:
+        return to_dict(getattr(self.config.dataset_config, "dataloader_params", {}) or {})
+
+    def train_dataloader(self) -> DataLoaderLite:
+        if self.train_dataset is None:
+            self.setup("fit")
+        return DataLoaderLite(self.train_dataset, shuffle=True, **self._loader_params())
+
+    def val_dataloader(self) -> DataLoaderLite:
+        if self.val_dataset is None:
+            self.setup("test")
+        return DataLoaderLite(self.val_dataset, shuffle=False, **self._loader_params())
+
+    def test_dataloader(self) -> DataLoaderLite:
+        if self.test_dataset is None:
+            self.setup("test")
+        return DataLoaderLite(self.test_dataset, shuffle=False, **self._loader_params())

@@ -1,7 +1,9 @@
-"""Synthetic detector events for tests and the chip smoke run (numpy only;
+"""Synthetic detector events for tests and the chip smoke run (numpy;
 counterpart of the generators in waveformml_tpu/datasets/synthetic.py):
 unlabelled events, labelled chunks of both particle kinds and an in-memory
-data module for the trainer, and the inputs that stress the kernels.
+data module for the trainer, the inputs that stress the kernels, and
+directories of HDF5 files of each particle kind (``write_classification_dirs``,
+which needs h5py).
 
 Waveforms are exponential-tail scintillation pulses on the raw ADC scale
 whose left/right amplitude ratio encodes z and whose tail fraction depends
@@ -9,13 +11,15 @@ on the particle kind (the PSD handle).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from waveformml_tpu_torch.datasets.data_module import DataLoaderLite
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.detector import MAX_RANGE, NX, NY, Z_SCALE
+from waveformml_tpu_torch.io.hdf5 import open_h5
 
 
 def synth_waveform_pair(rng: np.random.Generator, n_samples: int, energy: float,
@@ -61,6 +65,44 @@ def make_events(rng: np.random.Generator, n_events: int, n_samples: int,
         "E": np.asarray(es, dtype=np.float32),
         "z": np.asarray(zs, dtype=np.float32),
     }
+
+
+def write_waveform_pair_sim(path: str, n_events: int, n_samples: int, kind: int = 0,
+                            seed: int = 0) -> None:
+    """One ``*WaveformPairSim.h5`` file of ``n_events`` events of one
+    particle kind: table "WaveformPairs" of (coord [3] int32, waveform
+    [2·n_samples] float32) rows and its ``nevents`` attribute, the layout
+    ``PulseDataset2D`` reads."""
+    rng = np.random.default_rng(seed)
+    ev = make_events(rng, n_events, n_samples, kind)
+    rec = np.zeros(ev["coords"].shape[0], dtype=np.dtype(
+        [("coord", np.int32, (3,)), ("waveform", np.float32, (2 * n_samples,))]))
+    rec["coord"] = ev["coords"]
+    rec["waveform"] = ev["waveforms"]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open_h5(path, "w") as h5:
+        h5.create_dataset("WaveformPairs", data=rec)
+        h5["WaveformPairs"].attrs.create("nevents", np.array([float(n_events)]))
+
+
+def write_classification_dirs(base: str, type_names: Sequence[str], n_files: int,
+                              events_per_file: int, n_samples: int,
+                              seed: int = 0) -> Dict[str, str]:
+    """One directory per particle kind under ``base``, named by
+    ``type_names``, each with ``n_files`` ``*WaveformPairSim.h5`` files of
+    ``events_per_file`` events (the directory-as-label layout of
+    ``PulseDataset2D``); the same files, for the same arguments, as the JAX
+    package's writer. Returns ``{type name: directory}``."""
+    out = {}
+    for k, name in enumerate(type_names):
+        d = os.path.join(base, name)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n_files):
+            write_waveform_pair_sim(os.path.join(d, f"{name}_{i:05d}_WaveformPairSim.h5"),
+                                    events_per_file, n_samples, kind=k,
+                                    seed=seed + 1000 * k + i)
+        out[name] = d
+    return out
 
 
 def labelled_block(rng: np.random.Generator, n_events: int, n_samples: int,

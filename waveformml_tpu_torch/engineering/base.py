@@ -6,7 +6,15 @@ row bucket and an event bucket and builds every plan the model reads
 (``model.plan_requirements()``): the ``[N, K²]`` neighbour plans and the
 ``[S, MAX]`` site layout. ``sparse_batch`` turns such a dict, once on the
 device, into the model's ``SparseBatch``. ``to_device`` ships such a dict
-to the card as one packed copy (``pack_db``, ``unpack_db``).
+to the card as one packed copy (``pack_db``, ``unpack_db``), each array in
+its own dtype: float16 features (``half_precision``'s datasets) ship as
+they are, half the bytes of float32.
+
+``half_precision`` (the config's ``system_config``) is the JAX package's
+mixed precision: ``_features`` casts the features to bf16 on the device,
+the parameters stay float32, the first conv rounds its product to bf16
+before its float32 bias (``ops.row_conv.SubMConvRows``), and everything
+after it runs in float32.
 """
 from __future__ import annotations
 
@@ -76,8 +84,7 @@ class TaskBase:
     def __init__(self, config, device: Optional[Union[str, torch.device]] = None):
         self.config = config
         self.device = resolve_device(device)
-        if getattr(config.system_config, "half_precision", 0):
-            raise NotImplementedError("half_precision (bf16) is not ported yet")
+        self.half_precision = bool(getattr(config.system_config, "half_precision", 0))
         self.occlude_index = getattr(config.dataset_config, "occlude_index", None)
         self.model = retrieve_class(config.net_config.net_class)(config).to(self.device)
         self.criterion = build_criterion(
@@ -145,10 +152,14 @@ class TaskBase:
                            n_events=db["labels"].shape[0], plans=plans)
 
     def _features(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The batch's features as the model takes them: the occluded
+        column zeroed, and cast to bf16 under ``half_precision``."""
         f = db["feats"]
         if self.occlude_index is not None:
             f = f.clone()
             f[:, self.occlude_index] = 0
+        if self.half_precision:
+            f = f.to(torch.bfloat16)
         return f
 
     @torch.no_grad()

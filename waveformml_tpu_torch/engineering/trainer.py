@@ -14,16 +14,21 @@ gives them. ``device=None`` means the card.
 
 Each step's host-clock phases and, on the card, the device time of its
 forward, backward and optimizer step (CUDA events, read once per epoch so
-that no step waits for the device) are kept in ``step_phases``.
+that no step waits for the device) are kept in ``step_phases``. A
+``logger`` (``utils.tb.TBLogger``) gets what the JAX ``Trainer`` logs:
+each epoch's lr and its own metrics, and the test metrics at step 0.
+``add_argparse_args`` and ``kwargs_from_args`` make the arguments CLI
+flags, as the JAX ``Trainer``'s.
 """
 from __future__ import annotations
 
 import copy
+import inspect
 import logging
 import math
 import os
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +41,18 @@ from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_sched
                                         clip_by_global_norm_, set_learning_rate)
 
 log = logging.getLogger(__name__)
+
+
+def int_or_float(s: str) -> Union[int, float]:
+    """A CLI batch limit: "3" a count of batches, "0.5" a fraction."""
+    try:
+        return int(s)
+    except ValueError:
+        return float(s)
+
+
+def _parse_bool(s: str) -> bool:
+    return s.lower() in ("1", "true", "yes", "on")
 
 
 class Trainer:
@@ -61,8 +78,13 @@ class Trainer:
       every micro-step; the count runs on across epochs);
     * ``seed``: seeds ``generator``, the training step's random stream
       (no op of the ported models draws from it yet: dropout raises in
-      train mode).
+      train mode);
+    * ``logger``: an object with ``log_scalar(tag, value, step)``,
+      ``log_scalars(values, step)`` and ``flush()``, or None.
     """
+
+    #: constructor arguments that a driver wires as objects, not CLI flags
+    _NON_FLAG_PARAMS = ("self", "config", "task", "logger", "callbacks", "checkpoint_dir")
 
     def __init__(self, config, task, device: Optional[Union[str, torch.device]] = None,
                  callbacks: Optional[List] = None, checkpoint_dir: Optional[str] = None,
@@ -75,7 +97,7 @@ class Trainer:
                  early_stopping_patience: int = 5,
                  gradient_clip_val: Optional[float] = None,
                  accumulate_grad_batches: int = 1,
-                 seed: int = 0):
+                 seed: int = 0, logger=None):
         self.config = config
         self.task = task
         self.device = resolve_device(device)
@@ -83,6 +105,7 @@ class Trainer:
         task.model.to(self.device)
         oc = config.optimize_config
         self.callbacks = list(callbacks or [])
+        self.logger = logger
         self.checkpoint_dir = checkpoint_dir
         self.max_epochs = max_epochs if max_epochs is not None else oc.total_epoch
         self.validation_freq = getattr(oc, "validation_freq", 1)
@@ -113,9 +136,36 @@ class Trainer:
         #: every training step's phases: host_prep_s, h2d_s, device_ms (None
         #: off the card), wall_s (from its start to the next step's), events
         self.step_phases: List[Dict[str, Any]] = []
-        self.test_metrics: Dict[str, float] = {}
         self._epoch_wall: List[float] = []
         self._epoch_rows: List[float] = []
+
+    # -- argparse bridge --------------------------------------------------------------
+    @classmethod
+    def add_argparse_args(cls, parser) -> None:
+        """Add a ``--<name>`` flag for each constructor argument that is not
+        an object wired by the driver and not already a flag of ``parser``:
+        an Optional float a batch limit (``int_or_float``: a count or a
+        fraction), an Optional int an int, a bool "true"/"false"."""
+        existing = {a.dest for a in parser._actions}
+        for name, p in inspect.signature(cls.__init__).parameters.items():
+            if name in cls._NON_FLAG_PARAMS or name in existing:
+                continue
+            ann = str(p.annotation)
+            if p.default is None:
+                ty = int_or_float if "float" in ann else int if "int" in ann else str
+            elif isinstance(p.default, bool):
+                ty = _parse_bool
+            else:
+                ty = type(p.default)
+            parser.add_argument(f"--{name}", type=ty, default=p.default,
+                                help=f"Trainer argument (default: {p.default})")
+
+    @classmethod
+    def kwargs_from_args(cls, args) -> Dict[str, Any]:
+        """The constructor arguments found in a parsed argparse namespace."""
+        return {name: getattr(args, name)
+                for name in inspect.signature(cls.__init__).parameters
+                if name not in cls._NON_FLAG_PARAMS and hasattr(args, name)}
 
     # -- batches ----------------------------------------------------------------------
     def device_batch(self, block: FileBlock) -> Tuple[Dict[str, torch.Tensor], float, float]:
@@ -174,14 +224,21 @@ class Trainer:
         if self.overfit_batches:
             self.limit_train_batches = self.overfit_batches
             self.limit_val_batches = self.overfit_batches
+        # the JAX Trainer draws the training loader's first batch to build
+        # its state: a shuffling loader's first order is drawn here too, so
+        # that both train on the same batches in the same order
+        for _ in _take(train_loader, 1):
+            pass
         metrics: Dict[str, float] = {}
         while self.current_epoch < self.max_epochs:
             t0 = time.perf_counter()
-            metrics.update(self._train_epoch(train_loader))
+            epoch_metrics = self._train_epoch(train_loader)
+            metrics.update(epoch_metrics)
             val_ran = (self.current_epoch + 1) % self.validation_freq == 0
             if val_ran:
                 val_metrics = self._eval_epoch(val_loader, "val", self.limit_val_batches)
                 metrics.update(val_metrics)
+                epoch_metrics.update(val_metrics)
                 self._maybe_checkpoint(val_metrics)
                 for cb in self.callbacks:
                     if hasattr(cb, "on_validation_end"):
@@ -191,8 +248,13 @@ class Trainer:
                     break
             if self.scheduler is not None:
                 # a plateau scheduler sees only a fresh validation loss
-                set_learning_rate(self.optimizer, self.scheduler.step(
-                    metrics.get("val_loss") if val_ran else None))
+                new_lr = self.scheduler.step(metrics.get("val_loss") if val_ran else None)
+                set_learning_rate(self.optimizer, new_lr)
+                if self.logger:
+                    self.logger.log_scalar("lr", new_lr, self.current_epoch)
+            if self.logger:
+                # this epoch's own measurements only
+                self.logger.log_scalars(epoch_metrics, self.current_epoch)
             log.info("epoch %d done in %.1fs: %s", self.current_epoch,
                      time.perf_counter() - t0, metrics)
             self.current_epoch += 1
@@ -202,6 +264,8 @@ class Trainer:
         for cb in self.callbacks:
             if hasattr(cb, "on_train_end"):
                 cb.on_train_end(self)
+        if self.logger:
+            self.logger.flush()
         return metrics
 
     def _train_epoch(self, loader) -> Dict[str, float]:
@@ -243,7 +307,7 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_epoch(self, loader, prefix: str, limit: Optional[float] = None,
-                    collect: Optional[List] = None) -> Dict[str, float]:
+                    collect: Optional[Callable] = None) -> Dict[str, float]:
         loss_sum, weight = 0.0, 0.0
         agg: Dict[str, torch.Tensor] = {}
         for block in _take(loader, self._limit(loader, limit)):
@@ -255,8 +319,8 @@ class Trainer:
             _accumulate(agg, metrics)
             if collect is not None:
                 n = block.labels.shape[0]
-                collect.append({k: v[:n].cpu().numpy()
-                                for k, v in self.task.test_outputs(outputs, db).items()})
+                collect(block, db, {k: v[:n].cpu().numpy()
+                                    for k, v in self.task.test_outputs(outputs, db).items()})
         out = {f"{prefix}_loss": loss_sum / max(weight, 1e-12)}
         out.update(_finalize(agg, f"{prefix}_"))
         return out
@@ -265,18 +329,23 @@ class Trainer:
         data_module.setup("test")
         return self._eval_epoch(data_module.val_dataloader(), "val", self.limit_val_batches)
 
-    def test(self, data_module) -> List[Dict[str, np.ndarray]]:
-        """Test outputs of every test block (``logits``, ``pred``,
-        ``logprob`` over its real events), in order; the test metrics go to
-        ``test_metrics`` and to the callbacks' ``on_test_end``."""
+    def test(self, data_module, collect: Optional[Callable] = None) -> Dict[str, float]:
+        """The test metrics over the test loader (``test_loss`` and the
+        task's metrics, the JAX ``Trainer``'s keys), also given to the
+        callbacks' ``on_test_end`` and logged at step 0. ``collect(block,
+        db, test_out)`` is called for each test block, in order, with its
+        device batch and its test outputs (``logits``, ``pred``,
+        ``logprob``: numpy, over the block's real events)."""
         data_module.setup("test")
-        outputs: List[Dict[str, np.ndarray]] = []
-        self.test_metrics = self._eval_epoch(data_module.test_dataloader(), "test",
-                                             self.limit_test_batches, outputs)
+        metrics = self._eval_epoch(data_module.test_dataloader(), "test",
+                                   self.limit_test_batches, collect)
         for cb in self.callbacks:
             if hasattr(cb, "on_test_end"):
-                cb.on_test_end(self, self.test_metrics)
-        return outputs
+                cb.on_test_end(self, metrics)
+        if self.logger:
+            self.logger.log_scalars(metrics, 0)
+            self.logger.flush()
+        return metrics
 
     # -- checkpoints ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:

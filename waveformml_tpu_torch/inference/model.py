@@ -75,7 +75,10 @@ class InferenceModel:
     coords, mask) -> outputs`` run on the device, inside the captured
     forward: with a ``preprocess`` the raw ``vals`` dtype ships as it is
     (e.g. int16 ADC counts, half the bytes of float32), without one ``vals``
-    are cast to float32 on the host. ``output_unit`` ("row", "event" or
+    are cast to float32 on the host, except float16 ``vals`` under the
+    config's ``half_precision``, which ship as they are (the forward casts
+    the features to bf16 on the device, inside the captured graph).
+    ``output_unit`` ("row", "event" or
     "auto") says whether the outputs' leading axis is the padded rows or
     the padded events, for ``fetch`` to cut; "auto" infers it from the
     shape and takes events, with a warning, where both buckets are equal.
@@ -163,7 +166,8 @@ class InferenceModel:
         n = coords.shape[0]
         n_events = int(coords[:, -1].max()) + 1 if n else 0
         vals = np.asarray(vals)
-        if self.preprocess is None and vals.dtype != np.float32:
+        keep = (np.float32, np.float16) if self.task.half_precision else (np.float32,)
+        if self.preprocess is None and vals.dtype not in keep:
             vals = vals.astype(np.float32)
         t0 = time.perf_counter()
         block = FileBlock(coords=np.asarray(coords, dtype=np.int32), feats=vals,

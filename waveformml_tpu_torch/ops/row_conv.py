@@ -284,7 +284,17 @@ class SubMConvRows(torch.autograd.Function):
     computed only where feats needs a gradient (not for the first conv of a
     stack, whose input is the waveforms); d_kernel and d_bias are K4.
     ``plain = True`` runs the plain forward and ``subm_conv_rows_bwd_plain``
-    instead, whatever the device. The plan and mask get no gradient."""
+    instead, whatever the device. The plan and mask get no gradient.
+
+    bf16 feats (``half_precision``'s first conv; the kernel and bias stay
+    float32) follow the JAX package's order and rounding points with the
+    float32 kernels: the forward runs K1 on the feats widened to float32
+    (exact) without the bias, rounds its sums to bf16, then adds the
+    float32 bias (a float32 output) and applies the row mask. K1 cannot
+    round inside itself: its off-centre grid adds into the output after the
+    centre grid has written it. The backward rounds the masked g to bf16
+    before K4, and rounds d_bias (and d_feats, returned as bf16) to bf16;
+    d_kernel is K4's float32 sum."""
 
     @staticmethod
     def forward(ctx, feats, plan, kernel, bias, mask, plain=False):
@@ -292,12 +302,22 @@ class SubMConvRows(torch.autograd.Function):
         ctx.with_bias = bias is not None
         ctx.plain = plain
         fn = subm_conv_rows_plain if plain else subm_conv_rows
-        return fn(feats, plan, kernel, bias, mask)
+        if feats.dtype != torch.bfloat16:
+            return fn(feats, plan, kernel, bias, mask)
+        out = fn(feats.float(), plan, kernel, None, mask).to(torch.bfloat16)
+        if bias is not None:
+            out = out + bias
+        return torch.where(mask[:, None], out, torch.zeros((), dtype=out.dtype,
+                                                           device=out.device))
 
     @staticmethod
     def backward(ctx, g):
         feats, plan, kernel, mask = ctx.saved_tensors
         need_feats = ctx.needs_input_grad[0]
+        half = feats.dtype == torch.bfloat16
+        if half:
+            g = g.masked_fill(~mask[:, None], 0).to(torch.bfloat16).float()
+            feats = feats.float()
         if ctx.plain:
             d_feats, d_kernel, d_bias = subm_conv_rows_bwd_plain(
                 feats, plan, kernel, mask, g, ctx.with_bias, need_feats)
@@ -306,4 +326,7 @@ class SubMConvRows(torch.autograd.Function):
             d_feats = (subm_conv_rows(g, plan, transposed_kernel(kernel), None, mask)
                        if need_feats else None)
             d_kernel, d_bias = subm_conv_rows_wgrad(feats, plan, g, mask, ctx.with_bias)
+        if half:
+            d_feats = d_feats.to(torch.bfloat16) if d_feats is not None else None
+            d_bias = d_bias.to(torch.bfloat16).float() if d_bias is not None else None
         return d_feats, None, d_kernel, d_bias, None, None

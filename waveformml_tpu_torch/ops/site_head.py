@@ -148,7 +148,9 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
     writes the bias into every event row, a second, programmatically
     dependent, adds the products); one block per site group, which stages
     its weight slice once, lists each tile's live slots and gathers their
-    rows; and float4 adds into the event rows, one RED per 4 outputs. For
+    rows (a head too wide for both in shared memory, such as
+    SubMPSD_w128's (C, F) = (128, 199), reads the rows from global memory
+    instead); and float4 adds into the event rows, one RED per 4 outputs. For
     those, the output is allocated ``[n_events, output_stride(F)]`` (16-byte
     aligned rows, the only layout the kernel takes) and the ``[:, :F]`` view
     is returned: for F = 50 rows are 52 floats apart.
@@ -239,9 +241,12 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
     its site has no other group, and otherwise the last of the site's
     groups to finish (an integer ticket in the call's scratch, which the
     first grid zeroes) sums them in group order; its block 0 sums the
-    bias's runs. There are no float atomics, so two runs give the same
-    bits, and no state outlives a call, so calls on several streams may run
-    at once.
+    bias's runs. A head too wide for a group's weight slice, its gradient
+    and a tile of 256 slots' rows and d_out rows in shared memory (such as
+    SubMPSD_w128's (C, F) = (128, 199)) stages the listed slots in chunks
+    of fewer (16 there), in the same list order. There are no float
+    atomics, so two runs give the same bits, and no state outlives a call,
+    so calls on several streams may run at once.
     """
     _check(rows, k3, take1, ev1, site1, None)
     f = k3.shape[2]

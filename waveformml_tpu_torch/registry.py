@@ -50,11 +50,13 @@ registry = Registry()
 
 def retrieve_class(name: str) -> Any:
     """Resolve a config class name after importing the modules whose import
-    registers the port's classes (models, tasks, criteria, optimizers and
-    schedulers)."""
+    registers the port's classes (models, tasks, criteria, optimizers,
+    schedulers, datasets and data modules)."""
     for mod in ("waveformml_tpu_torch.models.nets",
                 "waveformml_tpu_torch.engineering.tasks",
                 "waveformml_tpu_torch.nn.functional",
-                "waveformml_tpu_torch.optim"):
+                "waveformml_tpu_torch.optim",
+                "waveformml_tpu_torch.datasets.pulse_dataset",
+                "waveformml_tpu_torch.datasets.data_module"):
         importlib.import_module(mod)
     return registry.retrieve_class(name)

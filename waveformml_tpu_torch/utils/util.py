@@ -1,16 +1,173 @@
-"""Host helpers: background prefetch and checkpoint discovery (the port's
-own copies of ``prefetch_iter`` and ``retrieve_best_checkpoint`` of
-waveformml_tpu/utils/util.py)."""
+"""Host helpers (the port's own copies of those of
+waveformml_tpu/utils/util.py): logging, the model folder and the run
+directories' names, file-name patterns, thread counts, the run's
+provenance, checkpoint discovery and background prefetch."""
 from __future__ import annotations
 
+import getpass
 import glob
+import json
+import logging
 import os
+import platform
 import queue
 import re
+import subprocess
+import sys
 import threading
-from typing import Iterable, Iterator, Optional, TypeVar
+import time
+from typing import Any, Dict, Iterable, Iterator, Optional, Sequence, TypeVar
 
 T = TypeVar("T")
+
+#: CLI verbosity 0-5 → log level
+_VERBOSITY_LEVELS = {0: logging.CRITICAL, 1: logging.ERROR, 2: logging.WARNING,
+                     3: logging.INFO, 4: logging.DEBUG, 5: logging.DEBUG}
+
+
+def setup_logger(verbosity: int = 3, logfile: Optional[str] = None,
+                 name: str = "waveformml_tpu_torch") -> logging.Logger:
+    """The package's logger at the level of ``verbosity``, writing to
+    stdout and, with ``logfile``, to that file too; earlier handlers are
+    dropped."""
+    logger = logging.getLogger(name)
+    logger.setLevel(_VERBOSITY_LEVELS.get(int(verbosity), logging.DEBUG))
+    logger.handlers = []
+    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(fmt)
+    logger.addHandler(sh)
+    if logfile:
+        os.makedirs(os.path.dirname(os.path.abspath(logfile)), exist_ok=True)
+        fh = logging.FileHandler(logfile)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    return logger
+
+
+def get_logger(name: str = "waveformml_tpu_torch") -> logging.Logger:
+    return logging.getLogger(name)
+
+
+def get_model_folder(config) -> str:
+    """``<model_base_path>/<model_name>`` (``./model`` without a base
+    path), created where missing."""
+    base = getattr(config.system_config, "model_base_path", "./model")
+    folder = os.path.join(base, config.system_config.model_name)
+    os.makedirs(folder, exist_ok=True)
+    return folder
+
+
+def next_experiment_name(model_folder: str, exp_name: str) -> str:
+    """``exp_name``, or ``exp_name_<i>`` with the first free i where
+    ``runs/<exp_name>`` exists under the model folder."""
+    runs = os.path.join(model_folder, "runs")
+    if not os.path.isdir(os.path.join(runs, exp_name)):
+        return exp_name
+    i = 1
+    while os.path.isdir(os.path.join(runs, f"{exp_name}_{i}")):
+        i += 1
+    return f"{exp_name}_{i}"
+
+
+def next_version_dir(run_dir: str) -> str:
+    """``<run_dir>/version_<n>`` with the first free n."""
+    n = 0
+    while os.path.isdir(os.path.join(run_dir, f"version_{n}")):
+        n += 1
+    return os.path.join(run_dir, f"version_{n}")
+
+
+def unique_path_combine(paths: Sequence[str]) -> str:
+    """A name for a list of paths: their distinct parts after the common
+    leading components, each joined by "_", the paths by "__" (one path:
+    its base name)."""
+    if not paths:
+        return ""
+    normed = [os.path.normpath(p) for p in paths]
+    if len(normed) == 1:
+        return os.path.basename(normed[0])
+    parts = [p.split(os.sep) for p in normed]
+    i = 0
+    while all(len(p) > i for p in parts) and len({p[i] for p in parts}) == 1:
+        i += 1
+    distinct = ["_".join([c for c in p[i:] if c]) for p in parts]
+    distinct = [d for d in distinct if d]
+    if not distinct:
+        return os.path.basename(normed[0])
+    return "__".join(distinct)
+
+
+def replace_file_pattern(path: str, pattern: str, replacement: str) -> str:
+    """``path`` with the glob suffix ``pattern`` of its file name (its "*"
+    dropped) replaced by ``replacement``'s; where the name does not end
+    with it, its first occurrence is replaced."""
+    base = os.path.basename(path)
+    pat = pattern.replace("*", "")
+    if base.endswith(pat):
+        base = base[: -len(pat)] + replacement.replace("*", "")
+    else:
+        base = base.replace(pat, replacement.replace("*", ""))
+    return os.path.join(os.path.dirname(path), base)
+
+
+def apply_num_threads(n: Optional[int]) -> None:
+    """Bound the host's CPU parallelism to ``n`` threads: torch's intra-op
+    pool and, where not set yet, OpenMP's. Nothing without ``n``."""
+    if not n:
+        return
+    import torch
+
+    os.environ.setdefault("OMP_NUM_THREADS", str(n))
+    torch.set_num_threads(int(n))
+
+
+def _git_info(cwd: str) -> Dict[str, str]:
+    info = {}
+    for key, cmd in (("sha", ["git", "rev-parse", "HEAD"]),
+                     ("tag", ["git", "describe", "--tags", "--always"])):
+        try:
+            info[key] = subprocess.check_output(cmd, cwd=cwd, stderr=subprocess.DEVNULL,
+                                                timeout=30).decode().strip()
+        except (OSError, subprocess.SubprocessError):
+            info[key] = "unknown"
+    return info
+
+
+def _user() -> str:
+    try:
+        return getpass.getuser()
+    except (KeyError, OSError):  # no login name and no passwd entry
+        return "unknown"
+
+
+def get_run_info() -> Dict[str, Any]:
+    """The run's provenance: the checkout's git commit, the host, the user,
+    Python, torch, CUDA and the card (or "cpu"), the command line and the
+    time."""
+    import torch
+
+    cuda = torch.cuda.is_available()
+    return {
+        "git": _git_info(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))),
+        "host": platform.node(),
+        "user": _user(),
+        "python": sys.version.split()[0],
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "n_devices": torch.cuda.device_count() if cuda else 0,
+        "argv": sys.argv,
+        "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
+    }
+
+
+def write_run_info(log_dir: str) -> None:
+    """``get_run_info()`` as ``<log_dir>/run_info.json``."""
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "run_info.json"), "w") as f:
+        json.dump(get_run_info(), f, indent=2, default=str)
 
 _CKPT_METRIC_RE = re.compile(r"val_loss[=\-]([0-9]*\.?[0-9]+)")
 
