@@ -57,7 +57,8 @@ order, it:
    float32 parameters; 130→104→110→116→122→128 stack, 128·154→199→2 head)
    from seeded random weights: K1 at its 5 convs and as d_feats, K2 at
    (128, 199), K4 and K5 against their plain versions with their times,
-   bounds and launches a chunk and a step; 4 chunks of 4096 events served
+   bounds, per-grid times and launches a chunk and a step, and K2 and K5
+   on the hand-made slot layouts at (128, 199); 4 chunks of 4096 events served
    through ``InferenceModel`` (float16 features shipped) against the plain
    versions on the card; 2 epochs × 4 steps of ``Trainer.fit`` against the
    plain versions' run (the half-precision tolerances of the CPU tests);
@@ -229,6 +230,17 @@ def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def head_bound_ms(n_bytes: float, products: float, c: int, f: int, other_flops: float = 0.0):
+    """bound_ms of K2 or K5 doing ``products`` FLOP of slot products: in
+    fp32 at the (8, 50) head, which has an instantiation of its own, and in
+    three TF32 passes on the tensor cores at every other width. Returns
+    (ms, bound_by, the fp32 bound's ms)."""
+    fp32_ms = bound_ms(n_bytes, products + other_flops)[0]
+    if (c, f) == (8, 50):
+        return (*bound_ms(n_bytes, products + other_flops), fp32_ms)
+    return (*bound_ms(n_bytes, 3 * products + other_flops, TF32_FLOPS_PER_S), fp32_ms)
+
+
 def max_abs_err(got, want, tol: float) -> float:
     """Largest |got - want| over tensors, after asserting closeness."""
     err = 0.0
@@ -355,9 +367,10 @@ def k2_layout(take, ev, n_events, out):
             f"{out.stride(0)}"), live_tiles, g * tiles
 
 
-def check_site_grouped_matmul_adversarial(rng, c, f) -> float:
+def check_site_grouped_matmul_adversarial(rng, c, f, tag="") -> float:
     """K2 against its plain version on hand-made layouts at the head's
-    widths, with the bias; returns the largest |error|."""
+    widths, with the bias; lines begin with ``tag``; returns the largest
+    |error|."""
     from waveformml_tpu_torch.datasets.synthetic import site_layout_case
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul,
                                                     site_grouped_matmul_plain)
@@ -372,8 +385,8 @@ def check_site_grouped_matmul_adversarial(rng, c, f) -> float:
         torch.cuda.synchronize()
         e = max_abs_err([got], [want], TOL["site_grouped_matmul"])
         line, live_tiles, tiles = k2_layout(take, ev, EVENTS_PER_CHUNK, got)
-        print(f"K2 adversarial, {'+'.join(features)}: {line} max_abs_err={e:.3g}",
-              flush=True)
+        print(f"{tag}K2 adversarial, {'+'.join(features)}: C={c} F={f} {line} "
+              f"max_abs_err={e:.3g}", flush=True)
         if "ragged_max" in features:
             # whole tiles of every group are empty: the kernel skipped them
             assert live_tiles < tiles, (live_tiles, tiles)
@@ -422,17 +435,20 @@ def check_site_grouped_matmul(model, db, tag=""):
     library_ms = graph_time_ms(library)
     ms_run = graph_time_ms(lambda: site_grouped_matmul(*args), calls=RUN_CALLS)
     library_ms_run = graph_time_ms(library, calls=RUN_CALLS)
+    grids = grid_times_ms(lambda: site_grouped_matmul(*args))
     # the function gathers the rows of live slots only (each once) and
     # multiplies each live slot once
     live = (take > 0) & (ev > 0) & (ev <= n_events)
     n_live = int(live.sum())
     rows_read = int(torch.unique(take[live]).numel())
     n_bytes = 4 * (rows_read * c + k3.numel() + 2 * g * m + g + f + n_events * f)
-    b_ms, by = bound_ms(n_bytes, 2.0 * c * f * n_live)
+    b_ms, by, fp32_ms = head_bound_ms(n_bytes, 2.0 * c * f * n_live, c, f)
     print(f"{tag}K2 site_grouped_matmul: {layout} C={c} F={f} B={n_events} ms={ms:.5f} "
-          f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.6f} "
-          f"({n_bytes} bytes, {rows_read} rows gathered) max_abs_err={err:.3g}; in a graph of {RUN_CALLS} calls: ms={ms_run:.5f} "
-          f"library_ms={library_ms_run:.5f}", flush=True)
+          f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.6f} ({by}; "
+          f"with the products in fp32 {fp32_ms:.6f}) ({n_bytes} bytes, {rows_read} rows "
+          f"gathered) max_abs_err={err:.3g}; in a graph of "
+          f"{RUN_CALLS} calls: ms={ms_run:.5f} library_ms={library_ms_run:.5f}; grids: "
+          f"{grid_line(grids)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=by, max_abs_err=err)
 
@@ -637,19 +653,21 @@ def check_site_grouped_matmul_bwd(model, db, tag=""):
     n_bytes = 4 * (n_events * f + rows_read * c + c * s * f + 2 * g * m + g
                    + n * c + c * s * f + f)
     # two products of 2·C·F FLOP per live slot (d_rows, d_k3) and the bias sum
-    b_ms, by = bound_ms(n_bytes, 4.0 * c * f * n_live + n_events * f)
+    b_ms, by, fp32_ms = head_bound_ms(n_bytes, 4.0 * c * f * n_live, c, f, n_events * f)
     print(f"{tag}K5 site_grouped_matmul_bwd: groups={g} MAX={m} live={n_live} C={c} F={f} "
           f"B={n_events} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-          f"bound_ms={b_ms:.6f} ({by}) max_abs_err={err:.3g}, bitwise equal over two runs; "
+          f"bound_ms={b_ms:.6f} ({by}; with the products in fp32 {fp32_ms:.6f}) "
+          f"max_abs_err={err:.3g}, bitwise equal over two runs; "
           f"in a graph of {RUN_CALLS} calls: ms={ms_run:.5f} library_ms={library_ms_run:.5f}; "
           f"grids: {grid_line(grids)}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=by, max_abs_err=err)
 
 
-def check_site_grouped_matmul_bwd_adversarial(rng, c, f) -> float:
+def check_site_grouped_matmul_bwd_adversarial(rng, c, f, tag="") -> float:
     """K5 against its plain version on K2's hand-made layouts, bitwise
-    determinism included; returns the largest |error|."""
+    determinism included; lines begin with ``tag``; returns the largest
+    |error|."""
     from waveformml_tpu_torch.datasets.synthetic import site_layout_case
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul_bwd,
                                                     site_grouped_matmul_bwd_plain)
@@ -664,9 +682,9 @@ def check_site_grouped_matmul_bwd_adversarial(rng, c, f) -> float:
         scale = site_grouped_matmul_bwd_plain(*(a.abs() for a in args[:3]), *args[3:])
         e = close_to_terms(got, want, scale, TOL["site_grouped_matmul_bwd"], "K5")
         check_bitwise(lambda: site_grouped_matmul_bwd(*args), f"K5 {'+'.join(features)}")
-        print(f"K5 adversarial, {'+'.join(features)}: groups={arrays[2].shape[0]} "
-              f"MAX={arrays[2].shape[1]} max_abs_err={e:.3g}, bitwise equal over two runs",
-              flush=True)
+        print(f"{tag}K5 adversarial, {'+'.join(features)}: C={c} F={f} "
+              f"groups={arrays[2].shape[0]} MAX={arrays[2].shape[1]} max_abs_err={e:.3g}, "
+              f"bitwise equal over two runs", flush=True)
         err = max(err, e)
     return err
 
@@ -951,7 +969,8 @@ def run_w128(chunks, train, val):
     130→104→110→116→122 k=3, 122→128 k=1, head 128·154→199→2), seeded
     random weights and head bias: K1 at its 5 convs and as d_feats, K2,
     K4 and K5 at those shapes against their plain versions (K4 and K5
-    bitwise over two runs, too); 4 serving chunks of 4096 events through
+    bitwise over two runs, too), K2 and K5 also on the hand-made slot
+    layouts at the head's (C, F); 4 serving chunks of 4096 events through
     ``InferenceModel`` (float16 features shipped, the bf16 cast inside the
     graph), against the plain versions on the card; and 2 epochs × 4 steps
     of ``Trainer.fit``, against the plain versions' run. Returns each
@@ -1000,6 +1019,14 @@ def run_w128(chunks, train, val):
                                                    d_feats_err)
     results["site_grouped_matmul_bwd"] = check_site_grouped_matmul_bwd(task.model, db,
                                                                        tag="w128 ")
+    # the hand-made layouts (stitched groups, whose sites sum by tickets,
+    # included) at the wide head
+    rng = np.random.default_rng(SEED + 11)
+    head = task.model.head0
+    for name, check in (("site_grouped_matmul", check_site_grouped_matmul_adversarial),
+                        ("site_grouped_matmul_bwd", check_site_grouped_matmul_bwd_adversarial)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           check(rng, head.cin, head.features, tag="w128 "))
 
     # serving: each chunk one replay of its layout's graph
     for g in server.graphs.values():

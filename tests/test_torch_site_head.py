@@ -2,8 +2,9 @@
 with empty slots, padding rows, zero-padded capacity and extra empty
 groups, with and without the bias that ``FoldedSiteLinear`` adds after it,
 and on hand-made layouts: duplicate sites, stitched groups, events past
-``n_events``, a ragged MAX), the wrapper's CPU dispatch, and the kernel
-against its plain version on the card."""
+``n_events``, a ragged MAX), at SubMPSD.json's head and SubMPSD_w128.json's,
+the wrapper's CPU dispatch, and the kernel against its plain version on the
+card."""
 import numpy as np
 import pytest
 import torch
@@ -16,9 +17,13 @@ from waveformml_tpu_torch.ops.site_head import (host_site_layout, output_stride,
 NX, NY = 14, 11
 S = NX * NY
 
-# one layout per feature, then all of them at once
+# one layout per feature, then all of them at once, at SubMPSD.json's head
+# (C, F) = (8, 50) and at SubMPSD_w128.json's (128, 199)
 LAYOUTS = [pytest.param((name,), id=name) for name in SITE_LAYOUT_FEATURES]
 LAYOUTS.append(pytest.param(SITE_LAYOUT_FEATURES, id="all"))
+WIDE = (128, 199)
+LAYOUTS_AT = [pytest.param(*p.values, 8, 50, id=p.id) for p in LAYOUTS] + [
+    pytest.param(*p.values, *WIDE, id=f"{p.id}-128-199") for p in LAYOUTS]
 
 
 @pytest.fixture
@@ -86,6 +91,8 @@ def _check_layout(features, take, ev, site, n_events):
     pytest.param(40, 8, 50, 16, 7, True, id="40-8-50-16-7-bias"),
     pytest.param(300, 3, 5, 0, 0, True, id="300-3-5-0-0-bias"),
     pytest.param(60, 8, 200, 0, 0, True, id="60-8-200-0-0-bias"),
+    pytest.param(40, 128, 199, 0, 0, False, id="40-128-199-0-0"),
+    pytest.param(40, 128, 199, 16, 7, True, id="40-128-199-16-7-bias"),
 ])
 def test_plain_matches_jax(rng, n_events, c, f, pad_slots, extra_groups, with_bias):
     rows, k3, take, ev, site, n_ev = _case(rng, n_events, c, f,
@@ -104,9 +111,9 @@ def test_plain_matches_jax(rng, n_events, c, f, pad_slots, extra_groups, with_bi
 
 
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("features", LAYOUTS)
-def test_plain_matches_jax_on_hand_made_layouts(rng, features, with_bias):
-    rows, k3, take, ev, site, bias = site_layout_case(rng, features, 120, 8, 50)
+@pytest.mark.parametrize("features,c,f", LAYOUTS_AT)
+def test_plain_matches_jax_on_hand_made_layouts(rng, features, c, f, with_bias):
+    rows, k3, take, ev, site, bias = site_layout_case(rng, features, 120, c, f)
     _check_layout(features, take, ev, site, 120)
     bias = bias if with_bias else None
     want = _jax_site_matmul(rows, k3, take, ev, site, 120, bias)
@@ -167,14 +174,16 @@ def test_output_stride_aligns_rows():
 
 # (events, C, F, features): the serving head on the specialised path, at 64
 # events (most groups empty: blocks that only wait for the bias grid) and at
-# 4096, two widths on the generic path, and a hand-made layout with all its
-# features
+# 4096, three widths on the tiled path (SubMPSD_w128.json's head among them),
+# and a hand-made layout with all its features at both heads
 CARD_CASES = [
     pytest.param(64, 8, 50, None, id="serving-64-8-50"),
     pytest.param(4096, 8, 50, None, id="serving-8-50"),
     pytest.param(4096, 3, 5, None, id="generic-3-5"),
     pytest.param(4096, 8, 200, None, id="generic-8-200"),
+    pytest.param(4096, *WIDE, None, id="wide-128-199"),
     pytest.param(4096, 8, 50, SITE_LAYOUT_FEATURES, id="hand-made-8-50"),
+    pytest.param(4096, *WIDE, SITE_LAYOUT_FEATURES, id="hand-made-128-199"),
 ]
 
 

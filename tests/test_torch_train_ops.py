@@ -28,6 +28,10 @@ from waveformml_tpu_torch.ops.site_head import (SiteGroupedMatmul, host_site_lay
 CONV_KINDS = ("clustered", "dense_cluster", "duplicate_sites", "isolated_sites")
 LAYOUTS = [pytest.param((name,), id=name) for name in SITE_LAYOUT_FEATURES]
 LAYOUTS.append(pytest.param(SITE_LAYOUT_FEATURES, id="all"))
+# SubMPSD_w128.json's head (C, F); SubMPSD.json's is (8, 50)
+WIDE = (128, 199)
+LAYOUTS_AT = [pytest.param(*p.values, 8, 50, id=p.id) for p in LAYOUTS] + [
+    pytest.param(*p.values, *WIDE, id=f"{p.id}-128-199") for p in LAYOUTS]
 S = NX * NY
 
 
@@ -137,16 +141,16 @@ def _check_site_bwd(rows, k3, take, ev, site, n_events, bias, d_out):
         torch.testing.assert_close(c, b, rtol=0, atol=0, msg=name)
 
 
-@pytest.mark.parametrize("features", LAYOUTS)
-def test_site_grouped_matmul_bwd_plain_matches_jax_vjp(rng, features):
+@pytest.mark.parametrize("features,c,f", LAYOUTS_AT)
+def test_site_grouped_matmul_bwd_plain_matches_jax_vjp(rng, features, c, f):
     """Hand-made layouts: duplicate sites, stitched groups (G > S, clamped
     sites), events past the batch, a ragged MAX; fp32, rtol = atol = 1e-5."""
-    rows, k3, take, ev, site, bias = site_layout_case(rng, features, 60, 8, 50)
-    d_out = rng.normal(size=(60, 50)).astype(np.float32)
+    rows, k3, take, ev, site, bias = site_layout_case(rng, features, 60, c, f)
+    d_out = rng.normal(size=(60, f)).astype(np.float32)
     _check_site_bwd(rows, k3, take, ev, site, 60, bias, d_out)
 
 
-@pytest.mark.parametrize("c,f", [(8, 50), (3, 5)])
+@pytest.mark.parametrize("c,f", [(8, 50), (3, 5), WIDE])
 def test_site_grouped_matmul_bwd_plain_matches_jax_vjp_on_host_layout(rng, c, f):
     """The layout host_site_layout builds, with padding rows in no slot (their
     d_rows is zero) and an event with no row."""
@@ -560,8 +564,11 @@ def test_row_conv_function_on_card_matches_plain(cuda, layer):
     _within_terms(got[2:], want[2:], subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask))
 
 
-K5_CASES = [pytest.param(None, id="host-layout-4096")] + [
-    pytest.param(p.values[0], id=p.id) for p in LAYOUTS]
+# (layout features, C, F): the host layout and each hand-made layout, at
+# SubMPSD.json's head (the kernel's own instantiation) and SubMPSD_w128.json's
+# (its tiled grid)
+K5_CASES = [pytest.param(None, 8, 50, id="host-layout-4096"),
+            pytest.param(None, *WIDE, id="host-layout-4096-128-199")] + LAYOUTS_AT
 
 
 def _k5_args(cuda, features, c=8, f=50, n_events=4096):
@@ -585,12 +592,12 @@ def _k5_args(cuda, features, c=8, f=50, n_events=4096):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("features", K5_CASES)
-def test_k5_matches_plain_on_card(cuda, features):
+@pytest.mark.parametrize("features,c,f", K5_CASES)
+def test_k5_matches_plain_on_card(cuda, features, c, f):
     """Each output within 1e-5 times the sum of the magnitudes of its terms
     (the plain version on |d_out|, |rows| and |k3|): the kernel sums in fp32
     in another order. Two runs give the same bits."""
-    args, n_events = _k5_args(cuda, features)
+    args, n_events = _k5_args(cuda, features, c, f)
     want = site_grouped_matmul_bwd_plain(*args, n_events)
     scale = site_grouped_matmul_bwd_plain(*(a.abs() for a in args[:3]), *args[3:], n_events)
     before = site_grouped_matmul_bwd.launches
@@ -701,14 +708,15 @@ def test_k5_layouts_on_card(cuda, case):
 
 
 @pytest.mark.cuda
-def test_k4_k5_on_two_streams_at_once(cuda):
+@pytest.mark.parametrize("c,f", [(8, 50), WIDE])
+def test_k4_k5_on_two_streams_at_once(cuda, c, f):
     """K4 and K5 keep no state between calls: calls on two streams at once
-    (K5 on a stitched layout, whose sites sum by tickets) each agree with
-    the plain versions."""
+    (K5 on a stitched layout, whose sites sum by tickets per site and, at
+    the wide head, per tile) each agree with the plain versions."""
     k4_args = _k4_args(cuda, "clustered", 3, 130, 104, 1000, None)
     rng = np.random.default_rng(8)
     k5_args = [torch.from_numpy(a).to(cuda) for a in
-               _layout(rng, list(range(1, S + 1)) + [5, 5, 9], 3000, 4096, 64)]
+               _layout(rng, list(range(1, S + 1)) + [5, 5, 9], 3000, 4096, 64, c=c, f=f)]
     feats, plan, g, mask = k4_args
     want4 = subm_conv_rows_wgrad_plain(*k4_args)
     scale4 = subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask)

@@ -142,15 +142,19 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
     K2 replaces the XLA gather + einsum + scatter-add of
     waveformml_tpu/ops/site_head.py:site_grouped_matmul and the bias add
     after it in waveformml_tpu/models/blocks.py:FoldedSiteLinear. On the
-    H100 it is bound by bytes (~800 FLOP per filled slot against ~230
-    bytes), and at a serving chunk's ~2 MB by the latency of its dependent
-    steps. Its design: no memset and no separate bias add (a first grid
-    writes the bias into every event row, a second, programmatically
-    dependent, adds the products); one block per site group, which stages
-    its weight slice once, lists each tile's live slots and gathers their
-    rows (a head too wide for both in shared memory, such as
-    SubMPSD_w128's (C, F) = (128, 199), reads the rows from global memory
-    instead); and float4 adds into the event rows, one RED per 4 outputs. For
+    H100 it is bound at SubMPSD.json's head, (C, F) = (8, 50), by bytes
+    (~800 FLOP per filled slot against ~230 bytes), and at a serving
+    chunk's ~2 MB by the latency of its dependent steps; at SubMPSD_w128's
+    (128, 199) by operations. Its design: no memset and no separate bias
+    add (a first grid writes the bias into every event row, a second,
+    programmatically dependent, adds the products); at (8, 50) one block
+    per site group, which stages its weight slice once, lists each tile's
+    live slots and gathers their rows; at every other width one block per
+    (group, 64-column tile of F), which stages its weight tile once and
+    streams the listed slots' rows through shared memory 32 at a time,
+    double-buffered, into tensor-core products (mma.sync TF32 with the
+    3-pass split of K1 and K4: fp32 accuracy but for ~2^-22 relative); and
+    float4 adds into the event rows, one RED per 4 outputs. For
     those, the output is allocated ``[n_events, output_stride(F)]`` (16-byte
     aligned rows, the only layout the kernel takes) and the ``[:, :F]`` view
     is returned: for F = 50 rows are 52 floats apart.
@@ -234,17 +238,19 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
     layout rules: slot 0 is empty, ``site1`` is clamped to ``[1, S]``, slots
     of events past ``n_events`` add nothing, and groups of one site add up.
     It takes d_out contiguous. Two grids: the first zeroes the row gradient
-    and the sites' tickets and sums d_out for the bias by runs of events;
-    the second, a
-    programmatic dependent launch, gives each group a block for its rows'
-    gradients and its weight slice's, which it stores into ``d_k3`` where
-    its site has no other group, and otherwise the last of the site's
-    groups to finish (an integer ticket in the call's scratch, which the
-    first grid zeroes) sums them in group order; its block 0 sums the
-    bias's runs. A head too wide for a group's weight slice, its gradient
-    and a tile of 256 slots' rows and d_out rows in shared memory (such as
-    SubMPSD_w128's (C, F) = (128, 199)) stages the listed slots in chunks
-    of fewer (16 there), in the same list order. There are no float
+    and the tickets and sums d_out for the bias by runs of events; the
+    second, a programmatic dependent launch, computes the rows' gradients
+    and the weight slices'. At SubMPSD.json's head, (C, F) = (8, 50), it
+    gives each group a block; at every other width, such as
+    SubMPSD_w128's (128, 199), each (group, 32-channel tile, 256-column
+    pass of F) a block, which streams the group's live slots through
+    shared memory 32 at a time, double-buffered, into tensor-core products
+    (mma.sync TF32, 3-pass split: the weight gradient's tile, and the
+    chunk's row gradients over the full F). A block stores its tile
+    into ``d_k3`` where its site has no other group; otherwise the last of
+    the site's groups to finish the tile (an integer ticket per site and
+    tile in the call's scratch, which the first grid zeroes) sums them in
+    group order. The first block sums the bias's runs. There are no float
     atomics, so two runs give the same bits, and no state outlives a call,
     so calls on several streams may run at once.
     """
