@@ -67,9 +67,25 @@ order, it:
    writer where h5py is installed, else ``run`` over in-memory blocks,
    saying which on its own line; asserts ``version_0``, its checkpoint,
    the ``fit:``/``test:`` keys and the kernels' launches;
-9. prints one JSON line describing every kernel (launches: those of the
-   training run, K3's of the features path), the card line again, and as
-   its last line ``{"ok": true, "device": {...}}``.
+9. runs the per-segment regressors as shipped, from seeded random weights
+   (BatchNorm statistics of one train-mode forward): SingleEndedZCNN.json
+   (150-sample pairs; conv 300→150 3×3 and 150→1 on the dense grid, cuDNN
+   in float32): its grid ops timed (the convs beside their bounds, the
+   first one also held to float64 with the process's TF32 flags on), 4
+   serving chunks of 4096 events through ``InferenceModel`` (a CUDA graph
+   per layout, the scatter and the occupancy dilation inside it) against
+   the eager forward and a CPU run, 2 epochs × 4 steps of ``Trainer.fit``
+   (L1, SGD with nesterov, ExponentialLR) against a CPU run, with the peak
+   device memory; SegQuantifier.json (SubM 130→156→78→1 on the row path,
+   SE-only MSE): K1 and K4 at its three convs against their plain versions
+   (K4 bitwise over two runs), serving and training as for Z but held to
+   the plain versions on the card, K1's and K4's launches asserted; then
+   the CLI over SingleEndedZCNN.json, 2 epochs and a test, over in-memory
+   blocks;
+10. prints one JSON line describing every kernel (launches: those of the
+   training run, K3's of the features path; K1 and K4 also at
+   SegQuantifier.json's widths, with its training run's launches), the
+   card line again, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
 Without CUDA, or outside a checkout, it exits non-zero before printing any
@@ -78,6 +94,7 @@ with warm L2, no host launch cost, but with the card's own few µs per
 replay, printed as the timing floor; K2 is also timed 20 calls to a graph).
 """
 import ast
+import copy
 import json
 import os
 import statistics
@@ -94,6 +111,12 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the compute-heavy width, in half precision as shipped (bf16 features,
 # float32 parameters)
 CONFIG_W128 = os.path.join(os.path.dirname(CONFIG), "SubMPSD_w128.json")
+# the per-segment regressors as shipped: Z on the dense grid (cuDNN convs),
+# SegQuantifier's SubM chain on the row path (K1, K4)
+CONFIG_Z = os.path.join(os.path.dirname(CONFIG), "SingleEndedZCNN.json")
+CONFIG_SEGQ = os.path.join(os.path.dirname(CONFIG), "SegQuantifier.json")
+# events of a serving chunk that the per-segment phases also run on the CPU
+CPU_EVENTS = 256
 N_CHUNKS = 4
 EVENTS_PER_CHUNK = 4096       # events per batch of the repository's benchmark
 SEED = 0
@@ -137,6 +160,19 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 # at least GRAD_BN_FLOOR times the largest |gradient| of any parameter
 TRAIN_EPOCHS, TRAIN_CHUNKS, VAL_CHUNKS = 2, 4, 1
 TRAIN_RTOL, TRAIN_ATOL = 2e-3, 2e-4
+# the dense grid convs (cuDNN) against float64: each output within this
+# times the sum of its terms' magnitudes, forward and both gradients
+DENSE_CONV_TOL = 1e-5
+# a training step on the card against the same step on the CPU from one
+# state (the Z phase): its loss (the forward's sums in another order), and
+# each parameter's update in norm. Two float32 runs differ there by more
+# than rounding: a ReLU input or an L1 residual within the forward's
+# rounding of zero takes the other branch, and each such site moves the
+# update by ~1/N of its norm (N ~ 10^4 occupied sites); and the card's
+# cuDNN gradient of the first conv sits further from float64 than the
+# CPU's (``gradients_against_float64`` prints both). A wrong step moves it
+# by O(1).
+STEP_RTOL, STEP_UPDATE_RTOL = 1e-5, 1e-3
 GRAD_RTOL, GRAD_ATOL, GRAD_BN_FLOOR = 1e-3, 1e-4, 1e-2
 # w128 phase: the first conv rounds its sums to bf16, so a last-bit
 # difference between K1 and its plain version can flip one rounding there;
@@ -755,39 +791,43 @@ def read_counts() -> dict:
 
 
 def make_trainer(cfg, state, plain: bool, checkpoint_dir=None, max_epochs=TRAIN_EPOCHS,
-                 **kwargs):
-    """A Trainer on the card over SubMPSD from ``state``, with the kernels
-    or (``plain``) their plain versions, forward and backward; ``kwargs``
-    are the Trainer's other arguments."""
-    from waveformml_tpu_torch.engineering.tasks import LitPSD
+                 device=None, **kwargs):
+    """A Trainer over the config's task and model from ``state``, on the
+    card (or ``device``), with the kernels or (``plain``) their plain
+    versions, forward and backward; ``kwargs`` are the Trainer's other
+    arguments."""
     from waveformml_tpu_torch.engineering.trainer import Trainer
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+    from waveformml_tpu_torch.registry import retrieve_class
 
-    task = LitPSD(cfg)
+    task = retrieve_class(cfg.run_config.run_class)(cfg, device)
     task.model.load_state_dict(state)
     for module in task.model.modules():
         if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
             module.plain = plain
-    return Trainer(cfg, task, checkpoint_dir=checkpoint_dir, max_epochs=max_epochs, **kwargs)
+    return Trainer(cfg, task, device=device, checkpoint_dir=checkpoint_dir,
+                   max_epochs=max_epochs, **kwargs)
 
 
 def training_launches(model, steps: int, evals: int) -> dict:
     """The kernel launches of ``steps`` training micro-steps and ``evals``
-    validation batches of SubMPSD."""
+    validation batches of a model: its row convs' and site head's."""
+    from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
 
-    convs = [m for m in model.stack.modules() if isinstance(m, RowSubMConv2d)]
+    convs = [m for m in model.modules() if isinstance(m, RowSubMConv2d)]
+    heads = sum(isinstance(m, FoldedSiteLinear) for m in model.modules())
     k1_fwd = sum(1 if m.kernel_size == 1 else 2 for m in convs)
     # d_feats: K1 again for every conv but the first (its input is the data)
     k1_bwd = sum(1 if m.kernel_size == 1 else 2 for m in convs[1:])
     return {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
-            "site_grouped_matmul": (steps + evals) * 2,
+            "site_grouped_matmul": (steps + evals) * 2 * heads,
             "waveform_features": 0,
             # K4: the centre tap's grid and the reduction's; K5: the
             # zero/bias grid and the groups' grid
             "subm_conv_rows_wgrad": steps * 2 * len(convs),
-            "site_grouped_matmul_bwd": steps * 2}
+            "site_grouped_matmul_bwd": steps * 2 * heads}
 
 
 def counted_fit(trainer, data, label: str) -> dict:
@@ -806,7 +846,7 @@ def counted_fit(trainer, data, label: str) -> dict:
     epochs = trainer.current_epoch - epoch0
     want = training_launches(trainer.task.model, steps, epochs * len(data.val_dataloader()))
     assert launches == want, (label, launches, want)
-    print(f"{label}: {epochs} epochs, {steps} steps of {EVENTS_PER_CHUNK} events "
+    print(f"{label}: {epochs} epochs, {steps} steps of {trainer.step_phases[-1]['events']} events "
           f"in {wall:.3f} s, {trainer.waveforms_per_second:.1f} waveforms/s; launches "
           f"{launches}; metrics {metrics}", flush=True)
     for i, p in enumerate(trainer.step_phases):
@@ -1093,15 +1133,454 @@ def run_w128(chunks, train, val):
     return results
 
 
-def run_cli(train, val) -> None:
-    """The CLI (``waveformml_tpu_torch.main``) on the card, SubMPSD.json's
-    widths, 2 epochs and a test pass, with the kernels' counts set to 0
-    before and read after. Where h5py is installed: over two class
-    directories of HDF5 files that the port's writer writes (the HDF5
-    readers, the offline shuffle and ``PSDDataModule``), through
-    ``main``; otherwise ``run`` over the in-memory blocks. Asserts the run
-    directory ``version_0``, its checkpoint and the ``fit:``/``test:``
-    keys."""
+def seeded_state(cfg, seed: int, block) -> dict:
+    """The config's model with seeded random weights, as a state_dict: its
+    init, every bias drawn from |N(0, 0.1)| (init leaves them zero), and
+    the BatchNorm running statistics set to those of one train-mode forward
+    over ``block`` (as training leaves them near the data's), so that the
+    eval outputs vary with the data instead of sitting on one side of the
+    final ReLU."""
+    from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm
+    from waveformml_tpu_torch.registry import retrieve_class
+
+    gen = torch.Generator().manual_seed(seed)
+    model = retrieve_class(cfg.net_config.net_class)(cfg, generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=gen).abs_()
+    task = retrieve_class(cfg.run_config.run_class)(cfg)
+    task.model.load_state_dict(model.state_dict())
+    norms = [m for m in task.model.modules() if isinstance(m, MaskedArrayBatchNorm)]
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        task.model_outputs(prepared(task, block), train=True)
+    return {k: v.cpu() for k, v in task.model.state_dict().items()}
+
+
+def set_plain(model, plain: bool) -> None:
+    from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+
+    for module in model.modules():
+        if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
+            module.plain = plain
+
+
+def prepared(task, block):
+    """A block prepared by ``task`` and on its device."""
+    return task.to_device(task.prepare_block(block, task.row_bucket(block),
+                                             task.event_bucket(block)))
+
+
+def run_segment_serving(cfg, state, chunks, tag):
+    """A per-segment config served through ``InferenceModel`` on the card:
+    each chunk one packed copy in, one replay of its layout's CUDA graph
+    (the grid scatter, the occupancy dilation and the convs inside it) and
+    a copy out; the graphs, replays and launches asserted; where the
+    serving time goes; the outputs held to the eager forward, to the plain
+    versions on the card (where the model has row convs) and, for the first
+    CPU_EVENTS events, to a CPU run of the port. Returns the launches."""
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.inference.model import InferenceModel
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+
+    server = InferenceModel(cfg, state)
+    task = server.task
+    t0 = time.perf_counter()
+    server(*chunks[0])
+    torch.cuda.synchronize()
+    print(f"{tag} first chunk (capture of its layout): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    server.dispatch_phases = dict.fromkeys(server.dispatch_phases, 0.0)
+    for g in server.graphs.values():
+        g.replays = 0
+    graphs_before = len(server.graphs)
+    zero_counts()
+    t0 = time.perf_counter()
+    handles = [server.dispatch(c, f) for c, f in chunks]
+    outs = [server.fetch(h) for h in handles]
+    wall = time.perf_counter() - t0
+    eager, replayed = read_counts(), server.replay_launches()
+    launches = {k: eager[k] + replayed[k] for k in eager}
+    new_graphs = len(server.graphs) - graphs_before
+    per_chunk = training_launches(task.model, 0, 1)
+    assert sum(g.replays for g in server.graphs.values()) == N_CHUNKS
+    assert replayed == {k: v * N_CHUNKS for k, v in per_chunk.items()}, replayed
+    assert eager == {k: v * new_graphs for k, v in per_chunk.items()}, eager
+    block0 = FileBlock(chunks[0][0], chunks[0][1], np.zeros(chunks[0][0].shape[0], np.float32))
+    db = prepared(task, block0)
+    forward_ms = graph_time_ms(lambda: task.apply_model(db))
+    n_events = N_CHUNKS * EVENTS_PER_CHUNK
+    names = {"host_prep_s": "host prep (pad, plans, pack)", "h2d_s": "copy in",
+             "launch_s": "replay + copy out", "fetch_s": "fetch"}
+    phases = "; ".join(f"{names[k]} {v * 1e3 / N_CHUNKS:.3f} ({v / wall:.1%})"
+                       for k, v in server.dispatch_phases.items())
+    packed = [sum(leaf[4] for leaf in spec) for spec in server.graphs]
+    print(f"{tag} serving: {N_CHUNKS} chunks, {n_events} events in {wall:.4f} s = "
+          f"{n_events / wall:.1f} events/s; graphs {len(server.graphs)}, launches {launches}, "
+          f"of which from replays {replayed}", flush=True)
+    print(f"{tag} serving breakdown (ms/chunk, share of wall): {phases}; device forward "
+          f"{forward_ms:.4f}; wall {wall * 1e3 / N_CHUNKS:.3f}; device busy share "
+          f"{N_CHUNKS * forward_ms / (wall * 1e3):.4f}; packed chunk bytes {packed}", flush=True)
+
+    row = task.output_unit == "row"
+    has_rows = any(isinstance(m, RowSubMConv2d) for m in task.model.modules())
+    reference = InferenceModel(cfg, state) if has_rows else None
+    if reference is not None:
+        set_plain(reference.task.model, True)
+    err_eager = err_plain = 0.0
+    for (c, f), out in zip(chunks, outs):
+        want_shape = (c.shape[0], 1) if row else (EVENTS_PER_CHUNK, 1, 14, 11)
+        assert out.shape == want_shape and np.isfinite(out).all(), out.shape
+        n = c.shape[0] if row else EVENTS_PER_CHUNK
+        direct = task.apply_model(prepared(task, FileBlock(
+            c, f, np.zeros(c.shape[0], np.float32))))[:n].cpu().numpy()
+        np.testing.assert_allclose(out, direct, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        err_eager = max(err_eager, float(np.abs(out - direct).max()))
+        if reference is not None:
+            want = reference(c, f)
+            np.testing.assert_allclose(out, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+            err_plain = max(err_plain, float(np.abs(out - want).max()))
+    # the outputs at the real rows: most of them live
+    live = float(np.mean(np.concatenate([
+        (o[:, 0] if row else o[c[:, -1], 0, c[:, 0], c[:, 1]]) != 0
+        for (c, _), o in zip(chunks, outs)])))
+    assert live > 0.05, live
+    c0, f0 = chunks[0]
+    small = c0[:, -1] < CPU_EVENTS
+    t0 = time.perf_counter()
+    cpu = InferenceModel(cfg, state, device="cpu")(c0[small], f0[small])
+    cpu_s = time.perf_counter() - t0
+    card = server(c0[small], f0[small])
+    np.testing.assert_allclose(card, cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    print(f"{tag} outputs {outs[0].shape} a chunk, {live:.3f} of those at real rows nonzero: "
+          f"the graph path matches the eager forward (largest |difference| {err_eager:.3g})"
+          + (f" and the plain versions on the card ({err_plain:.3g})" if has_rows else "")
+          + f", and {CPU_EVENTS} events match a CPU run of the port ({cpu_s:.2f} s) "
+          f"(rtol={LOGIT_RTOL}, atol={LOGIT_ATOL})", flush=True)
+    return launches
+
+
+def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
+    """``Trainer.fit`` of a per-segment config on the card, 2 epochs × 4
+    steps, with each kernel's count set to 0 before and read after (and
+    asserted), the per-step breakdown and the peak device memory; the
+    losses held to the same run with the plain versions on the card
+    (``reference="plain"``) or on the CPU (``"cpu"``); the best
+    checkpoint's test loss against its recorded validation loss. Returns
+    the launches."""
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+    from waveformml_tpu_torch.inference.model import InferenceModel
+
+    data = BlockDataModule(train, val)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = make_trainer(cfg, state, plain=False, checkpoint_dir=ckpt_dir)
+        torch.cuda.reset_peak_memory_stats()
+        launches = counted_fit(trainer, data, f"{tag} training")
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        ref = make_trainer(cfg, state, plain=True,
+                           device="cpu" if reference == "cpu" else None)
+        zero_counts()
+        ref.fit(data)
+        assert not any(read_counts().values())
+        ref_s = time.perf_counter() - t0
+        print(f"{tag} training: peak device memory {peak / 2**30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated); losses "
+              f"{np.round(trainer.step_losses, 6).tolist()}; the "
+              f"{'plain versions on the card' if reference == 'plain' else 'CPU run'} "
+              f"({ref_s:.1f} s): {np.round(ref.step_losses, 6).tolist()}", flush=True)
+        if reference == "plain":
+            np.testing.assert_allclose(trainer.step_losses, ref.step_losses,
+                                       rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+            print(f"{tag} training losses match the plain versions' (rtol={TRAIN_RTOL}, "
+                  f"atol={TRAIN_ATOL})", flush=True)
+        else:
+            rel = np.abs(np.subtract(trainer.step_losses, ref.step_losses)) / np.abs(
+                ref.step_losses)
+            again = make_trainer(cfg, state, plain=False)
+            again.fit(data)
+            card_rel = np.abs(np.subtract(trainer.step_losses, again.step_losses)) / np.abs(
+                again.step_losses)
+            print(f"{tag} training: the free-running card and CPU trajectories part by "
+                  f"{np.array2string(rel, precision=3)} (relative, per step), two card runs "
+                  f"by {np.array2string(card_rel, precision=3)}; each step from one state "
+                  f"is held below", flush=True)
+            check_steps_on_cpu(cfg, state, train + val, tag)
+            gradients_against_float64(cfg, state, train[0], tag)
+        best = make_trainer(cfg, state, plain=False)
+        best.load_checkpoint(trainer.best_ckpt_path)
+        test = best.test(BlockDataModule([], [], val))
+        np.testing.assert_allclose(test["test_loss"], trainer.best_val_loss, rtol=1e-4)
+        served = InferenceModel(cfg, trainer.best_ckpt_path)(val[0].coords, val[0].feats)
+        assert np.isfinite(served).all()
+        print(f"{tag} best checkpoint {os.path.basename(trainer.best_ckpt_path)}: test "
+              f"metrics on the validation chunk {test} (recorded val_loss "
+              f"{trainer.best_val_loss:.6f}); served outputs {served.shape}", flush=True)
+    return launches
+
+
+def check_steps_on_cpu(cfg, state, blocks, tag) -> None:
+    """Training steps on the card, one a block of ``blocks`` in turn, each
+    against the same step on the CPU taken from the card's state just
+    before it (weights, BatchNorm statistics, momentum): the step's loss
+    within STEP_RTOL, and each parameter's update (forward, backward and
+    optimizer; ``p.grad`` is no witness after the step: the card's SGD
+    adds its momentum into it in place, the CPU's does not) within
+    STEP_UPDATE_RTOL of the CPU's in norm (a conv bias before a
+    BatchNorm, whose update is rounding, of GRAD_BN_FLOOR times the largest
+    update norm). A free-running trajectory
+    compounds every difference of two summation orders; these steps do
+    not."""
+    card = make_trainer(cfg, state, plain=False)
+    cpu = make_trainer(cfg, state, plain=True, device="cpu")
+    specs = card.task.model.stack.specs
+    # a conv bias before a BatchNorm moves by rounding only
+    before_bn = {f"{card.task.model._stack_name}.l{i}.conv.bias"
+                 for i, s in enumerate(specs[:-1]) if specs[i + 1][0] == "bn"}
+    worst_loss = worst_norm = worst_elem = 0.0
+    for block in blocks:
+        cpu.task.model.load_state_dict(card.task.model.state_dict())
+        # a copy: on one device the two optimizers would share momentum buffers
+        cpu.optimizer.load_state_dict(copy.deepcopy(card.optimizer.state_dict()))
+        before = {k: p.detach().cpu().clone() for k, p in cpu.task.model.named_parameters()}
+        got = float(card.training_step(card.device_batch(block)[0])[0])
+        want = float(cpu.training_step(cpu.device_batch(block)[0])[0])
+        np.testing.assert_allclose(got, want, rtol=STEP_RTOL)
+        worst_loss = max(worst_loss, abs(got - want) / abs(want))
+        cpu_params = dict(cpu.task.model.named_parameters())
+        diffs = {}
+        for name, p in card.task.model.named_parameters():
+            update = p.detach().cpu() - before[name]
+            want_update = cpu_params[name].detach() - before[name]
+            diffs[name] = (float((update - want_update).norm()), float(want_update.norm()))
+            if name not in before_bn:
+                worst_elem = max(worst_elem, float((update - want_update).abs().max())
+                                 / max(float(want_update.abs().max()), 1e-30))
+        largest = max(norm for _, norm in diffs.values())
+        for name, (diff, norm) in diffs.items():
+            if name in before_bn:
+                norm = max(norm, GRAD_BN_FLOOR * largest)
+            assert diff <= STEP_UPDATE_RTOL * norm, (name, diff, norm)
+            worst_norm = max(worst_norm, diff / max(norm, 1e-30))
+    print(f"{tag} training, {len(blocks)} steps each from the card's state: losses within "
+          f"{worst_loss:.3g} (relative; rtol={STEP_RTOL}), every parameter's update within "
+          f"{worst_norm:.3g} of the CPU's in norm (≤ {STEP_UPDATE_RTOL}; for the conv biases "
+          f"before a BatchNorm, {sorted(before_bn)}, of {GRAD_BN_FLOOR}·the largest update "
+          f"norm); largest element difference {worst_elem:.3g} of the parameter's largest "
+          f"|update|", flush=True)
+
+
+def gradients_against_float64(cfg, state, block, tag) -> None:
+    """Prints how far one step's gradients (weights from ``state``, one
+    block, before any optimizer step) lie from float64, in norm, on the
+    card and on the CPU, each parameter but the conv biases before a
+    BatchNorm (whose gradient is rounding)."""
+    from waveformml_tpu_torch.registry import retrieve_class
+
+    def grads(device, dtype):
+        task = retrieve_class(cfg.run_config.run_class)(cfg, device)
+        task.model.load_state_dict(state)
+        task.model.to(dtype)
+        db = {k: v.to(dtype) if v.is_floating_point() else v
+              for k, v in prepared(task, block).items()}
+        task.model.train(True)
+        loss_sum, weight, _ = task.loss_and_metrics(task.model(task.sparse_batch(db)), db)
+        (loss_sum / weight).backward()
+        return {k: p.grad.double().cpu() for k, p in task.model.named_parameters()}
+
+    exact = grads("cuda", torch.float64)
+    rows = {}
+    for where in ("cuda", "cpu"):
+        g = grads(where, torch.float32)
+        rows[where] = {k: float((g[k] - exact[k]).norm() / exact[k].norm())
+                       for k in exact if float(exact[k].norm()) > 1e-3 * max(
+                           float(v.norm()) for v in exact.values())}
+    print(f"{tag} one step's gradients against float64 (norm-relative), card: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rows["cuda"].items())
+          + "; CPU: " + ", ".join(f"{k} {v:.3g}" for k, v in rows["cpu"].items()), flush=True)
+
+
+def check_dense_convs(cfg, state, chunk, tag) -> dict:
+    """The Z stack's grid ops on one serving chunk, timed alone as graph
+    replays: the scatter to the grid (rows and occupancy), the occupancy
+    dilation, and the two convs (cuDNN, float32 without TF32), each beside
+    its bound (float32 operations outside the tensor cores, every site of
+    the grid); the first conv also held, with the process's TF32 flags on,
+    to a float64 run within 1e-5 of each output's terms' magnitudes (a TF32
+    conv misses that by orders of magnitude)."""
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.engineering.tasks import LitZ
+    from waveformml_tpu_torch.ops import sparse_conv as sc
+
+    task = LitZ(cfg)
+    task.model.load_state_dict(state)
+    task.model.eval()
+    db = prepared(task, FileBlock(chunk[0], chunk[1], np.zeros(chunk[0].shape[0], np.float32)))
+    batch = task.sparse_batch(db)
+    stack = task.model.stack
+    grid = sc.batch_to_grid(batch)
+    with torch.no_grad():
+        x0 = grid.masked()
+        mid = stack.l1(stack.l0(grid))
+        x1 = torch.relu(mid.features) * mid.occupancy[:, None]
+    b, s = x0.shape[0], 14 * 11
+    out = {}
+    for name, layer, x in (("conv 300->150 3x3", stack.l0, x0),
+                           ("conv 150->1 1x1", stack.l3, x1)):
+        w, bias = layer.conv.weight.detach(), layer.conv.bias.detach()
+        cout, cin, kh, kw = w.shape
+        pad = (kh // 2, kw // 2)
+        ms = graph_time_ms(lambda: sc.conv(x, w, bias, (1, 1), pad, (1, 1)))
+        n_bytes = 4 * (x.numel() + w.numel() + cout + b * s * cout)
+        flops = 2.0 * b * s * cout * cin * kh * kw
+        b_ms, by = bound_ms(n_bytes, flops)
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
+        print(f"{tag} cuDNN {name}: x {tuple(x.shape)} ms={ms:.5f} bound_ms={b_ms:.5f} ({by}, "
+              f"float32 at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s over every site)", flush=True)
+    for name, fn in (("scatter to the grid", lambda: sc.batch_to_grid(batch)),
+                     ("occupancy dilation 3x3", lambda: sc.dilate_occupancy(
+                         grid.occupancy, 3, 1, 1, 1))):
+        out[name] = dict(ms=graph_time_ms(fn))
+        print(f"{tag} {name}: ms={out[name]['ms']:.5f}", flush=True)
+
+    # float32 whatever the process's flags say: the first conv's forward,
+    # weight gradient and input gradient with the TF32 flags on, against
+    # float64, each output within DENSE_CONV_TOL of the sum of its terms'
+    # magnitudes (the same function of |operands|)
+    w, bias = stack.l0.conv.weight.detach(), stack.l0.conv.bias.detach()
+    xs = x0[:64].contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    gy = torch.randn((64, w.shape[0]) + xs.shape[2:], device="cuda", generator=gen)
+    geometry = ([1, 1], [1, 1], [1, 1], False, [0, 0], 1)
+    conv_api = getattr(torch.backends.cudnn, "conv", None)
+    new_api = conv_api is not None and hasattr(conv_api, "fp32_precision")
+    saved = conv_api.fp32_precision if new_api else torch.backends.cudnn.allow_tf32
+    try:
+        if new_api:
+            conv_api.fp32_precision = "tf32"
+        else:
+            torch.backends.cudnn.allow_tf32 = True
+        xg, wg = xs.clone().requires_grad_(), w.clone().requires_grad_()
+        y = sc.conv(xg, wg, bias, (1, 1), (1, 1), (1, 1))
+        y.backward(gy)
+        got = (y.detach(), wg.grad, xg.grad)
+        tf32 = torch.nn.functional.conv2d(xs, w, bias, padding=1)
+    finally:
+        if new_api:
+            conv_api.fp32_precision = saved
+        else:
+            torch.backends.cudnn.allow_tf32 = saved
+
+    def f64(x, weight, g, b=None):
+        x, weight, g = x.double().cpu(), weight.double().cpu(), g.double().cpu()
+        out = torch.nn.functional.conv2d(x, weight, None if b is None else b.double().cpu(),
+                                         padding=1)
+        dx, dw, _ = torch.ops.aten.convolution_backward(g, x, weight, None, *geometry,
+                                                        [True, True, False])
+        return out, dw, dx
+
+    want = f64(xs, w, gy, bias)
+    scale = f64(xs.abs(), w.abs(), gy.abs(), bias.abs())
+    errs = [float(((g.double().cpu() - t).abs() / s.clamp(min=1e-30)).max())
+            for g, t, s in zip(got, want, scale)]
+    err_tf32 = float(((tf32.double().cpu() - want[0]).abs() / scale[0].clamp(min=1e-30)).max())
+    assert max(errs) < DENSE_CONV_TOL, errs
+    print(f"{tag} with the process's TF32 flags on, the grid conv stays float32: largest "
+          f"|error| / Σ|terms| against float64 {errs[0]:.3g} forward, {errs[1]:.3g} weight "
+          f"gradient, {errs[2]:.3g} input gradient (F.conv2d under those flags: "
+          f"{err_tf32:.3g} forward)", flush=True)
+    return out
+
+
+def run_z(tag="Z"):
+    """SingleEndedZCNN.json as shipped (150-sample pairs: 300 features,
+    conv 300→150 3×3, masked BatchNorm over the dilated occupancy, ReLU,
+    conv 150→1, ReLU, the dense [B, 1, 14, 11] map), seeded random weights:
+    the grid ops timed, 4 serving chunks of 4096 events, and 2 epochs × 4
+    steps of ``Trainer.fit`` (L1, SGD with nesterov, ExponentialLR) against
+    a CPU run. Returns the training blocks for the CLI."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import segment_block
+
+    cfg = load_config(CONFIG_Z)
+    n_samples = cfg.system_config.n_samples
+    rng = np.random.default_rng(SEED + 20)
+    chunks = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="z")
+              for _ in range(N_CHUNKS)]
+    state = seeded_state(cfg, SEED + 21, chunks[0])
+    inputs = [(b.coords, b.feats) for b in chunks]
+    check_dense_convs(cfg, state, inputs[0], tag)
+    serving = run_segment_serving(cfg, state, inputs, tag)
+    train = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="z")
+             for _ in range(TRAIN_CHUNKS)]
+    val = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="z")
+           for _ in range(VAL_CHUNKS)]
+    training = run_segment_training(cfg, state, train, val, tag, reference="cpu")
+    assert not any(serving.values()) and not any(training.values())
+    return train, val
+
+
+def run_segq(tag="SegQuantifier"):
+    """SegQuantifier.json as shipped (65-sample pairs: SubM 130→156→78→1,
+    each 3×3 with masked BatchNorm and ReLU, on the row path; SE-only MSE on
+    E), seeded random weights: K1 and K4 at its three convs against their
+    plain versions (K4 bitwise over two runs, too), 4 serving chunks of
+    4096 events, and 2 epochs × 4 steps of ``Trainer.fit`` against the
+    plain versions' run. Returns the kernels' numbers and the training
+    run's launches."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.datasets.synthetic import segment_block
+    from waveformml_tpu_torch.engineering.tasks import LitSegQuantifier
+
+    cfg = load_config(CONFIG_SEGQ)
+    n_samples = cfg.system_config.n_samples
+    rng = np.random.default_rng(SEED + 30)
+    chunks = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="ez")
+              for _ in range(N_CHUNKS)]
+    state = seeded_state(cfg, SEED + 31, chunks[0])
+    task = LitSegQuantifier(cfg)
+    task.model.load_state_dict(state)
+    db = prepared(task, FileBlock(chunks[0].coords, chunks[0].feats, chunks[0].labels))
+    convs = [tuple(m.weight.shape) for m in task.model.stack.modules() if hasattr(m, "plain")]
+    print(f"{tag} stack: {convs}", flush=True)
+    results = {"subm_conv_rows": check_subm_conv_rows(task.model, db, db["feats"],
+                                                      tag=f"{tag} ")}
+    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(
+        task.model, db, db["feats"], tag=f"{tag} ")
+    results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
+                                                   d_feats_err)
+    serving = run_segment_serving(cfg, state, [(b.coords, b.feats) for b in chunks], tag)
+    train = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="ez")
+             for _ in range(TRAIN_CHUNKS)]
+    val = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="ez")
+           for _ in range(VAL_CHUNKS)]
+    training = run_segment_training(cfg, state, train, val, tag, reference="plain")
+    a_step = training_launches(task.model, 1, 0)
+    for name, r in results.items():
+        assert serving[name] > 0 or name == "subm_conv_rows_wgrad", serving
+        assert training[name] > 0, training
+        print(f"{tag} {name}: ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
+              f"max_abs_err={r['max_abs_err']:.3g}; launches in the serving run "
+              f"{serving[name]}, a training step {a_step[name]}, in the training run "
+              f"{training[name]}", flush=True)
+    return results, training
+
+
+def run_cli(config_path, train, val, fit_keys, test_keys, kernels, hdf5_dirs=True) -> None:
+    """The CLI (``waveformml_tpu_torch.main``) on the card, the config at
+    ``config_path`` as shipped, 2 epochs and a test pass, with the kernels'
+    counts set to 0 before and read after. Where ``hdf5_dirs`` and h5py is
+    installed: over two class directories of HDF5 files that the port's
+    writer writes (the HDF5 readers, the offline shuffle and
+    ``PSDDataModule``), through ``main``; otherwise ``run`` over the
+    in-memory blocks. Asserts the run directory ``version_0``, its
+    checkpoint, the ``fit:``/``test:`` keys and a launch of each of
+    ``kernels``."""
     import contextlib
     import glob
     import io
@@ -1112,10 +1591,11 @@ def run_cli(train, val) -> None:
                                                          write_classification_dirs)
     from waveformml_tpu_torch.io.hdf5 import available
 
-    with tempfile.TemporaryDirectory() as tmp, open(CONFIG) as f:
+    name = os.path.basename(config_path)
+    with tempfile.TemporaryDirectory() as tmp, open(config_path) as f:
         cfg = json.load(f)
         cfg["system_config"]["model_base_path"] = os.path.join(tmp, "model")
-        hdf5 = available()
+        hdf5 = hdf5_dirs and available()
         t0 = time.perf_counter()
         if hdf5:
             data = os.path.join(tmp, "data")
@@ -1123,7 +1603,7 @@ def run_cli(train, val) -> None:
                                       CLI_EVENTS_PER_FILE, cfg["system_config"]["n_samples"],
                                       seed=SEED + 5)
             cfg["dataset_config"].update(base_path=data, **CLI_SPLITS)
-        path = os.path.join(tmp, "SubMPSD.json")
+        path = os.path.join(tmp, name)
         with open(path, "w") as f:
             json.dump(cfg, f)
         argv = [path, "-t", "--max_epochs", "2"]
@@ -1145,9 +1625,10 @@ def run_cli(train, val) -> None:
         text = out.getvalue()
         print(text, end="", flush=True)
         if not hdf5:
-            print("CLI phase: h5py is not installed, so the HDF5 readers did not run; "
-                  "run() of the CLI drove a BlockDataModule of the in-memory training "
-                  "blocks instead", flush=True)
+            why = ("h5py is not installed, so the HDF5 readers did not run"
+                   if hdf5_dirs else "the synthetic HDF5 writer writes class directories only")
+            print(f"CLI phase, {name}: {why}; run() of the CLI drove a BlockDataModule of "
+                  f"the in-memory training blocks instead", flush=True)
         printed = {}
         for line in text.splitlines():
             for tag in ("fit", "test"):
@@ -1157,13 +1638,10 @@ def run_cli(train, val) -> None:
                                cfg["run_config"]["exp_name"], "version_0")
         ckpts = glob.glob(os.path.join(run_dir, "epoch=*-val_loss=*.ckpt"))
         assert os.path.isfile(os.path.join(run_dir, "run_info.json")) and len(ckpts) == 1
-        assert set(printed["fit"]) == {"train_loss", "train_accuracy", "val_loss",
-                                       "val_accuracy"}, printed
-        assert set(printed["test"]) == {"test_loss", "test_accuracy"}, printed
-        assert all(launches[k] > 0 for k in ("subm_conv_rows", "site_grouped_matmul",
-                                             "subm_conv_rows_wgrad",
-                                             "site_grouped_matmul_bwd")), launches
-        print(f"CLI phase: HDF5 read: {'yes' if hdf5 else 'no (h5py absent)'}; data written "
+        assert set(printed["fit"]) == set(fit_keys), printed
+        assert set(printed["test"]) == set(test_keys), printed
+        assert all(launches[k] > 0 for k in kernels), launches
+        print(f"CLI phase, {name}: HDF5 read: {'yes' if hdf5 else 'no'}; data written "
               f"in {written:.2f} s; main/run of 2 epochs and a test pass in {wall:.2f} s "
               f"(wall, host clock); {os.path.relpath(ckpts[0], tmp)}; launches {launches}; "
               f"fit {printed['fit']}; test {printed['test']}", flush=True)
@@ -1427,9 +1905,18 @@ def main() -> int:
     run_w128(chunks, train, val)
 
     # -- 8. the CLI -----------------------------------------------------------
-    run_cli(train, val)
+    run_cli(CONFIG, train, val, ("train_loss", "train_accuracy", "val_loss", "val_accuracy"),
+            ("test_loss", "test_accuracy"),
+            ("subm_conv_rows", "site_grouped_matmul", "subm_conv_rows_wgrad",
+             "site_grouped_matmul_bwd"))
 
-    # -- 9. report ------------------------------------------------------------
+    # -- 9. the per-segment regressors -----------------------------------------
+    z_train, z_val = run_z()
+    segq, segq_launches = run_segq()
+    run_cli(CONFIG_Z, z_train, z_val, ("train_loss", "val_loss"), ("test_loss",), (),
+            hdf5_dirs=False)
+
+    # -- 10. report -----------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),
@@ -1449,6 +1936,15 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K1 and K4 again at SegQuantifier.json's widths, launched by its path
+    for name in ("subm_conv_rows", "subm_conv_rows_wgrad"):
+        route, source, replaces = sources[name]
+        r = segq[name]
+        kernels.append({"name": f"{name} (SegQuantifier.json)", "route": route,
+                        "source": source, "replaces": replaces,
+                        "launches": segq_launches[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

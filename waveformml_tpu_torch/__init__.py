@@ -13,7 +13,11 @@ loaders), from HDF5 class directories (``datasets.pulse_dataset``,
 ``PSDDataModule``; h5py is imported only when files are read) through the
 CLI (``python -m waveformml_tpu_torch.main``) to a checkpoint, in float32
 or ``half_precision`` (``SubMPSD_w128.json``), and the per-waveform DSP
-feature op, through five kernels written by hand in CUDA C++:
+feature op; and the per-segment regressors (``LitZ``, ``LitEZ``,
+``LitSegQuantifier``, ``LitSegClassifier``: ``SingleEndedZCNN.json`` on
+the dense-grid sparse ops of ``ops.sparse_conv``, whose convs are cuDNN's
+in float32, ``SegQuantifier.json`` on the row path); through five kernels
+written by hand in CUDA C++:
 
 * ``ops.row_conv.subm_conv_rows``           -- K1, gather-fused TF32 GEMM (forward,
   and the feature gradient with the reversed, transposed kernel)

@@ -1,6 +1,7 @@
 """Synthetic detector events for tests and the chip smoke run (numpy;
 counterpart of the generators in waveformml_tpu/datasets/synthetic.py):
-unlabelled events, labelled chunks of both particle kinds and an in-memory
+unlabelled events, labelled chunks of both particle kinds, chunks with
+per-row (E, z) labels and an in-memory
 data module for the trainer, the inputs that stress the kernels, and
 directories of HDF5 files of each particle kind (``write_classification_dirs``,
 which needs h5py).
@@ -18,7 +19,7 @@ import numpy as np
 
 from waveformml_tpu_torch.datasets.data_module import DataLoaderLite
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
-from waveformml_tpu_torch.detector import MAX_RANGE, NX, NY, Z_SCALE
+from waveformml_tpu_torch.detector import E_SCALE, MAX_RANGE, NX, NY, Z_SCALE
 from waveformml_tpu_torch.io.hdf5 import open_h5
 
 
@@ -120,6 +121,20 @@ def labelled_block(rng: np.random.Generator, n_events: int, n_samples: int,
     return FileBlock(coords=np.concatenate(coords),
                      feats=(np.concatenate(wfs) / MAX_RANGE).astype(np.float32),
                      labels=kinds.astype(np.int64))
+
+
+def segment_block(rng: np.random.Generator, n_events: int, n_samples: int,
+                  label: str = "z", max_mult: int = 4) -> FileBlock:
+    """A chunk of events with per-row labels, for the per-segment tasks:
+    coords [N, 3], waveforms scaled to [0, 1] as features, and labels
+    ``[N]`` z (``label="z"``, scaled to [0, 1]) or ``[N, 2]`` (E, z)
+    (``label="ez"``, E over ``E_SCALE``), the layout of the EZ label
+    field; the left/right amplitude ratio encodes z, the amplitude E."""
+    ev = make_events(rng, n_events, n_samples, max_mult=max_mult)
+    z = (ev["z"] / Z_SCALE + 0.5).astype(np.float32)
+    labels = z if label == "z" else np.stack([ev["E"] / E_SCALE, z], 1).astype(np.float32)
+    return FileBlock(coords=ev["coords"],
+                     feats=(ev["waveforms"] / MAX_RANGE).astype(np.float32), labels=labels)
 
 
 class BlockDataModule:

@@ -25,10 +25,12 @@ import torch
 
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
+from waveformml_tpu_torch.engineering.se_mask import se_loss_mask
 from waveformml_tpu_torch.nn.functional import build_criterion
 from waveformml_tpu_torch.ops.row_conv import host_neighbor_plan
 from waveformml_tpu_torch.ops.site_head import MIN_CAP, host_site_layout
-from waveformml_tpu_torch.ops.sparse import SparseBatch, bucket_size, pad_sparse
+from waveformml_tpu_torch.ops.sparse import (SparseBatch, bucket_size, occupancy_mask,
+                                             pad_sparse, scatter_to_dense)
 from waveformml_tpu_torch.registry import retrieve_class
 
 #: a packed batch's layout: (key, shape, numpy dtype string, byte offset,
@@ -76,17 +78,35 @@ def unpack_db(buf: torch.Tensor, spec: PackSpec) -> Dict[str, torch.Tensor]:
 
 class TaskBase:
     """Owns the model (an ``nn.Module`` on ``device``), its criterion and
-    the host-side batch preparation."""
+    the host-side batch preparation.
+
+    ``net_config.SELoss`` restricts the losses to the single-ended segments
+    (``se_mask``); ``net_config.z_weights`` with ``z_config`` gives the
+    model a frozen Z model (``_build_frozen_z``)."""
 
     _EVENT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
                       16384, 32768)
+    #: labels padded alongside the rows (``labels_rows``), not the events
+    labels_per_row = False
+    #: the model's outputs are per "event" or per "row" (InferenceModel
+    #: un-pads by it where the two buckets are equal)
+    output_unit = "event"
 
     def __init__(self, config, device: Optional[Union[str, torch.device]] = None):
         self.config = config
         self.device = resolve_device(device)
         self.half_precision = bool(getattr(config.system_config, "half_precision", 0))
         self.occlude_index = getattr(config.dataset_config, "occlude_index", None)
-        self.model = retrieve_class(config.net_config.net_class)(config).to(self.device)
+        self.SE_only = bool(getattr(config.net_config, "SELoss", False))
+        self.se_mask = (torch.as_tensor(se_loss_mask(), device=self.device)
+                        if self.SE_only else None)
+        #: the random stream dropout draws from in train mode (the Trainer
+        #: sets its own)
+        self.generator: Optional[torch.Generator] = None
+        cls = retrieve_class(config.net_config.net_class)
+        z_model = self._build_frozen_z()
+        kwargs = {"z_model": z_model} if z_model is not None else {}
+        self.model = cls(config, **kwargs).to(self.device)
         self.criterion = build_criterion(
             config.net_config.criterion_class,
             getattr(config.net_config, "criterion_params", None))
@@ -94,17 +114,45 @@ class TaskBase:
         # [S, MAX] shape does not flap between buckets from batch to batch
         self._site_cap = 0
 
+    def _build_frozen_z(self) -> Optional[torch.nn.Module]:
+        """Where ``net_config`` has ``z_weights`` (a port checkpoint or
+        ``state_dict`` file of a Z model) and ``z_config`` (its config):
+        that model, loaded through ``InferenceModel`` on this task's device,
+        in eval mode, its parameters frozen; else None."""
+        nc = self.config.net_config
+        if not hasattr(nc, "z_weights"):
+            return None
+        if not hasattr(nc, "z_config"):
+            raise ValueError("if specifying z_weights, you must also specify z_config")
+        from waveformml_tpu_torch.config import load_config
+        from waveformml_tpu_torch.inference.model import InferenceModel
+
+        z_model = InferenceModel(load_config(nc.z_config), nc.z_weights,
+                                 device=self.device).task.model
+        z_model.requires_grad_(False)
+        return z_model
+
+    def make_evaluator(self, logger=None):
+        raise NotImplementedError("the evaluators are not ported yet "
+                                  "(ROADMAP.md queue 1 item 7)")
+
     # -- host-side batch preparation -------------------------------------------
     def row_bucket(self, block: FileBlock) -> int:
         return bucket_size(max(1, block.coords.shape[0]))
 
     def event_bucket(self, block: FileBlock) -> int:
+        return bucket_size(max(1, self.n_events(block)), buckets=self._EVENT_BUCKETS)
+
+    def n_events(self, block: FileBlock) -> int:
+        """The events of a block: one past its largest event id, and for
+        event labels at least their count (trailing events can have no
+        rows)."""
         n = 1
         if block.coords.ndim == 2 and block.coords.shape[0]:
             n = int(block.coords[:, -1].max()) + 1
-        # trailing events can have no rows: the label vector sets the floor
-        n = max(n, block.labels.shape[0])
-        return bucket_size(max(1, n), buckets=self._EVENT_BUCKETS)
+        if not self.labels_per_row:
+            n = max(n, block.labels.shape[0])
+        return n
 
     def prepare_block(self, block: FileBlock, row_bucket: int,
                       event_bucket: int) -> Dict[str, np.ndarray]:
@@ -119,8 +167,20 @@ class TaskBase:
         ymask[:n_ev] = True
         out = {"coords": coords, "feats": feats, "mask": mask,
                "labels": y, "label_mask": ymask}
+        self.add_row_extras(block, out, row_bucket)
         self.add_row_plans(out, event_bucket)
         return out
+
+    @staticmethod
+    def add_row_extras(block: FileBlock, out: Dict[str, np.ndarray], row_bucket: int) -> None:
+        """The block's per-row extras, padded to the row bucket, as
+        ``extra_<name>`` (edge lists excepted)."""
+        for k, v in block.extras.items():
+            if k.startswith(("edges_", "edge_mask_")):
+                continue
+            pad = np.zeros((row_bucket,) + v.shape[1:], dtype=v.dtype)
+            pad[:v.shape[0]] = v
+            out[f"extra_{k}"] = pad
 
     def add_row_plans(self, out: Dict[str, np.ndarray], n_events: int) -> None:
         """Host-build the plans the model requires (they depend on coords
@@ -146,10 +206,11 @@ class TaskBase:
         buf, spec = pack_db(db, pin_memory=True)
         return unpack_db(buf.to(self.device, non_blocking=True), spec)
 
-    def sparse_batch(self, db: Dict[str, torch.Tensor]) -> SparseBatch:
+    def sparse_batch(self, db: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None) -> SparseBatch:
         plans = {k[len("plan_"):]: v for k, v in db.items() if k.startswith("plan_")}
         return SparseBatch(db["coords"], self._features(db), db["mask"],
-                           n_events=db["labels"].shape[0], plans=plans)
+                           n_events=db["labels"].shape[0], plans=plans, generator=generator)
 
     def _features(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The batch's features as the model takes them: the occluded
@@ -173,4 +234,33 @@ class TaskBase:
         statistics, running statistics updated) or eval mode, in float32,
         under autograd as the caller has it."""
         self.model.train(train)
-        return self.model(self.sparse_batch(db)).float()
+        return self.model(self.sparse_batch(db, self.generator if train else None)).float()
+
+    # -- segment loss ---------------------------------------------------------
+    def segment_loss(self, outputs_dense: torch.Tensor, db: Dict[str, torch.Tensor],
+                     targets_rows: torch.Tensor, target_index: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The criterion over the occupied sites of a dense ``[B, C, NX,
+        NY]`` output against per-row targets (``[N]`` or ``[N, L]``,
+        scattered to the grid, two rows at one site summed): (loss sum,
+        weight, target grid ``[B, L, NX, NY]`` (column ``target_index``
+        only, where given), predictions masked by the batch's occupancy).
+        The weight is the count of occupied sites, under ``SE_only`` of
+        the occupied single-ended ones, whose mask then also multiplies
+        both sides of the criterion."""
+        batch = SparseBatch(db["coords"], db["feats"], db["mask"],
+                            n_events=db["labels"].shape[0])
+        t = targets_rows[:, None] if targets_rows.dim() == 1 else targets_rows
+        target_dense = scatter_to_dense(batch, t.float()).permute(0, 3, 1, 2)
+        occf = occupancy_mask(batch)[:, None].to(outputs_dense.dtype)
+        preds = outputs_dense * occf
+        if target_index is not None:
+            target_dense = target_dense[:, target_index:target_index + 1]
+        if self.SE_only:
+            m = self.se_mask.to(preds.dtype)[None, None]
+            elem = self.criterion.elementwise(preds * m, target_dense * m)
+            weight = (occf * m).sum()
+        else:
+            elem = self.criterion.elementwise(preds, target_dense)
+            weight = occf.sum()
+        return (elem * occf).sum(), weight, target_dense, preds

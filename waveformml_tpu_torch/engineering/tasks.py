@@ -1,15 +1,31 @@
-"""Tasks (counterpart of waveformml_tpu/engineering/tasks.py). ``LitPSD``
-is ported: its masked loss and metric sums for training and validation,
-and its test-time outputs."""
+"""Tasks (counterpart of waveformml_tpu/engineering/tasks.py): their
+masked loss and metric sums for training and validation, and their
+test-time outputs. ``LitPSD`` classifies events; ``LitZ`` and ``LitEZ``
+regress z, and E and z, per segment through the dense-grid segment loss;
+``LitSegClassifier`` and ``LitSegQuantifier`` classify and regress per
+row, optionally over the single-ended segments only. Their evaluators are
+not ported yet (``make_evaluator`` raises)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.engineering.base import TaskBase
+from waveformml_tpu_torch.engineering.se_mask import seg_status_maps
+from waveformml_tpu_torch.ops.sparse import bucket_size, pad_sparse
 from waveformml_tpu_torch.registry import registry
+
+Metrics = Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The sum of x over the rows of ``mask`` (x may have more axes)."""
+    mask = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+    return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device)).sum()
 
 
 @registry.register("LitPSD", aliases=("src.engineering.LitPSD", "LitPSD.LitPSD"))
@@ -47,3 +63,184 @@ class LitPSD(TaskBase):
         return {"logits": outputs,
                 "pred": torch.argmax(outputs, dim=-1),
                 "logprob": torch.log_softmax(outputs, dim=-1)}
+
+
+@registry.register("LitZ", aliases=("src.engineering.LitZ.LitZ", "LitZ.LitZ"))
+class LitZ(TaskBase):
+    """Per-segment z regression: the criterion between the model's dense
+    ``[B, 1, NX, NY]`` map and the rows' labels scattered to the grid
+    (``segment_loss``), over the occupied sites. Labels of phys width (more
+    than 2 columns) are read at the phys z column, 4. ``net_config.UseFFT``
+    gives the model each row's real spectrum (real ‖ imaginary parts)."""
+
+    labels_per_row = True
+    z_index = 4
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.use_fft = bool(getattr(config.net_config, "UseFFT", False))
+
+    def event_bucket(self, block: FileBlock) -> int:
+        if block.coords.ndim == 2 and block.coords.shape[0]:
+            return TaskBase.event_bucket(self, block)
+        return bucket_size(max(1, block.labels.shape[0]))
+
+    def prepare_block(self, block: FileBlock, row_bucket: int,
+                      event_bucket: int) -> Dict[str, np.ndarray]:
+        """The rows padded with their labels (``labels_rows``, padding rows
+        0) and extras; ``labels`` and ``label_mask`` zeros over the event
+        bucket, which fix the batch's event count; the model's plans."""
+        coords, feats, mask, y = pad_sparse(block.coords, block.feats, row_bucket,
+                                            labels=block.labels)
+        out = {"coords": coords, "feats": feats, "mask": mask, "labels_rows": y,
+               "labels": np.zeros((event_bucket,), dtype=np.float32),
+               "label_mask": np.zeros((event_bucket,), dtype=bool)}
+        self.add_row_extras(block, out, row_bucket)
+        self.add_row_plans(out, event_bucket)
+        return out
+
+    def _features(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        f = super()._features(db)
+        if self.use_fft:
+            z = torch.fft.rfft(f.float(), dim=-1)
+            f = torch.cat([z.real, z.imag], dim=-1).to(f.dtype)
+        return f
+
+    def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:
+        labels = db["labels_rows"]
+        phys = labels.dim() == 2 and labels.shape[1] > 2
+        loss_sum, weight, _, _ = self.segment_loss(
+            outputs, db, labels, target_index=self.z_index if phys else None)
+        return loss_sum, weight, {}
+
+    def test_outputs(self, outputs: torch.Tensor,
+                     db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        _, _, target_dense, preds = self.segment_loss(outputs, db, db["labels_rows"])
+        return {"predictions": preds, "target": target_dense}
+
+
+@registry.register("LitEZ", aliases=("src.engineering.LitEZ.LitEZ", "LitEZ.LitEZ"))
+class LitEZ(TaskBase):
+    """Joint per-segment (E, z) regression: output plane 0 against label
+    column 0 (E) and plane 1 against column 1 (z), the two segment losses
+    summed. With ``algorithm: features`` the E-like feature columns (0, 2,
+    3) are scaled by ``escale / e_adjust``."""
+
+    labels_per_row = True
+    prepare_block = LitZ.prepare_block
+    event_bucket = LitZ.event_bucket
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        nc = config.net_config
+        self.zscale = getattr(nc, "zscale", 1200.0)
+        self.escale = getattr(nc, "escale", 12.0)
+        self.e_adjust = getattr(nc, "e_adjust", 12.0)
+        self.e_factor = self.escale / self.e_adjust
+        self.phys_coord = getattr(nc, "algorithm", "conv") == "features"
+
+    def _features(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        f = super()._features(db)
+        if self.phys_coord and self.e_factor != 1.0:
+            f = f.clone()
+            f[:, [0, 2, 3]] *= self.e_factor
+        return f
+
+    def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:
+        t = db["labels_rows"]
+        e_sum, e_w, _, _ = self.segment_loss(outputs[:, 0:1], db, t[:, 0])
+        z_sum, z_w, _, _ = self.segment_loss(outputs[:, 1:2], db, t[:, 1])
+        return z_sum + e_sum, z_w, {"MAE_z_sum": z_sum, "MAE_z_count": z_w,
+                                    "MAE_E_sum": e_sum, "MAE_E_count": e_w}
+
+    def test_outputs(self, outputs: torch.Tensor,
+                     db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        t = db["labels_rows"]
+        _, _, te, pe = self.segment_loss(outputs[:, 0:1], db, t[:, 0])
+        _, _, tz, pz = self.segment_loss(outputs[:, 1:2], db, t[:, 1])
+        return {"predictions": torch.cat([pe, pz], dim=1),
+                "target": torch.cat([te, tz], dim=1)}
+
+
+class _RowTask(TaskBase):
+    """Per-row tasks over site-preserving nets: labels per row, outputs per
+    row, the single-ended rows selectable by the segment status map."""
+
+    labels_per_row = True
+    output_unit = "row"
+    prepare_block = LitZ.prepare_block
+    event_bucket = LitZ.event_bucket
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.seg_status = torch.as_tensor(seg_status_maps()[0], device=self.device)
+
+    def _row_mask(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The real rows, under ``SE_only`` those of single-ended segments."""
+        mask = db["mask"]
+        if self.SE_only:
+            c = db["coords"].long()
+            mask = mask & (self.seg_status[c[:, 0], c[:, 1]] == 0.5)
+        return mask
+
+
+@registry.register("LitSegClassifier",
+                   aliases=("src.engineering.LitSegClassifier.LitSegClassifier",
+                            "LitSegClassifier.LitSegClassifier"))
+class LitSegClassifier(_RowTask):
+    """Per-row classification: the criterion's sum over the rows, weighted
+    by their count (a class weight scales the sum, never the count), the
+    accuracy sums and the confusion matrix (rows target, columns
+    prediction)."""
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.n_type = config.system_config.n_type
+
+    def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:
+        labels = db["labels_rows"]
+        if labels.dim() == 2:
+            labels = labels[:, 0]
+        labels = labels.long()
+        mask = self._row_mask(db)
+        loss_sum = _masked_sum(self.criterion.elementwise(outputs, labels), mask)
+        count = mask.sum().float()
+        pred = torch.argmax(outputs, dim=-1)
+        correct = _masked_sum((pred == labels).float(), mask)
+        onehot_t = F.one_hot(labels, self.n_type).float() * mask[:, None]
+        onehot_p = F.one_hot(pred, self.n_type).float()
+        return loss_sum, count, {"accuracy_sum": correct, "accuracy_count": count,
+                                 "confusion": onehot_t.t() @ onehot_p}
+
+    def test_outputs(self, outputs: torch.Tensor,
+                     db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"logits": outputs, "pred": torch.argmax(outputs, dim=-1),
+                "prob": torch.softmax(outputs, dim=-1)}
+
+
+@registry.register("LitSegQuantifier",
+                   aliases=("src.engineering.LitSegQuantifier.LitSegQuantifier",
+                            "LitSegQuantifier.LitSegQuantifier"))
+class LitSegQuantifier(_RowTask):
+    """Per-row scalar regression of label column ``net_config.target_index``
+    (column 0 by default): the criterion's sum over the rows, weighted by
+    their count, and the squared error's sum."""
+
+    def __init__(self, config, device=None):
+        super().__init__(config, device)
+        self.target_index = getattr(config.net_config, "target_index", None)
+
+    def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:
+        labels = db["labels_rows"]
+        if labels.dim() == 2:
+            labels = labels[:, self.target_index if self.target_index is not None else 0]
+        p = outputs[:, 0] if outputs.dim() == 2 and outputs.shape[1] == 1 else outputs
+        mask = self._row_mask(db)
+        loss_sum = _masked_sum(self.criterion.elementwise(p, labels), mask)
+        count = mask.sum().float()
+        mse = _masked_sum((p - labels) ** 2, mask)
+        return loss_sum, count, {"mse_sum": mse, "mse_count": count}
+
+    def test_outputs(self, outputs: torch.Tensor,
+                     db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"predictions": outputs}

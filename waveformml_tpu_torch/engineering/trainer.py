@@ -76,9 +76,8 @@ class Trainer:
     * ``accumulate_grad_batches``: optax's ``MultiSteps`` (the mean of k
       micro-steps' gradients, clipped as a whole; BatchNorm statistics move
       every micro-step; the count runs on across epochs);
-    * ``seed``: seeds ``generator``, the training step's random stream
-      (no op of the ported models draws from it yet: dropout raises in
-      train mode);
+    * ``seed``: seeds ``generator``, the training step's random stream,
+      which the task hands to the model's dropout in train mode;
     * ``logger``: an object with ``log_scalar(tag, value, step)``,
       ``log_scalars(values, step)`` and ``flush()``, or None.
     """
@@ -117,6 +116,7 @@ class Trainer:
         self.gradient_clip_val = gradient_clip_val
         self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        task.generator = self.generator
         self.lr = oc.lr
         self.params = list(task.model.parameters())
         self.optimizer = build_optimizer(oc.optimizer_class, self.params, oc.lr,
@@ -289,7 +289,7 @@ class Trainer:
             _accumulate(agg, metrics)
             rows += int(block.coords.shape[0])
             phases.append({"start": start, "host_prep_s": host_prep_s, "h2d_s": h2d_s,
-                           "events": int(block.labels.shape[0]), "cuda_events": events})
+                           "events": self.task.n_events(block), "cuda_events": events})
         # one wait per epoch: the losses and events are read after it
         step_losses = [float(x) for x in losses]
         end = time.perf_counter()
@@ -318,7 +318,8 @@ class Trainer:
             weight += float(w)
             _accumulate(agg, metrics)
             if collect is not None:
-                n = block.labels.shape[0]
+                n = (block.coords.shape[0] if self.task.output_unit == "row"
+                     else self.task.n_events(block))
                 collect(block, db, {k: v[:n].cpu().numpy()
                                     for k, v in self.task.test_outputs(outputs, db).items()})
         out = {f"{prefix}_loss": loss_sum / max(weight, 1e-12)}
@@ -334,8 +335,9 @@ class Trainer:
         task's metrics, the JAX ``Trainer``'s keys), also given to the
         callbacks' ``on_test_end`` and logged at step 0. ``collect(block,
         db, test_out)`` is called for each test block, in order, with its
-        device batch and its test outputs (``logits``, ``pred``,
-        ``logprob``: numpy, over the block's real events)."""
+        device batch and its test outputs (numpy, the task's
+        ``test_outputs``, e.g. ``logits``, ``pred``, ``logprob``, over the
+        block's real events, or its real rows for a per-row task)."""
         data_module.setup("test")
         metrics = self._eval_epoch(data_module.test_dataloader(), "test",
                                    self.limit_test_batches, collect)

@@ -81,7 +81,9 @@ class InferenceModel:
     ``output_unit`` ("row", "event" or
     "auto") says whether the outputs' leading axis is the padded rows or
     the padded events, for ``fetch`` to cut; "auto" infers it from the
-    shape and takes events, with a warning, where both buckets are equal.
+    shape; where both buckets are equal it takes rows for a per-row task
+    (its ``output_unit``) without a ``postprocess``, which may change the
+    unit, and otherwise events, with a warning.
     A graph capture that fails raises.
     """
 
@@ -170,8 +172,11 @@ class InferenceModel:
         if self.preprocess is None and vals.dtype not in keep:
             vals = vals.astype(np.float32)
         t0 = time.perf_counter()
+        # tasks that pad labels alongside the rows take a dummy label a row
+        labels = (np.zeros((max(1, n),), np.float32) if self.task.labels_per_row
+                  else np.zeros((max(1, n_events),), np.int64))
         block = FileBlock(coords=np.asarray(coords, dtype=np.int32), feats=vals,
-                          labels=np.zeros((max(1, n_events),), np.int64))
+                          labels=labels)
         rb, eb = self.task.row_bucket(block), self.task.event_bucket(block)
         db = self.task.prepare_block(block, rb, eb)
         if self.device.type == "cpu":
@@ -219,6 +224,10 @@ class InferenceModel:
             return out[:h.n_rows]
         if self.output_unit == "event" and out.shape[0] == h.event_bucket:
             return out[:h.n_events]
+        if (out.shape[0] == h.event_bucket == h.row_bucket and self.postprocess is None
+                and self.task.output_unit == "row"):
+            # a per-row task's own outputs
+            return out[:h.n_rows]
         if out.shape[0] == h.event_bucket:
             if (self.output_unit == "auto" and h.event_bucket == h.row_bucket
                     and not self._warned_ambiguous):

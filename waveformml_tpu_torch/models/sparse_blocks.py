@@ -1,17 +1,20 @@
-"""Sparse conv stacks over the active rows of a batch (counterpart of
+"""Parametric sparse conv stacks (counterpart of
 waveformml_tpu/models/sparse_blocks.py).
 
 Layer schedules are pure static methods, copied from the JAX package so
-that a config gives the same layer shapes. The port runs row-compatible
-stacks only (submanifold convs, BatchNorm, ReLU, dropout): those never leave
-row space, so every conv is one ``subm_conv_rows`` (kernel K1) over a
-host-built neighbour plan. Which plans a stack needs follows from its
-schedule (``plan_requirements``); a batch without one of them is an error.
+that a config gives the same layer specs. ``_SpecNet`` builds a stack from
+its specs and dispatches as the JAX package does: a pure-SubM stack
+(submanifold convs, BatchNorm, ReLU, dropout, a ``todense`` tail) never
+leaves row space, so every conv is one ``subm_conv_rows`` (kernel K1) over
+a host-built neighbour plan; any other stack (regular, strided or inverse
+convs) densifies the batch to a ``SparseGrid`` and runs the grid ops of
+``ops.sparse_conv``. Which plans a row stack needs follows from its specs
+(``plan_requirements``); a batch without one of them is an error.
 """
 from __future__ import annotations
 
-from math import ceil
-from typing import List, Optional, Set, Tuple
+from math import ceil, floor
+from typing import List, Optional, Sequence, Set, Tuple
 
 import torch
 from torch import nn
@@ -19,12 +22,21 @@ from torch import nn
 from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_normal_
 from waveformml_tpu_torch.models.schedules import (get_frame_contraction,
                                                    get_frame_expansion)
-from waveformml_tpu_torch.ops.row_conv import SubMConvRows
-from waveformml_tpu_torch.ops.sparse import SparseBatch
+from waveformml_tpu_torch.ops.row_conv import SubMConvRows, rows_to_dense
+from waveformml_tpu_torch.ops.sparse import SparseBatch, gather_from_dense, occupancy_mask
+from waveformml_tpu_torch.ops.sparse_conv import (MaskedBatchNorm, SparseConv2d,
+                                                  SparseGrid, SparseInverseConv2d,
+                                                  SubMConv2d, batch_to_grid, dropout)
 
-# layer specs: ("conv", cin, cout, k, s, p, d) / ("subm", cin, cout, k, p, key)
+# layer specs: ("conv", cin, cout, k, s, p, d) / ("conv_keyed", cin, cout, k,
+# s, p, d, key) / ("subm", cin, cout, k, p, key) / ("inv", cin, cout, k, key)
 # / ("bn", c) / ("relu",) / ("dropout", rate) / ("todense",)
 _ROW_OPS = ("subm", "bn", "relu", "dropout", "todense")
+
+
+def _row_compatible(specs: Sequence[Tuple]) -> bool:
+    """True when every layer has a row-space form (pure SubM stacks)."""
+    return all(s[0] in _ROW_OPS for s in specs)
 
 
 class RowSubMConv2d(nn.Module):
@@ -50,31 +62,133 @@ class RowSubMConv2d(nn.Module):
         return SubMConvRows.apply(feats, plan, self.weight, self.bias, mask, self.plain)
 
 
-class SparseConv2DForEZ(nn.Module):
-    """(E, Z) per-segment conv stack, versions 0-3 of the schedule; the port
-    runs the row-compatible versions (1-3)."""
+class _SpecNet(nn.Module):
+    """A stack built from layer specs, each parametric layer named
+    ``l<i>`` as in the JAX package: on the row path ``RowSubMConv2d`` and
+    ``MaskedArrayBatchNorm``, on the grid path the grid convs (their
+    weights under ``l<i>.conv``) and ``MaskedBatchNorm``.
+
+    ``in_width`` is the width of the features the stack is given where it
+    differs from the schedule's (``UseFFT``'s spectrum): the first grid
+    conv takes it, as flax's ``nn.Conv`` infers its input width; a row conv
+    declares its width, as the JAX package's does."""
+
+    def __init__(self, specs: List[Tuple], generator: Optional[torch.Generator] = None,
+                 device=None, in_width: Optional[int] = None):
+        super().__init__()
+        self.specs = specs
+        self.row_path = _row_compatible(specs)
+        first = True
+        for i, spec in enumerate(specs):
+            op = spec[0]
+            if op in ("conv", "conv_keyed", "subm", "inv"):
+                cin = spec[1]
+                if first and in_width is not None and not self.row_path:
+                    cin = in_width
+                first = False
+            if op == "subm" and self.row_path:
+                layer = RowSubMConv2d(cin, spec[2], spec[3], generator, device)
+            elif op == "subm":
+                _, _, cout, k, p, key = spec
+                layer = SubMConv2d(cin, cout, k, 1, p, indice_key=key,
+                                   generator=generator, device=device)
+            elif op in ("conv", "conv_keyed"):
+                _, _, cout, k, s, p, d = spec[:7]
+                layer = SparseConv2d(cin, cout, k, s, p, d,
+                                     indice_key=spec[7] if op == "conv_keyed" else None,
+                                     generator=generator, device=device)
+            elif op == "inv":
+                _, _, cout, k, key = spec
+                layer = SparseInverseConv2d(cin, cout, k, indice_key=key,
+                                            generator=generator, device=device)
+            elif op == "bn":
+                layer = (MaskedArrayBatchNorm if self.row_path else MaskedBatchNorm)(
+                    spec[1], device=device)
+            elif op in ("relu", "dropout", "todense"):
+                continue
+            else:
+                raise ValueError(f"unknown spec op {op}")
+            self.add_module(f"l{i}", layer)
+
+    def plan_requirements(self) -> Set[str]:
+        """Neighbour plans the stack reads from ``batch.plans``: "k<K>"
+        per row conv window (none on the grid path)."""
+        if not self.row_path:
+            return set()
+        return {f"k{s[3]}" for s in self.specs if s[0] == "subm"}
+
+    def forward(self, g, return_rows: bool = False):
+        """A ``SparseBatch`` (or, on the grid path, a ``SparseGrid``)
+        through the stack. A row stack gives its rows ``[N, C]`` (zero at
+        padding rows) with ``return_rows``, else ``[B, C, NX, NY]`` through
+        a ``todense`` tail or a ``SparseGrid`` without one; a grid stack
+        gives what its last layer gives (rows gathered from it with
+        ``return_rows``). Dropout in train mode draws from the batch's
+        ``generator``."""
+        if isinstance(g, SparseBatch) and self.row_path:
+            return self._row_forward(g, return_rows)
+        batch = g if isinstance(g, SparseBatch) else None
+        generator = batch.generator if batch is not None else None
+        out = batch_to_grid(g) if batch is not None else g
+        for i, spec in enumerate(self.specs):
+            op = spec[0]
+            if op == "relu":
+                out = out.with_features(torch.relu(out.features))
+            elif op == "dropout":
+                out = out.with_features(dropout(out.features, spec[1], self.training,
+                                                generator))
+            elif op == "todense":
+                out = out.masked()
+            else:
+                out = getattr(self, f"l{i}")(out)
+        if return_rows:
+            if batch is None:
+                raise ValueError("return_rows needs a SparseBatch")
+            dense = out.masked() if isinstance(out, SparseGrid) else out
+            return gather_from_dense(dense.permute(0, 2, 3, 1), batch)
+        return out
+
+    def _row_forward(self, batch: SparseBatch, return_rows: bool):
+        x, mask = batch.feats, batch.mask
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        to_dense = False
+        for i, spec in enumerate(self.specs):
+            op = spec[0]
+            if op == "subm":
+                key = f"k{spec[3]}"
+                if key not in batch.plans:
+                    raise KeyError(f"batch.plans lacks the '{key}' neighbour plan; "
+                                   f"build batches with TaskBase.prepare_block")
+                x = getattr(self, f"l{i}")(x, batch.plans[key], mask)
+                zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            elif op == "bn":
+                x = torch.where(mask[:, None], getattr(self, f"l{i}")(x, mask), zero)
+            elif op == "relu":
+                x = torch.relu(x)
+            elif op == "dropout":
+                x = dropout(x, spec[1], self.training, batch.generator)
+            elif op == "todense":
+                to_dense = True
+        if return_rows:
+            return torch.where(mask[:, None], x, zero)
+        if to_dense:
+            return rows_to_dense(x, batch)
+        # a site-preserving stack gives the grid of its rows
+        return SparseGrid(rows_to_dense(x, batch), occupancy_mask(batch))
+
+
+class SparseConv2DForEZ(_SpecNet):
+    """(E, Z) per-segment conv stack, versions 0-3 of the schedule."""
 
     def __init__(self, in_planes: int, out_planes: int = 2, kernel_size: int = 3,
                  n_conv: int = 1, n_point: int = 3, conv_position: int = 3,
                  pointwise_factor: float = 0.8, batchnorm: bool = True,
                  version: int = 0, n_expand: int = 0,
-                 generator: Optional[torch.Generator] = None, device=None):
-        super().__init__()
-        self.specs = self.schedule(in_planes, out_planes, kernel_size, n_conv,
-                                   n_point, conv_position, pointwise_factor,
-                                   batchnorm, version, n_expand)
-        bad = sorted({s[0] for s in self.specs if s[0] not in _ROW_OPS})
-        if bad:
-            raise NotImplementedError(
-                f"layer kinds {bad} need the dense-grid sparse convs, which "
-                f"are not ported; use a SubM schedule (version >= 1)")
-        for i, spec in enumerate(self.specs):
-            if spec[0] == "subm":
-                _, cin, cout, k, _, _ = spec
-                self.add_module(f"l{i}", RowSubMConv2d(cin, cout, k, generator,
-                                                       device))
-            elif spec[0] == "bn":
-                self.add_module(f"l{i}", MaskedArrayBatchNorm(spec[1], device=device))
+                 generator: Optional[torch.Generator] = None, device=None,
+                 in_width: Optional[int] = None):
+        super().__init__(self.schedule(in_planes, out_planes, kernel_size, n_conv, n_point,
+                                       conv_position, pointwise_factor, batchnorm, version,
+                                       n_expand), generator, device, in_width)
 
     @staticmethod
     def schedule(in_planes, out_planes=2, kernel_size=3, n_conv=1, n_point=3,
@@ -160,28 +274,199 @@ class SparseConv2DForEZ(nn.Module):
         specs.append(("todense",))
         return specs
 
-    def plan_requirements(self) -> Set[str]:
-        """Neighbour plans the stack reads from ``batch.plans``: "k<K>"."""
-        return {f"k{s[3]}" for s in self.specs if s[0] == "subm"}
 
-    def forward(self, batch: SparseBatch) -> torch.Tensor:
-        """Active-row features ``[N, C_out]`` of the stack, zero at padding
-        rows (the dense ``todense`` tail is left to the caller)."""
-        x, mask = batch.feats, batch.mask
-        for i, spec in enumerate(self.specs):
-            if spec[0] == "subm":
-                key = f"k{spec[3]}"
-                if key not in batch.plans:
-                    raise KeyError(f"batch.plans lacks the '{key}' neighbour plan; "
-                                   f"build batches with TaskBase.prepare_block")
-                x = getattr(self, f"l{i}")(x, batch.plans[key], mask)
-            elif spec[0] == "bn":
-                x = getattr(self, f"l{i}")(x, mask)
-                x = torch.where(mask[:, None], x, torch.zeros((), dtype=x.dtype,
-                                                              device=x.device))
-            elif spec[0] == "relu":
-                x = torch.relu(x)
-            elif spec[0] == "dropout" and self.training:
-                raise NotImplementedError("dropout is ported in eval mode only")
-        return torch.where(mask[:, None], x, torch.zeros((), dtype=x.dtype,
-                                                         device=x.device))
+class SparseConv2DForZ(_SpecNet):
+    """Per-segment Z stack of regular sparse convs."""
+
+    def __init__(self, in_planes: int, kernel_size: int = 3, n_layers: int = 2,
+                 pointwise_layers: int = 0, pointwise_factor: float = 0.8,
+                 todense: bool = True, generator: Optional[torch.Generator] = None,
+                 device=None, in_width: Optional[int] = None):
+        super().__init__(self.schedule(in_planes, kernel_size, n_layers, pointwise_layers,
+                                       pointwise_factor, todense), generator, device, in_width)
+
+    @staticmethod
+    def schedule(in_planes, kernel_size=3, n_layers=2, pointwise_layers=0,
+                 pointwise_factor=0.8, todense=True) -> List[Tuple]:
+        if pointwise_layers > 0:
+            if n_layers == 1:
+                raise ValueError("n_layers must be > 1 if using pointwise convolution")
+            increment = int(round(int(round(in_planes * pointwise_factor))
+                                  / float(n_layers - 1)))
+        else:
+            increment = int(round(float(in_planes) / float(n_layers)))
+        if kernel_size % 2 != 1:
+            raise ValueError("Kernel size must be an odd integer")
+        if n_layers < 1:
+            raise ValueError("n_layers must be integer >= 1")
+        specs: List[Tuple] = []
+        out, inp = in_planes, in_planes
+        reset_kernel, orig_kernel, pw = False, kernel_size, pointwise_layers
+        k = kernel_size
+        for i in range(n_layers):
+            if i == n_layers - 1:
+                out = 1
+            else:
+                out -= increment
+                if i == 0 and pw > 0 and pointwise_factor > 0:
+                    out = int(round(pointwise_factor * in_planes))
+            pd = (k - 1) // 2
+            if pw > 0:
+                pd, k = 0, 1
+                pw -= 1
+                if pw == 0:
+                    reset_kernel = True
+            specs.append(("conv", inp, out, k, 1, pd, 1))
+            if reset_kernel:
+                k, reset_kernel = orig_kernel, False
+            if i != n_layers - 1:
+                specs.append(("bn", out))
+            specs.append(("relu",))
+            inp = out
+            if k > 1:
+                k -= 2
+        if todense:
+            specs.append(("todense",))
+        return specs
+
+
+class Pointwise2DForZ(_SpecNet):
+    """Per-segment Z stack of 1×1 regular sparse convs."""
+
+    def __init__(self, in_planes: int, pointwise_layers: int = 2,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 in_width: Optional[int] = None):
+        super().__init__(self.schedule(in_planes, pointwise_layers), generator, device,
+                         in_width)
+
+    @staticmethod
+    def schedule(in_planes, pointwise_layers=2) -> List[Tuple]:
+        n_layers = pointwise_layers
+        if n_layers < 2:
+            raise ValueError("n_layers must be integer >= 2")
+        increment = int(round(float(in_planes) / float(n_layers - 1)))
+        specs: List[Tuple] = []
+        out, inp = in_planes, in_planes
+        for i in range(n_layers):
+            if i == n_layers - 1:
+                out = 1
+            elif i == 0:
+                out = in_planes
+            else:
+                out -= increment
+            specs.append(("conv", inp, out, 1, 1, 0, 1))
+            specs.append(("bn", out))
+            specs.append(("relu",))
+            inp = out
+        specs.append(("todense",))
+        return specs
+
+
+class SparseConv2DPreserve(_SpecNet):
+    """Size-preserving sparse stack giving per-site features: version 0
+    pairs each regular conv with an inverse conv by indice key (the grid
+    path), versions 1-2 are SubM chains (the row path)."""
+
+    def __init__(self, nin: int, nout: int, n: int = 1, size_factor: int = 3,
+                 pad_factor: float = 0.0, stride_factor: float = 1, dil_factor: float = 1,
+                 pointwise_factor: float = 0, dropout: float = 0,
+                 expansion_factor: float = 0, n_expansion: int = 0, version: int = 0,
+                 n_contraction: int = 1, filter_multiplier: float = 1.0,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 in_width: Optional[int] = None):
+        super().__init__(self.schedule(nin, nout, n, size_factor, pad_factor, stride_factor,
+                                       dil_factor, pointwise_factor, dropout,
+                                       expansion_factor, n_expansion, version,
+                                       n_contraction, filter_multiplier),
+                         generator, device, in_width)
+
+    @staticmethod
+    def schedule(nin, nout, n=1, size_factor=3, pad_factor=0.0, stride_factor=1,
+                 dil_factor=1, pointwise_factor=0, dropout=0,
+                 expansion_factor=0, n_expansion=0, version=0,
+                 n_contraction=1, filter_multiplier=1.0) -> List[Tuple]:
+        specs: List[Tuple] = []
+        if version == 0:
+            if pointwise_factor > 0:
+                n_contr = n - 1 - n_expansion
+                if n_contr < 1:
+                    raise ValueError("n_contraction too large, must be < n - 1")
+            else:
+                n_contr = n - n_expansion
+                if n_contr < 1:
+                    raise ValueError("n_contraction too large, must be < n")
+            nframes = [nin]
+            if pointwise_factor > 0:
+                nframes.append(nin - int(floor((nin - nout) * pointwise_factor)))
+            if n_expansion > 0:
+                nframes += get_frame_expansion(nframes[-1], expansion_factor, n_expansion)
+            if n_contr > 0:
+                nframes += get_frame_contraction(nframes[-1], nout, n_contr)
+            nframes[-1] = nout
+            for i in range(n):
+                if pointwise_factor > 0:
+                    decay = 1.0 - (i - 1) / (n - 1) if n > 1 else 1.0
+                else:
+                    decay = 1.0 - i / (n - 1) if n > 1 else 1.0
+                fs = max(2, int(ceil(size_factor * decay)))
+                st = max(1, int(round(stride_factor * i / (n - 1))) if n > 1 else 1)
+                dil = int(round(dil_factor ** i))
+                pd = int(round(pad_factor * ((fs - 1) / 2.0) * dil_factor * decay))
+                if i == 0 and pointwise_factor > 0:
+                    pd, fs, dil, st = 0, 1, 1, 1
+                key = f"ind_{i}"
+                specs.append(("conv_keyed", nframes[i], nframes[i + 1], fs, st, pd, dil, key))
+                specs.append(("inv", nframes[i + 1], nframes[i + 1], fs, key))
+                specs.append(("bn", nframes[i + 1]))
+                specs.append(("relu",))
+                if dropout:
+                    specs.append(("dropout", float(dropout)))
+            return specs
+
+        # versions 1, 2: SubM chains
+        ntot = n_contraction + n_expansion
+        n_exp = n_expansion - 1 if pointwise_factor > 0 else n_expansion
+        if ntot < 1:
+            raise ValueError("n_contraction + n_expansion must be >=1")
+        if size_factor % 2 != 1:
+            raise ValueError("size factor must be odd if version >= 1")
+        nframes = [nin]
+        if pointwise_factor > 0:
+            nframes.append(int(nin * pointwise_factor))
+        if n_exp > 0:
+            nframes += get_frame_expansion(nframes[-1], expansion_factor, n_exp)
+        if n_contraction > 0:
+            nframes += get_frame_contraction(nframes[-1], nout, n_contraction)
+        nframes[-1] = nout
+        for i in range(ntot):
+            if version == 1:
+                if pointwise_factor > 0:
+                    decay = 1.0 - (i - 1) / (ntot - 1) if ntot > 1 else 1.0
+                else:
+                    decay = 1.0 - i / (ntot - 1) if ntot > 1 else 1.0
+                fs = int(ceil(size_factor * decay))
+            else:  # version 2: multiplicative filter growth, round to odd
+                new_filter = size_factor * (filter_multiplier ** i)
+                r = int(round(new_filter))
+                if r % 2 == 0:
+                    fs = int(ceil(new_filter)) if r - new_filter > 0 else int(floor(new_filter))
+                else:
+                    fs = int(floor(new_filter)) if r - new_filter > 0 else int(ceil(new_filter))
+            if fs % 2 != 1:
+                fs -= 1
+            fs = max(3, fs)
+            pd = (fs - 1) // 2
+            if i == 0 and pointwise_factor > 0:
+                pd, fs = 0, 1
+                key = "ind_0" if version == 1 else "subm0"
+            else:
+                if version == 1:
+                    key = f"ind_{fs}" if fs > 3 else "ind_0"
+                else:
+                    key = "subm0" if fs < 4 else f"subm{fs}"
+            specs.append(("subm", nframes[i], nframes[i + 1], fs, pd, key))
+            specs.append(("bn", nframes[i + 1]))
+            specs.append(("relu",))
+            if dropout:
+                specs.append(("dropout", float(dropout)))
+        return specs

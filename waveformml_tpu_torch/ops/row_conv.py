@@ -25,6 +25,7 @@ import torch
 
 from waveformml_tpu_torch.detector import NX, NY
 from waveformml_tpu_torch.ops import native
+from waveformml_tpu_torch.ops.sparse import SparseBatch, scatter_to_dense
 
 
 def host_neighbor_plan(coords: np.ndarray, mask: np.ndarray, n_events: int,
@@ -59,6 +60,14 @@ def host_neighbor_plan(coords: np.ndarray, mask: np.ndarray, n_events: int,
     plan = lut[site]
     plan[~valid] = -1
     return plan
+
+
+def rows_to_dense(rows: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
+    """A stack's final rows ``[N, C]`` on the dense grid in the JAX
+    package's ``[B, C, NX, NY]`` order (two rows at one site summed), as a
+    channels-last view of the scatter: only the final channel count pays
+    for the scatter."""
+    return scatter_to_dense(batch, rows).permute(0, 3, 1, 2)
 
 
 def subm_conv_rows_plain(feats: torch.Tensor, plan: torch.Tensor,

@@ -3,6 +3,9 @@
 A batch of events is ``[N, 3]`` int32 coords (x, y, event), ``[N, F]``
 features and an ``[N]`` bool mask, padded to a bucketed ``N`` so that the
 number of distinct shapes stays small. The host-side helpers are numpy.
+The dense-grid helpers (``scatter_to_dense``, ``occupancy_mask``,
+``gather_from_dense``) move rows to and from the ``[B, NX, NY, F]``
+detector grid on the device.
 """
 from __future__ import annotations
 
@@ -12,19 +15,24 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from waveformml_tpu_torch.detector import NX, NY
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseBatch:
     """coords [N, 3] int32 (x, y, event; padding rows 0), feats [N, F],
     mask [N] bool (True for real rows), ``n_events`` the padded event count,
     and ``plans``: the host-built ``{"k3": [N, 9] int32, "k1": ...,
-    "site_take": [S, MAX] int32, ...}`` the row convs and the head consume."""
+    "site_take": [S, MAX] int32, ...}`` the row convs and the head consume;
+    ``generator`` the random stream that dropout draws from in train mode
+    (None in eval mode)."""
 
     coords: torch.Tensor
     feats: torch.Tensor
     mask: torch.Tensor
     n_events: int
     plans: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    generator: Optional[torch.Generator] = None
 
 
 def bucket_size(n: int, buckets: Tuple[int, ...] = (
@@ -67,3 +75,57 @@ def consecutive_event_index(event_col: np.ndarray) -> np.ndarray:
     change = np.ones(ev.shape[0], dtype=np.int64)
     change[1:] = (ev[1:] != ev[:-1]).astype(np.int64)
     return np.cumsum(change) - 1
+
+
+# -- the dense [B, NX, NY, F] grid of a batch -------------------------------------
+
+def flat_site(batch: SparseBatch) -> torch.Tensor:
+    """Each row's (event, x, y) index into a flat ``[B·NX·NY]`` grid, int64;
+    padding rows, and rows outside the grid, get ``B·NX·NY``, one past its
+    end, where the scatters below drop them."""
+    c = batch.coords.long()
+    size = batch.n_events * NX * NY
+    idx = c[:, -1] * (NX * NY) + c[:, 0] * NY + c[:, 1]
+    keep = batch.mask & (idx >= 0) & (idx < size)
+    return torch.where(keep, idx, torch.full_like(idx, size))
+
+
+def scatter_to_dense(batch: SparseBatch, feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The batch's features (or ``feats``, ``[N, F]``) on the dense grid,
+    ``[B, NX, NY, F]``: two rows of one event at one site are summed,
+    padding rows dropped."""
+    f = batch.feats if feats is None else feats
+    size = batch.n_events * NX * NY
+    src = torch.where(batch.mask[:, None], f, torch.zeros((), dtype=f.dtype, device=f.device))
+    flat = f.new_zeros(size + 1, f.shape[-1]).index_add(0, flat_site(batch), src)
+    return flat[:size].view(batch.n_events, NX, NY, f.shape[-1])
+
+
+def occupancy_mask(batch: SparseBatch) -> torch.Tensor:
+    """``[B, NX, NY]`` bool, True at every site that holds a real row."""
+    size = batch.n_events * NX * NY
+    occ = torch.zeros(size + 1, dtype=torch.bool, device=batch.mask.device)
+    occ.index_fill_(0, flat_site(batch), True)
+    return occ[:size].view(batch.n_events, NX, NY)
+
+
+def gather_from_dense(dense: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
+    """The values of a dense ``[B, NX, NY, F]`` grid at the batch's rows,
+    ``[N, F]``, zero at padding rows. Two rows at one site both read the
+    site's value (after ``scatter_to_dense``, their sum)."""
+    b, _, _, f = dense.shape
+    size = b * NX * NY
+    idx = torch.where(batch.mask, flat_site(batch).clamp(max=size - 1),
+                      torch.zeros((), dtype=torch.long, device=dense.device))
+    out = dense.reshape(size, f)[idx]
+    return torch.where(batch.mask[:, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def swap_sparse_from_dense(sparse_out: np.ndarray, dense: np.ndarray,
+                           coords: np.ndarray) -> None:
+    """Write dense per-site values ``[B, NX, NY(, ...)]`` back into a column
+    of rows in coordinate order, in place; the dense batch index is the
+    count of distinct consecutive event ids, not the event number."""
+    b = consecutive_event_index(coords[:, -1])
+    sparse_out[:] = dense[b, coords[:, 0].astype(np.int64), coords[:, 1].astype(np.int64)]

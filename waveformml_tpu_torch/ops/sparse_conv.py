@@ -1,0 +1,370 @@
+"""Sparse convolution on the dense detector grid with spconv's occupancy
+semantics (counterpart of waveformml_tpu/ops/sparse_conv.py, 2D).
+
+The detector grid is 14×11 sites, so a batch densifies to a small
+``[B, C, NX, NY]`` block and the sparse semantics become occupancy-mask
+algebra around ordinary convolutions:
+
+* ``SubMConv2d``: output sites are the input sites; with zeros at empty
+  sites the dense conv over the window equals the sparse sum, so
+  ``(conv(x) + bias)·occ`` is exact.
+* ``SparseConv2d``: output sites are those whose window holds an active
+  input (``dilate_occupancy``, a ones-kernel conv of the occupancy).
+* ``SparseInverseConv2d``: the transposed conv of the forward conv paired
+  with it by ``indice_key``, restoring the occupancy saved under that key.
+* ``MaskedBatchNorm``: BatchNorm statistics over the active sites only.
+
+The grid holds its features in PyTorch's ``[B, C, NX, NY]`` order (the
+order the JAX package's ``ToDense`` and every flatten produce), usually as
+a channels-last view of the row scatter. The JAX package computes these
+convs with XLA's own convolution (``lax.conv_general_dilated``), not a
+Pallas kernel, so the port computes them with PyTorch's (cuDNN on the
+card), in float32: ``conv`` switches cuDNN's TF32 off around each conv, in
+the forward and in the backward, whatever the process has set
+(``ieee_fp32_convs``).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_normal_
+from waveformml_tpu_torch.ops.sparse import SparseBatch, occupancy_mask, scatter_to_dense
+from waveformml_tpu_torch.registry import registry
+
+IntPair = Union[int, Sequence[int]]
+Geometry = Tuple[Tuple[int, ...], ...]     # (kernel, stride, padding, dilation)
+
+
+def _pair(v: IntPair) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        if len(v) != 2:
+            raise ValueError(f"expected 2 values, got {v}")
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+@contextlib.contextmanager
+def ieee_fp32_convs():
+    """cuDNN's float32 convolutions in full float32 (no TF32) inside the
+    block, through the precision API the installed PyTorch has; the
+    process's setting is restored after it."""
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        saved = conv.fp32_precision
+        conv.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            conv.fp32_precision = saved
+    else:
+        saved = cudnn.allow_tf32
+        cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32 = saved
+
+
+class _Conv(torch.autograd.Function):
+    """``aten.convolution`` (regular or transposed) and its backward, each
+    inside ``ieee_fp32_convs``: autograd runs the backward later, outside
+    any block the forward ran in, so the backward sets the precision
+    itself."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, transposed):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (stride, padding, dilation, transposed)
+        ctx.has_bias = bias is not None
+        with ieee_fp32_convs():
+            return torch.ops.aten.convolution(x, weight, bias, stride, padding, dilation,
+                                              transposed, [0, 0], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, transposed = ctx.geometry
+        cout = weight.shape[1] if transposed else weight.shape[0]
+        need = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.has_bias and ctx.needs_input_grad[2]]
+        with ieee_fp32_convs():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, weight, [cout] if ctx.has_bias else None, stride, padding, dilation,
+                transposed, [0, 0], 1, need)
+        return dx, dw, db, None, None, None, None
+
+
+def conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+         stride=(1, 1), padding=(0, 0), dilation=(1, 1), transposed: bool = False
+         ) -> torch.Tensor:
+    """A 2D convolution of ``x [B, Cin, H, W]`` in float32 without TF32,
+    forward and backward: weight ``[Cout, Cin, kh, kw]``, or ``[Cin, Cout,
+    kh, kw]`` where ``transposed``; the weight and bias are cast to x's
+    dtype, as the JAX package's convs compute in their input's dtype."""
+    w = weight.to(x.dtype)
+    b = bias.to(x.dtype) if bias is not None else None
+    return _Conv.apply(x, w, b, list(stride), list(padding), list(dilation), transposed)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseGrid:
+    """A sparse batch on the dense grid: ``features [B, C, NX, NY]`` (zeros
+    off the occupancy), ``occupancy [B, NX, NY]`` bool, and per
+    ``indice_key`` the occupancy saved by the conv that recorded it
+    (``indice_occ``) and that conv's geometry (``indice_geom``: kernel,
+    stride, padding, dilation), which the paired inverse conv reads."""
+
+    features: torch.Tensor
+    occupancy: torch.Tensor
+    indice_occ: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    indice_geom: Dict[str, Geometry] = dataclasses.field(default_factory=dict)
+
+    def with_features(self, f: torch.Tensor, save_key: Optional[str] = None,
+                      save_geom: Optional[Geometry] = None) -> "SparseGrid":
+        """This grid with features ``f``; with ``save_key``, its occupancy
+        (and ``save_geom``) saved under that key."""
+        keys, geoms = dict(self.indice_occ), dict(self.indice_geom)
+        if save_key is not None:
+            keys[save_key] = self.occupancy
+            if save_geom is not None:
+                geoms[save_key] = save_geom
+        return SparseGrid(f, self.occupancy, keys, geoms)
+
+    def masked(self) -> torch.Tensor:
+        """The features with zeros enforced off the occupancy."""
+        return self.features * self.occupancy[:, None].to(self.features.dtype)
+
+
+def batch_to_grid(batch: SparseBatch, feats: Optional[torch.Tensor] = None) -> SparseGrid:
+    """A ``SparseBatch`` (or its rows ``feats``) as a ``SparseGrid`` (the
+    ``spconv.SparseConvTensor`` of the reference); the features are a
+    channels-last view of the scatter."""
+    return SparseGrid(scatter_to_dense(batch, feats).permute(0, 3, 1, 2),
+                      occupancy_mask(batch))
+
+
+def dilate_occupancy(occ: torch.Tensor, kernel_size: IntPair, stride: IntPair,
+                     padding: IntPair, dilation: IntPair) -> torch.Tensor:
+    """The occupancy ``[B, H, W]`` after a regular sparse conv: an output
+    site is active where its window holds an active input site."""
+    k = _pair(kernel_size)
+    ones = torch.ones((1, 1) + k, dtype=torch.float32, device=occ.device)
+    y = conv(occ[:, None].to(torch.float32), ones, None, _pair(stride), _pair(padding),
+             _pair(dilation))
+    return y[:, 0] > 0.5
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - rate`` (drawn from ``generator``, which train mode
+    needs) and scaled by ``1 / (1 - rate)``; zeros stay zero. Identity in
+    eval mode or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs an explicit torch.Generator "
+                         "(the Trainer passes its own)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _ConvParams(nn.Module):
+    """The parameters of one grid conv, as the JAX package's inner
+    ``nn.Conv`` named "conv" holds them: weight ``[Cout, Cin, kh, kw]``
+    (flax's ``[kh, kw, Cin, Cout]`` transposed, ``convert.py``), bias
+    ``[Cout]``; lecun-normal weight, zero bias."""
+
+    def __init__(self, cin: int, cout: int, k: Tuple[int, int], use_bias: bool,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((cout, cin) + k, device=device))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) if use_bias else None
+        lecun_normal_(self.weight, cin * k[0] * k[1], generator)
+
+
+@registry.register("spconv.SubMConv2d", aliases=("SubMConv2d",))
+class SubMConv2d(nn.Module):
+    """Submanifold sparse conv on the grid: stride 1, padded to keep the
+    size, the output masked by the input's occupancy (which it keeps)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
+                 stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1,
+                 use_bias: bool = True, indice_key: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.kernel_size, self.dilation = _pair(kernel_size), _pair(dilation)
+        self.indice_key = indice_key
+        self.conv = _ConvParams(in_channels, out_channels, self.kernel_size, use_bias,
+                                generator, device)
+
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        k, d = self.kernel_size, self.dilation
+        # spconv pads a SubM conv to keep the size, whatever padding it got
+        p = tuple(((ki - 1) * di) // 2 for ki, di in zip(k, d))
+        y = conv(g.masked(), self.conv.weight, self.conv.bias, (1, 1), p, d)
+        y = y * g.occupancy[:, None].to(y.dtype)
+        return g.with_features(y, save_key=self.indice_key, save_geom=(k, (1, 1), p, d))
+
+
+@registry.register("spconv.SparseConv2d", aliases=("SparseConv2d",))
+class SparseConv2d(nn.Module):
+    """Regular sparse conv on the grid: the occupancy dilates (and strides
+    down) and masks the output; with ``indice_key`` the input's occupancy
+    and this conv's geometry are saved for the paired inverse conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
+                 stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1,
+                 use_bias: bool = True, indice_key: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.kernel_size, self.stride = _pair(kernel_size), _pair(stride)
+        self.padding, self.dilation = _pair(padding), _pair(dilation)
+        self.indice_key = indice_key
+        self.conv = _ConvParams(in_channels, out_channels, self.kernel_size, use_bias,
+                                generator, device)
+
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        k, s, p, d = self.kernel_size, self.stride, self.padding, self.dilation
+        y = conv(g.masked(), self.conv.weight, self.conv.bias, s, p, d)
+        new_occ = dilate_occupancy(g.occupancy, k, s, p, d)
+        y = y * new_occ[:, None].to(y.dtype)
+        keys, geoms = dict(g.indice_occ), dict(g.indice_geom)
+        if self.indice_key is not None:
+            keys[self.indice_key] = g.occupancy
+            geoms[self.indice_key] = (k, s, p, d)
+        return SparseGrid(y, new_occ, keys, geoms)
+
+
+@registry.register("spconv.SparseInverseConv2d", aliases=("SparseInverseConv2d",))
+class SparseInverseConv2d(nn.Module):
+    """The transposed conv of the forward conv paired by ``indice_key``,
+    restoring the occupancy (and size) saved under that key:
+    ``out[i] = Σ_{j, t: i = j·s + t·d − p} w[t]·x[j]`` with the paired
+    conv's stride s, padding p and dilation d (a stride-1 "same" pairing
+    where the key has no recorded geometry).
+
+    Weight ``[Cin, Cout, kh, kw]`` (``conv_transpose2d``'s layout: the JAX
+    package's ``kernel [kh, kw, Cin, Cout]``, which its forward flips,
+    unflipped and transposed, ``convert.py``), bias ``[Cout]``. The conv
+    runs without padding, over the whole span ``(o − 1)·s + d·(k − 1) + 1``
+    of each axis, and positions ``p .. p + target`` of it are kept, zeros
+    appended where the target is longer: that covers the floor-cut tail of
+    a strided pairing, which ``conv_transpose2d``'s ``output_padding`` can
+    express only below ``max(s, d)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
+                 indice_key: str = "", use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.kernel_size = _pair(kernel_size)
+        self.indice_key = indice_key
+        k = self.kernel_size
+        self.weight = nn.Parameter(torch.empty((in_channels, out_channels) + k, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device)) if use_bias else None
+        lecun_normal_(self.weight, in_channels * k[0] * k[1], generator)
+
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        if self.indice_key not in g.indice_occ:
+            raise ValueError(f"indice_key '{self.indice_key}' not found; have "
+                             f"{list(g.indice_occ)}")
+        prev_occ = g.indice_occ[self.indice_key]
+        k = self.kernel_size
+        geom = g.indice_geom.get(self.indice_key)
+        if geom is None:
+            s, p, d = (1, 1), tuple((ki - 1) // 2 for ki in k), (1, 1)
+        else:
+            k_f, s, p, d = geom
+            if tuple(k_f) != k:
+                raise ValueError(f"kernel_size {k} != paired conv kernel {tuple(k_f)} for "
+                                 f"indice_key '{self.indice_key}' (spconv requires them equal)")
+        y = conv(g.masked(), self.weight, None, s, (0, 0), d, transposed=True)
+        for axis, (pi, target) in enumerate(zip(p, prev_occ.shape[1:])):
+            dim = 2 + axis
+            y = y.narrow(dim, pi, max(0, min(target, y.shape[dim] - pi)))
+            if y.shape[dim] < target:
+                pad = [0, 0] * (y.dim() - dim - 1) + [0, target - y.shape[dim]]
+                y = nn.functional.pad(y, pad)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        y = y * prev_occ[:, None].to(y.dtype)
+        return SparseGrid(y, prev_occ, dict(g.indice_occ), dict(g.indice_geom))
+
+
+class MaskedBatchNorm(MaskedArrayBatchNorm):
+    """BatchNorm over the grid's active sites only (spconv's BatchNorm1d
+    over the active rows): the statistics of ``MaskedArrayBatchNorm`` (in
+    float32, the running variance unbiased) over the sites as rows, the
+    output masked by the occupancy."""
+
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        x = g.features
+        c = x.shape[1]
+        rows = x.permute(0, 2, 3, 1).reshape(-1, c)
+        y = super().forward(rows, g.occupancy.reshape(-1))
+        y = y.view(x.shape[0], *x.shape[2:], c).permute(0, 3, 1, 2)
+        return g.with_features(y * g.occupancy[:, None].to(y.dtype))
+
+
+class SparseReLU(nn.Module):
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        return g.with_features(torch.relu(g.features))
+
+
+class SparseDropout(nn.Module):
+    """``dropout`` over the grid's features (zeros stay zero, so no
+    re-mask); train mode draws from the ``generator`` it is given."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        return g.with_features(dropout(g.features, self.rate, self.training, generator))
+
+
+class SparseActivation(nn.Module):
+    """Any elementwise activation over the grid, re-masked after it (an
+    activation with f(0) != 0 must not light up empty sites)."""
+
+    def __init__(self, fn: Any):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        return g.with_features(self.fn(g.features) * g.occupancy[:, None].to(g.features.dtype))
+
+
+@registry.register("spconv.ToDense", aliases=("ToDense", "sparseconvnet.SparseToDense"))
+class ToDense(nn.Module):
+    """``spconv.ToDense``: the masked features, ``[B, C, NX, NY]``."""
+
+    def forward(self, g: SparseGrid, generator=None) -> torch.Tensor:
+        return g.masked()
+
+
+@registry.register("spconv.SparseSequential",
+                   aliases=("SparseSequential", "sparseconvnet.Sequential"))
+class SparseSequential(nn.Module):
+    """The layers in order (``spconv.SparseSequential``), named
+    ``layers_<i>`` as flax names a module's list of submodules."""
+
+    def __init__(self, layers: Sequence[nn.Module]):
+        super().__init__()
+        self.n = len(layers)
+        for i, layer in enumerate(layers):
+            self.add_module(f"layers_{i}", layer)
+
+    def forward(self, g, generator=None):
+        for i in range(self.n):
+            g = getattr(self, f"layers_{i}")(g, generator)
+        return g
+

@@ -50,9 +50,10 @@ registry = Registry()
 
 def retrieve_class(name: str) -> Any:
     """Resolve a config class name after importing the modules whose import
-    registers the port's classes (models, tasks, criteria, optimizers,
-    schedulers, datasets and data modules)."""
+    registers the port's classes (models, the grid ops' spconv names,
+    tasks, criteria, optimizers, schedulers, datasets and data modules)."""
     for mod in ("waveformml_tpu_torch.models.nets",
+                "waveformml_tpu_torch.ops.sparse_conv",
                 "waveformml_tpu_torch.engineering.tasks",
                 "waveformml_tpu_torch.nn.functional",
                 "waveformml_tpu_torch.optim",
