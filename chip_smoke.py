@@ -82,7 +82,21 @@ order, it:
    the plain versions on the card, K1's and K4's launches asserted; then
    the CLI over SingleEndedZCNN.json, 2 epochs and a test, over in-memory
    blocks;
-10. prints one JSON line describing every kernel (launches: those of the
+10. runs the prediction writers on the card, each through its own pipeline
+   (prefetch reader, dispatch, three fetch workers, table writer; the HDF5
+   reader and table writer replaced by the in-memory stand-ins of
+   ``datasets/synthetic.py``, saying so), over 32 read chunks of seeded
+   records made as the synthetic HDF5 writers make them, the last one
+   short (a layout first captured under the running pipeline): Z with a
+   calgroup (SingleEndedZCNN.json at 65 samples, the gains and the per-row
+   gather on the card) and without, IRN (SubMPSD.json, 3 outputs: K1, K2),
+   IRNIM in swap and PhysPulse modes (SegQuantifier.json's net as a
+   5-class ``LitSegClassifier``: K1) and ZAndClass (both, back to back);
+   first a capture of a new layout while another thread makes CUDA calls
+   throughout it; each writer's rows held to its run with
+   ``device="cpu"``, its launches from replays asserted and its rows/s,
+   events/s, stage seconds, dispatch phases, graphs and replays printed;
+11. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the features path; K1 and K4 also at
    SegQuantifier.json's widths, with its training run's launches), the
    card line again, and as its last line ``{"ok": true, "device": {...}}``.
@@ -184,6 +198,12 @@ HALF_LOSS_RTOL = 1e-3
 # files of this many events a class, and the splits' events a class
 CLI_FILES, CLI_EVENTS_PER_FILE = 4, 512
 CLI_SPLITS = {"n_train": 1024, "n_validate": 512, "n_test": 512, "shuffled_size": 1024}
+# writer phase: read chunks each writer streams (2048 rows a read, 1024 for
+# ZAndClass, as shipped), the last one a short chunk of about this many rows
+# (a new layout); events of records made (about 2.5 rows an event); the
+# synthetic calibration database's group
+WRITER_READS, WRITER_TAIL_ROWS, WRITER_EVENTS = 32, 320, 26500
+WRITER_CALGROUP = "smokecal"
 
 
 def card_line() -> str:
@@ -1647,6 +1667,445 @@ def run_cli(config_path, train, val, fit_keys, test_keys, kernels, hdf5_dirs=Tru
               f"fit {printed['fit']}; test {printed['test']}", flush=True)
 
 
+# -- the prediction writers ------------------------------------------------------------
+
+def writer_configs(tmp: str) -> dict:
+    """The writers' configs, each from a shipped one with only what the
+    records force changed, written into ``tmp``: name → path. Z:
+    SingleEndedZCNN.json at 65 samples (the records' 130 int16 samples a
+    row), and a copy whose dataset class reads WaveformPairNorm; IRN:
+    SubMPSD.json with ``n_type`` 3 (the three columns ``phys[:, 4:7]``);
+    IRNIM: SegQuantifier.json's net as ``LitSegClassifier`` with
+    ``CrossEntropyLoss`` and ``n_type`` 5 (the five class scores), its
+    dataset class reading WaveformPairNorm."""
+    with open(CONFIG_Z) as f:
+        z = json.load(f)
+    z["system_config"]["n_samples"] = 65
+    z_norm = copy.deepcopy(z)
+    z_norm["dataset_config"]["dataset_class"] = "PulseDatasetWFPairNorm"
+    with open(CONFIG) as f:
+        irn = json.load(f)
+    irn["system_config"].update(n_type=3, type_names=["phys4", "phys5", "phys6"])
+    with open(CONFIG_SEGQ) as f:
+        irnim = json.load(f)
+    irnim["run_config"]["run_class"] = "LitSegClassifier"
+    irnim["net_config"]["criterion_class"] = "CrossEntropyLoss"
+    irnim["system_config"].update(n_type=5, type_names=["ioni", "recoil", "ncap", "ingress",
+                                                        "muon"])
+    irnim["dataset_config"]["dataset_class"] = "PulseDatasetWFPairNorm"
+    paths = {}
+    for name, cfg in (("z", z), ("z_norm", z_norm), ("irn", irn), ("irnim", irnim)):
+        paths[name] = os.path.join(tmp, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(cfg, f)
+    return paths
+
+
+def stream_prefix(records, record_type, read: int, reads: int, tail_rows: int):
+    """The records of ``reads`` read chunks of ``read`` rows, as the
+    writers' reader cuts them at event boundaries, the last one a short
+    chunk of about ``tail_rows`` rows (whole events)."""
+    from waveformml_tpu_torch.datasets.synthetic import MemoryInput
+
+    inp = MemoryInput("prefix", {record_type.name: records})
+    inp.setup_table(record_type.name, record_type.type, record_type.event_index_name,
+                    event_index_coord=record_type.event_index_coord)
+    rows = 0
+    for i, chunk in enumerate(inp.iter_chunks(read, preserve_event="truncate")):
+        if i == reads - 1:
+            break
+        rows += chunk.shape[0]
+    ev = inp._event_numbers(records)
+    end = rows + tail_rows
+    while end < len(records) and ev[end] == ev[end - 1]:
+        end += 1
+    assert end < len(records), (end, len(records))
+    return records[:end]
+
+
+class PipelineWatch:
+    """Wraps an ``InferenceModel``'s ``dispatch``, ``fetch`` and
+    ``_capture`` to count dispatched and fetched chunks (the fetches run
+    on the writer's worker threads) and, at each capture of a new layout,
+    the chunks then in flight."""
+
+    def __init__(self, model):
+        import threading
+
+        self.lock = threading.Lock()
+        self.dispatched = self.fetched = 0
+        self.in_flight_at_capture = []
+        dispatch, fetch, capture = model.dispatch, model.fetch, model._capture
+
+        def counted_dispatch(*args):
+            handle = dispatch(*args)
+            with self.lock:
+                self.dispatched += 1
+            return handle
+
+        def counted_fetch(handle):
+            out = fetch(handle)
+            with self.lock:
+                self.fetched += 1
+            return out
+
+        def counted_capture(*args):
+            with self.lock:
+                self.in_flight_at_capture.append(self.dispatched - self.fetched)
+            return capture(*args)
+
+        model.dispatch, model.fetch, model._capture = counted_dispatch, counted_fetch, \
+            counted_capture
+
+
+def reference64(cfg_path: str, ckpt: str, coords, feats, read: int = 2048) -> np.ndarray:
+    """A model's outputs over a stream of rows on the CPU with its
+    parameters and features in float64 (rounded to float32 at the end, as
+    ``apply_model`` returns them), in chunks of whole events: ``[N, C]``
+    a row for per-row models, the Z map's value at each row (``[N]``) for
+    the Z models. Every output depends on its own event's rows only."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.ops.sparse import consecutive_event_index
+    from waveformml_tpu_torch.registry import retrieve_class
+
+    cfg = load_config(cfg_path)
+    task = retrieve_class(cfg.run_config.run_class)(cfg, "cpu")
+    task.model.load_state_dict(torch.load(ckpt, weights_only=True))
+    task.model.double().eval()
+    ev = consecutive_event_index(coords[:, -1])
+    out, lo = [], 0
+    while lo < len(ev):
+        hi = min(lo + read, len(ev))
+        while hi < len(ev) and ev[hi] == ev[hi - 1]:
+            hi += 1
+        c = coords[lo:hi].astype(np.int32)
+        c[:, -1] = ev[lo:hi] - ev[lo]
+        block = FileBlock(c, np.asarray(feats[lo:hi], np.float64),
+                          np.zeros(hi - lo, np.float32))
+        db = task.to_device(task.prepare_block(block, task.row_bucket(block),
+                                               task.event_bucket(block)))
+        db = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+              for k, v in db.items()}
+        with torch.no_grad():
+            o = task.apply_model(db).numpy()
+        out.append(o[c[:, -1], 0, c[:, 0], c[:, 1]] if o.ndim == 4 else o[:hi - lo])
+        lo = hi
+    return np.concatenate(out)
+
+
+def compare_writer_rows(got, want, inp, kind: str, scores=None, z=None):
+    """A writer's rows on the card (``got``) against its CPU run
+    (``want``): the same rows in the same order, every field the writer
+    copies equal, the random fields of PhysPulse records in [0, 1) on the
+    rows that draw them and equal elsewhere. The model's outputs in the
+    fields it writes (a z as the model's own output, z /
+    Z_NORMALIZATION_FACTOR + 0.5; a row's scores together): where its
+    float64 outputs are given (``scores`` a row, ``z`` a row), the card's
+    and the CPU's each against them, else the card's against the CPU's,
+    within LOGIT_ATOL plus LOGIT_RTOL times the largest |output| of the
+    row (for one output a row, the output itself). Returns (largest |card
+    - reference|, largest |card - CPU|, outputs where card and CPU differ
+    by more than LOGIT_ATOL plus LOGIT_RTOL times the output itself)."""
+    from waveformml_tpu_torch.detector import Z_NORMALIZATION_FACTOR
+    from waveformml_tpu_torch.engineering.se_mask import seg_status_maps
+
+    stats = [0.0, 0.0, 0]
+
+    def same(a, b, label):
+        assert np.ascontiguousarray(a).tobytes() == np.ascontiguousarray(b).tobytes(), label
+
+    def close(a, b, ref, label, scale=1.0, offset=0.0):
+        a = np.asarray(a, np.float64) / scale + offset
+        b = np.asarray(b, np.float64) / scale + offset
+        assert np.isfinite(a).all() and np.isfinite(b).all(), label
+        if a.size == 0:
+            return
+        want = b if ref is None else np.asarray(ref, np.float64).reshape(a.shape)
+        mag = np.abs(want).reshape(len(want), -1).max(1).reshape((-1,) + (1,) * (a.ndim - 1))
+        tol = LOGIT_ATOL + LOGIT_RTOL * mag
+        for x, who in ((a, "card"), (b, "CPU"))[:1 if ref is None else 2]:
+            err = np.abs(x - want)
+            assert (err <= tol).all(), (
+                f"{label}: the {who}'s outputs against {'the CPU' if ref is None else 'float64'}: "
+                f"{int((err > tol).sum())} of {err.size} beyond tolerance, largest |difference| "
+                f"{float(err.max()):.3g}")
+        stats[0] = max(stats[0], float(np.abs(a - want).max()))
+        stats[1] = max(stats[1], float(np.abs(a - b).max()))
+        stats[2] += int((np.abs(a - b) > LOGIT_ATOL + LOGIT_RTOL * np.abs(b)).sum())
+
+    assert got.dtype == want.dtype and got.shape == want.shape == inp.shape
+    if kind != "phys":
+        field, cols, scale, offset = {"z": ("EZ", [1], Z_NORMALIZATION_FACTOR, 0.5),
+                                      "irn": ("phys", [4, 5, 6], 1.0, 0.0),
+                                      "irnim": ("phys", [2, 3, 4, 5, 6], 1.0, 0.0)}[kind]
+        for name in want.dtype.names:
+            if name != field:
+                same(got[name], want[name], name)
+        keep = [c for c in range(want[field].shape[1]) if c not in cols]
+        same(got[field][:, keep], want[field][:, keep], field)
+        assert not np.allclose(got[field][:, cols], inp[field][:, cols]), "nothing swapped"
+        close(got[field][:, cols], want[field][:, cols], z if kind == "z" else scores, field,
+              scale, offset)
+        return tuple(stats)
+    _, bl, br = seg_status_maps(None)
+    c = inp["coord"]
+    left, right = bl[c[:, 0], c[:, 1]] == 1, br[c[:, 0], c[:, 1]] == 1
+    se, de, dead = (left | right) & ~(left & right), ~left & ~right, left & right
+    assert se.any() and de.any()
+    for name in ("evt", "seg", "t", "PE", "PID", "E_SE", "PSD_SE"):
+        same(got[name], want[name], name)
+    # the classifier's 5 scores at single-ended rows, copies elsewhere
+    placed = ("E", "rand", "dt", "y", "PSD")
+    close(np.stack([got[n][se] for n in placed], 1), np.stack([want[n][se] for n in placed], 1),
+          None if scores is None else scores[se], "scores")
+    for name in placed[:1] + placed[2:]:
+        same(got[name][~se], want[name][~se], name)
+    same(got["rand"][dead], want["rand"][dead], "rand")
+    if z is None:   # the input's z
+        same(got["y_SE"], want["y_SE"], "y_SE")
+    else:           # the Z model's, at single-ended rows
+        close(got["y_SE"][se], want["y_SE"][se], z[se], "y_SE", Z_NORMALIZATION_FACTOR, 0.5)
+        same(got["y_SE"][~se], want["y_SE"][~se], "y_SE")
+    drawn = np.zeros(got["Esmear_SE"].shape, bool)
+    drawn[np.flatnonzero(se), np.where(left, 1, 0)[se]] = True
+    for rec in (got, want):
+        assert ((rec["rand"][de] >= 0) & (rec["rand"][de] < 1)).all()
+        assert ((rec["Esmear_SE"][drawn] >= 0) & (rec["Esmear_SE"][drawn] < 1)).all()
+    same(got["Esmear_SE"][~drawn], want["Esmear_SE"][~drawn], "Esmear_SE")
+    return tuple(stats)
+
+
+def check_capture_under_threads(cfg, state, big, small, tag="capture under threads") -> None:
+    """A new layout captured while another thread makes CUDA calls the
+    whole time (waits on and queries an event of an earlier chunk, takes
+    and frees pinned buffers), as the writers' fetch workers do: the
+    capture succeeds, the other thread's calls all return, and the chunk's
+    outputs match the eager forward."""
+    import threading
+
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.inference.model import InferenceModel
+
+    server = InferenceModel(cfg, state)
+    server(*big)
+    pending = server.dispatch(*big)
+    stop, calls, errors, window = threading.Event(), [], [], []
+    capture = server._capture
+
+    def timed_capture(*args):
+        t0 = time.perf_counter()
+        g = capture(*args)
+        window.append((t0, time.perf_counter()))
+        return g
+
+    def spin():
+        while not stop.is_set():
+            try:
+                pending.ready.synchronize()
+                pending.ready.query()
+                torch.empty(1 << 16, dtype=torch.uint8, pin_memory=True)
+                calls.append(time.perf_counter())
+            except Exception as e:  # raised again below
+                errors.append(e)
+                return
+
+    server._capture = timed_capture
+    worker = threading.Thread(target=spin, name="capture-under-threads")
+    worker.start()
+    try:
+        while not calls and not errors:
+            time.sleep(0.001)
+        out = server(*small)
+    finally:
+        stop.set()
+        worker.join()
+    server.fetch(pending)
+    assert not errors, errors
+    assert len(window) == 1 and len(server.graphs) == 2, (window, len(server.graphs))
+    inside = sum(window[0][0] <= t <= window[0][1] for t in calls)
+    assert inside > 0, "no call of the other thread fell inside the capture"
+    task = server.task
+    c, f = small
+    n_events = int(c[:, -1].max()) + 1
+    direct = task.apply_model(prepared(task, FileBlock(c, f, np.zeros(n_events, np.int64))))
+    direct = direct[:out.shape[0]].cpu().numpy()
+    np.testing.assert_allclose(out, direct, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    print(f"{tag}: a layout of {c.shape[0]} rows captured in "
+          f"{(window[0][1] - window[0][0]) * 1e3:.3f} ms while another thread made "
+          f"{inside} rounds of event waits, event queries and pinned allocations inside "
+          f"the capture ({len(calls)} in all); the capture held, its outputs match the "
+          f"eager forward (largest |difference| {float(np.abs(out - direct).max()):.3g})",
+          flush=True)
+
+
+def run_writers() -> None:
+    """The prediction writers on the card, each through its own pipeline
+    (reader, dispatch, fetch workers, table writer), over
+    ``WRITER_READS`` read chunks of seeded in-memory records made as the
+    synthetic HDF5 writers make them (about 2.5 rows an event), the last
+    one short (a layout first seen mid-stream, captured under the running
+    pipeline): Z with a calgroup (gain normalisation and the per-row gather
+    on the card) and without (WaveformPairNorm), IRN (SubMPSD.json: K1,
+    K2), IRNIM in swap mode (WaveformPairNorm) and in PhysPulse mode (with a
+    calgroup; K1) and ZAndClass (the Z model and the IRNIM classifier back
+    to back; K1). The HDF5 reader and table writer are the in-memory
+    stand-ins of ``datasets/synthetic.py``. Each writer's rows are held to
+    the same writer's run with ``device="cpu"`` (the plain versions); its
+    rows/s, events/s, stage seconds, dispatch phases, graphs, replays and
+    launches printed."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.datasets.synthetic import (in_memory_writer, wfnorm_records,
+                                                         wfpair_cal_records)
+    from waveformml_tpu_torch.inference import prediction_writer as pw
+    from waveformml_tpu_torch.io.compound_types import WaveformPairCal, WaveformPairNorm
+    from waveformml_tpu_torch.io.hdf5 import available
+    from waveformml_tpu_torch.io.sql import write_synthetic_caldb
+    from waveformml_tpu_torch.ops.sparse import normalize_waveforms
+    from waveformml_tpu_torch.registry import retrieve_class
+
+    with tempfile.TemporaryDirectory() as tmp:
+        caldb = os.path.join(tmp, "cal.db")
+        write_synthetic_caldb(caldb, WRITER_CALGROUP, seed=SEED + 40)
+        os.environ["PROSPECT_CALDB"] = caldb
+        configs = writer_configs(tmp)
+        t0 = time.perf_counter()
+        cal_all = wfpair_cal_records(WRITER_EVENTS, seed=SEED + 41)
+        norm_all = wfnorm_records(WRITER_EVENTS, seed=SEED + 42)
+        made = time.perf_counter() - t0
+        cal_t, norm_t = WaveformPairCal(), WaveformPairNorm()
+        cal = stream_prefix(cal_all, cal_t, 2048, WRITER_READS, WRITER_TAIL_ROWS)
+        cal_zc = stream_prefix(cal_all, cal_t, 1024, WRITER_READS, WRITER_TAIL_ROWS // 2)
+        norm = stream_prefix(norm_all, norm_t, 2048, WRITER_READS, WRITER_TAIL_ROWS)
+        print(f"writer phase: records made in {made:.2f} s; WaveformPairCal {len(cal)} rows "
+              f"({len(cal_zc)} for ZAndClass), WaveformPairNorm {len(norm)} rows; the HDF5 "
+              f"reader and table writer did not run ("
+              f"{'h5py is installed, but ' if available() else 'h5py is not installed; '}"
+              f"the writers read and write the in-memory stand-ins of datasets/synthetic.py)",
+              flush=True)
+
+        # seeded weights, BatchNorm statistics from the features each model
+        # sees: gain-normalised ADC counts, or the normalised pulses
+        gains = pw._gain_factors(WRITER_CALGROUP)
+        head = cal[:4096]
+        cal_feats = normalize_waveforms(head["coord"].copy(), head["waveform"], gains)
+        norm_feats = norm[:4096]["pulse"]
+        ckpts = {}
+        for seed, (name, cfg_name, coords, feats) in enumerate((
+                ("z", "z", head["coord"], cal_feats),
+                ("z_norm", "z_norm", norm[:4096]["coord"], norm_feats),
+                ("irn", "irn", norm[:4096]["coord"], norm_feats),
+                ("irnim", "irnim", norm[:4096]["coord"], norm_feats),
+                ("irnim_cal", "irnim", head["coord"], cal_feats))):
+            cfg = load_config(configs[cfg_name])
+            task_cls = retrieve_class(cfg.run_config.run_class)
+            n = coords.shape[0]
+            n_events = int(coords[:, -1].max()) + 1
+            labels = (np.zeros(n, np.float32) if task_cls.labels_per_row
+                      else np.zeros(n_events, np.int64))
+            block = FileBlock(coords.astype(np.int32), np.ascontiguousarray(feats), labels)
+            ckpts[name] = os.path.join(tmp, f"{name}.pt")
+            torch.save(seeded_state(cfg, SEED + 50 + seed, block), ckpts[name])
+        big = (norm[:2000]["coord"], norm[:2000]["pulse"])
+        small = (norm[:300]["coord"], norm[:300]["pulse"])
+        check_capture_under_threads(load_config(configs["irn"]),
+                                    torch.load(ckpts["irn"], weights_only=True),
+                                    big, small)
+
+        # the models' float64 outputs over each stream (the features the
+        # card gets: the gain products are float32 on both)
+        t0 = time.perf_counter()
+        cal_feats = normalize_waveforms(cal["coord"].copy(), cal["waveform"], gains)
+        ref = {"z": reference64(configs["z"], ckpts["z"], cal["coord"], cal_feats),
+               "z_norm": reference64(configs["z_norm"], ckpts["z_norm"], norm["coord"],
+                                     norm["pulse"]),
+               "irnim": reference64(configs["irnim"], ckpts["irnim"], norm["coord"],
+                                    norm["pulse"]),
+               "irnim_cal": reference64(configs["irnim"], ckpts["irnim_cal"], cal["coord"],
+                                        cal_feats)}
+        print(f"writer phase: float64 outputs of the Z and IRNIM models over the streams on "
+              f"the CPU in {time.perf_counter() - t0:.2f} s", flush=True)
+        zc = len(cal_zc)
+
+        cal_kw = {"calgroup": WRITER_CALGROUP}
+        cases = (
+            ("Z, calgroup", pw.ZPredictionWriter, "run_WFCalFilteredSE.h5", cal,
+             [configs["z"], ckpts["z"]], dict(cal_kw, datatype="WaveformPairCal"), 2048, "z",
+             (), None, ref["z"]),
+            ("Z, no calgroup", pw.ZPredictionWriter, "run_WFNorm.h5", norm,
+             [configs["z_norm"], ckpts["z_norm"]], {}, 2048, "z", (), None, ref["z_norm"]),
+            ("IRN", pw.IRNPredictionWriter, "run_WFNorm.h5", norm,
+             [configs["irn"], ckpts["irn"]], {}, 2048, "irn",
+             ("subm_conv_rows", "site_grouped_matmul"), None, None),
+            ("IRNIM swap", pw.IRNIMPredictionWriter, "run_WFNorm.h5", norm,
+             [configs["irnim"], ckpts["irnim"]], {}, 2048, "irnim", ("subm_conv_rows",),
+             ref["irnim"], None),
+            ("IRNIM PhysPulse", pw.IRNIMPredictionWriter, "run_WFCalFilteredSE.h5", cal,
+             [configs["irnim"], ckpts["irnim_cal"]], dict(cal_kw, datatype="PhysPulse"), 2048,
+             "phys", ("subm_conv_rows",), ref["irnim_cal"], None),
+            ("ZAndClass", pw.ZAndClassWriter, "run_WFCalFilteredSE.h5", cal_zc,
+             [configs["z"], ckpts["z"], configs["irnim"], ckpts["irnim_cal"]], dict(cal_kw),
+             1024, "phys", ("subm_conv_rows",), ref["irnim_cal"][:zc], ref["z"][:zc]),
+        )
+        out_path = os.path.join(tmp, "never_written_Phys.h5")
+        for tag, writer_cls, name, records, args, kwargs, read, kind, kernels, scores, z in cases:
+            table = {(cal_t if "waveform" in records.dtype.names else norm_t).name: records}
+            stand_in = in_memory_writer(writer_cls, table)
+            writer = stand_in(out_path, name, *args, n_rows_per_read=read, **kwargs)
+            models = [writer.model] + ([writer.class_model]
+                                       if hasattr(writer, "class_model") else [])
+            watches = [PipelineWatch(m) for m in models]
+            zero_counts()
+            t0 = time.perf_counter()
+            writer.write_predictions()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eager = read_counts()
+            replayed = {k: sum(m.replay_launches()[k] for m in models) for k in eager}
+            got = writer.tables[writer.data_type.name]
+            assert not os.path.exists(out_path)
+            for m, w in zip(models, watches):
+                assert w.dispatched == w.fetched == WRITER_READS, (w.dispatched, w.fetched)
+                assert sum(g.replays for g in m.graphs.values()) == WRITER_READS
+                # the full chunks' layout, and the short last chunk's, first
+                # seen after WRITER_READS - 1 chunks
+                assert len(m.graphs) >= 2 and len(w.in_flight_at_capture) == len(m.graphs)
+            for k in kernels:
+                assert replayed[k] > 0, (tag, replayed)
+            cpu_writer = stand_in(out_path, name, *args, n_rows_per_read=read, device="cpu",
+                                  **kwargs)
+            t1 = time.perf_counter()
+            cpu_writer.write_predictions()
+            cpu_wall = time.perf_counter() - t1
+            err_ref, err_cpu, beyond = compare_writer_rows(
+                got, cpu_writer.tables[cpu_writer.data_type.name], records, kind, scores, z)
+            n_rows = records.shape[0]
+            ev = records["coord"][:, 2]
+            n_events = int(1 + np.count_nonzero(ev[1:] != ev[:-1]))
+            stages = {k: round(v * 1e3, 3) for k, v in writer.stage_seconds.items()}
+            phases = [{k: round(v * 1e3, 3) for k, v in m.dispatch_phases.items()}
+                      for m in models]
+            print(f"writer {tag}: {n_rows} rows, {n_events} events, {WRITER_READS} reads of "
+                  f"{read} rows in {wall:.4f} s = {n_rows / wall:.1f} rows/s, "
+                  f"{n_events / wall:.1f} events/s (wall, host clock); stage ms {stages}; "
+                  f"dispatch phase ms {phases}; graphs captured "
+                  f"{[len(m.graphs) for m in models]}, chunks in flight at each capture "
+                  f"{[w.in_flight_at_capture for w in watches]}, capture ms "
+                  f"{[round(m.capture_s * 1e3, 3) for m in models]}; replays "
+                  f"{[sum(g.replays for g in m.graphs.values()) for m in models]}; launches "
+                  f"from replays {replayed}, from eager warm-ups {eager}; rows match the CPU "
+                  f"run ({cpu_wall:.2f} s): row order and copied fields equal; the model's "
+                  f"outputs, {'card' if scores is None and z is None else 'card and CPU'}, "
+                  f"within {LOGIT_ATOL} + {LOGIT_RTOL} x the row's largest |output| of "
+                  f"{'the CPU run' if scores is None and z is None else 'float64'} (card "
+                  f"largest |difference| {err_ref:.3g}); card against CPU largest "
+                  f"|difference| {err_cpu:.3g}, {beyond} outputs beyond {LOGIT_ATOL} + "
+                  f"{LOGIT_RTOL} x the output",
+                  flush=True)
+        del os.environ["PROSPECT_CALDB"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1916,7 +2375,10 @@ def main() -> int:
     run_cli(CONFIG_Z, z_train, z_val, ("train_loss", "val_loss"), ("test_loss",), (),
             hdf5_dirs=False)
 
-    # -- 10. report -----------------------------------------------------------
+    # -- 10. the prediction writers --------------------------------------------
+    run_writers()
+
+    # -- 11. report -----------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),

@@ -4,7 +4,9 @@ unlabelled events, labelled chunks of both particle kinds, chunks with
 per-row (E, z) labels and an in-memory
 data module for the trainer, the inputs that stress the kernels, and
 directories of HDF5 files of each particle kind (``write_classification_dirs``,
-which needs h5py).
+which needs h5py), the prediction writers' input records (``WaveformPairCal``,
+``WaveformPairNorm``) with their file writers, and in-memory stand-ins for
+the writers' HDF5 input and output (``in_memory_writer``).
 
 Waveforms are exponential-tail scintillation pulses on the raw ADC scale
 whose left/right amplitude ratio encodes z and whose tail fraction depends
@@ -20,7 +22,8 @@ import numpy as np
 from waveformml_tpu_torch.datasets.data_module import DataLoaderLite
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.detector import E_SCALE, MAX_RANGE, NX, NY, Z_SCALE
-from waveformml_tpu_torch.io.hdf5 import open_h5
+from waveformml_tpu_torch.io.compound_types import WaveformPairCal, WaveformPairNorm
+from waveformml_tpu_torch.io.hdf5 import H5Input, open_h5
 
 
 def synth_waveform_pair(rng: np.random.Generator, n_samples: int, energy: float,
@@ -171,6 +174,171 @@ class BlockDataModule:
 
     def test_dataloader(self):
         return self._loader(self.test, False)
+
+
+def wfpair_cal_records(n_events: int, seed: int = 0) -> np.ndarray:
+    """``WaveformPairCal`` records of ``n_events`` events of 1 to 4 pulses
+    each (2.5 on average) at distinct sites: 65-sample raw int16 ADC pairs,
+    E, z, EZ, PE, PSD and PID from each pulse's particle kind (its tail
+    fraction); the records of the JAX package's ``write_wfpair_cal`` for
+    the same seed."""
+    rng = np.random.default_rng(seed)
+    t = WaveformPairCal()
+    coords, wfs, es, zs, kinds = [], [], [], [], []
+    pid_of_kind = np.array([1, 4, 6])
+    for e in range(n_events):
+        mult = int(rng.integers(1, 5))
+        sites = rng.choice(NX * NY, size=mult, replace=False)
+        for s in sites:
+            x, y = int(s % NX), int(s // NX)
+            kind = int(rng.integers(0, 3))
+            energy = float(rng.uniform(0.5, 10.0))
+            z = float(rng.uniform(-Z_SCALE / 2, Z_SCALE / 2))
+            coords.append([x, y, e])
+            wfs.append(synth_waveform_pair(rng, 65, energy, z, kind))
+            es.append(energy)
+            zs.append(z)
+            kinds.append(kind)
+    c = np.asarray(coords, np.int32)
+    n = c.shape[0]
+    rec = np.zeros(n, dtype=t.type)
+    rec["coord"] = c
+    rec["evt"] = c[:, 2]
+    rec["waveform"] = np.clip(np.stack(wfs), 0, MAX_RANGE).astype(np.int16)
+    rec["E"] = np.asarray(es, np.float32)
+    rec["z"] = np.asarray(zs, np.float32)
+    rec["EZ"][:, 0] = rec["E"]
+    rec["EZ"][:, 1] = rec["z"]
+    rec["PE"] = rng.uniform(10, 1000, (n, 2)).astype(np.float32)
+    rec["PSD"] = (0.12 + 0.25 * np.asarray(kinds) / 2 + rng.normal(0, 0.01, n)).astype(np.float32)
+    rec["PID"] = pid_of_kind[np.asarray(kinds)].astype(np.int32)
+    return rec
+
+
+def write_wfpair_cal(path: str, n_events: int, seed: int = 0, file_tag: str = "WFPairSim",
+                     compression: int = 0) -> None:
+    """``wfpair_cal_records`` as the table "WaveformPairCal" of an HDF5 file
+    with its ``nevents`` attribute; gzip-chunked (chunks of 1024 rows) at
+    level ``compression`` where it is above 0, as the analysis chain writes
+    it, else uncompressed."""
+    rec = wfpair_cal_records(n_events, seed)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open_h5(path, "w") as h5:
+        if compression:
+            h5.create_dataset("WaveformPairCal", data=rec, chunks=(min(1024, rec.shape[0]),),
+                              compression="gzip", compression_opts=compression)
+        else:
+            h5.create_dataset("WaveformPairCal", data=rec)
+        h5["WaveformPairCal"].attrs.create("nevents", np.array([float(n_events)]))
+
+
+def _phys_vector(E, z, psd, rng, n):
+    """The AD1 phys vector (E, dt, PE0, PE1, z, PSD, t0) of ``n`` rows."""
+    phys = np.zeros((n, 7), np.float32)
+    phys[:, 0] = E
+    phys[:, 1] = rng.normal(0, 1.0, n)          # dt
+    phys[:, 2] = E * 120 * np.exp(-z / 600)     # PE0
+    phys[:, 3] = E * 120 * np.exp(+z / 600)     # PE1
+    phys[:, 4] = z
+    phys[:, 5] = psd
+    phys[:, 6] = rng.uniform(0, 50, n)          # t0
+    return phys
+
+
+def wfnorm_records(n_events: int, seed: int = 0) -> np.ndarray:
+    """``WaveformPairNorm`` records of ``n_events`` events (``make_events``
+    at 65 samples, pulses scaled to [0, 1]) with their phys vectors, EZ and
+    PID; the records of the JAX package's ``write_wfnorm`` for the same
+    seed."""
+    rng = np.random.default_rng(seed)
+    ev = make_events(rng, n_events, 65, kind=0)
+    n = ev["coords"].shape[0]
+    rec = np.zeros(n, dtype=WaveformPairNorm().type)
+    rec["t"] = np.arange(n, dtype=np.float64)
+    rec["coord"] = ev["coords"]
+    rec["pulse"] = (ev["waveforms"] / MAX_RANGE).astype(np.float32)
+    psd = rng.uniform(0.1, 0.4, n).astype(np.float32)
+    rec["phys"] = _phys_vector(ev["E"], ev["z"], psd, rng, n)
+    rec["EZ"][:, 0] = ev["E"]
+    rec["EZ"][:, 1] = ev["z"]
+    rec["PID"] = rng.choice([1, 4, 6], n).astype(np.int32)
+    return rec
+
+
+def write_wfnorm(path: str, n_events: int, seed: int = 0) -> None:
+    """``wfnorm_records`` as the table "WaveformPairNorm" of a
+    ``*WFNorm.h5`` file with its ``nevents`` attribute."""
+    rec = wfnorm_records(n_events, seed)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open_h5(path, "w") as h5:
+        h5.create_dataset("WaveformPairNorm", data=rec)
+        h5["WaveformPairNorm"].attrs.create("nevents", np.array([float(n_events)]))
+
+
+class _MemoryFile(dict):
+    """Tables by name, read as an open HDF5 file's nodes ("/name" or
+    "name")."""
+
+    def __getitem__(self, name):
+        return super().__getitem__(name.lstrip("/"))
+
+    def close(self) -> None:
+        """Nothing to close."""
+
+
+class MemoryInput(H5Input):
+    """An ``H5Input`` over in-memory tables (``{name: records}``) in place
+    of a file: the same event-preserving chunks."""
+
+    def __init__(self, path: str, tables: Dict[str, np.ndarray]):
+        self._tables = tables
+        super().__init__(path)
+
+    def _open(self, path, access, **kwargs):
+        return _MemoryFile(self._tables)
+
+
+class MemoryTables:
+    """A mixin that keeps a prediction writer's output tables in memory
+    (``tables``: name → records) in place of an HDF5 file; the table
+    attributes are not kept."""
+
+    def _open(self, path, access, **kwargs):
+        return _MemoryFile()
+
+    def create_table(self, name, shape, data_type, **kwargs) -> None:
+        self.tables[name] = np.zeros(shape, dtype=data_type)
+        self.table_index[name] = 0
+
+    def add_rows(self, name: str, rows: np.ndarray) -> None:
+        i = self.table_index[name]
+        self.tables[name][i:i + rows.shape[0]] = rows
+        self.table_index[name] = i + rows.shape[0]
+
+    def flush(self, table=None) -> None:
+        """Nothing to write."""
+
+    def copy_p2x_attrs(self, *args, **kwargs) -> None:
+        """No attributes are kept."""
+
+    def copy_chanmap(self, h5input) -> None:
+        self.tables["Chanmap"] = np.array(h5input.h5f["Chanmap"])
+
+
+def in_memory_writer(writer_cls, tables: Dict[str, np.ndarray]):
+    """A subclass of a prediction writer class that streams its input from
+    ``tables`` (``{table name: records}``) and keeps its output in memory
+    (``writer.tables[writer.data_type.name]`` after ``write_predictions``),
+    for machines without h5py; everything between, the model and the
+    pipeline, is the writer's own. The input path still names the input's
+    record type by its suffix."""
+
+    class InMemory(MemoryTables, writer_cls):
+        def _open_input(self, input_path: str) -> MemoryInput:
+            return MemoryInput(input_path, tables)
+
+    InMemory.__name__ = InMemory.__qualname__ = writer_cls.__name__
+    return InMemory
 
 
 def conv_case(rng: np.random.Generator, kind: str, n_events: int, k: int,

@@ -91,6 +91,9 @@ class TaskBase:
     #: the model's outputs are per "event" or per "row" (InferenceModel
     #: un-pads by it where the two buckets are equal)
     output_unit = "event"
+    #: the net of a config without ``net_config.net_class`` (None: the
+    #: config must name one)
+    default_net: Optional[str] = None
 
     def __init__(self, config, device: Optional[Union[str, torch.device]] = None):
         self.config = config
@@ -103,7 +106,10 @@ class TaskBase:
         #: the random stream dropout draws from in train mode (the Trainer
         #: sets its own)
         self.generator: Optional[torch.Generator] = None
-        cls = retrieve_class(config.net_config.net_class)
+        name = getattr(config.net_config, "net_class", None) or self.default_net
+        if name is None:
+            raise AttributeError(f"{type(self).__name__} needs net_config.net_class")
+        cls = retrieve_class(name)
         z_model = self._build_frozen_z()
         kwargs = {"z_model": z_model} if z_model is not None else {}
         self.model = cls(config, **kwargs).to(self.device)

@@ -74,6 +74,7 @@ class LitZ(TaskBase):
     gives the model each row's real spectrum (real ‖ imaginary parts)."""
 
     labels_per_row = True
+    default_net = "SingleEndedZConv"
     z_index = 4
 
     def __init__(self, config, device=None):
@@ -127,6 +128,7 @@ class LitEZ(TaskBase):
     3) are scaled by ``escale / e_adjust``."""
 
     labels_per_row = True
+    default_net = "SingleEndedEZConv"
     prepare_block = LitZ.prepare_block
     event_bucket = LitZ.event_bucket
 

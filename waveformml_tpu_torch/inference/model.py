@@ -11,11 +11,19 @@ to that graph's static buffer, one replay and an asynchronous copy of the
 outputs into pinned host memory, with nothing waiting for the card until
 ``fetch``. On the CPU the forward runs eagerly. ``dispatch_phases`` sums
 the host-clock seconds of each phase over calls.
+
+``dispatch`` belongs to one thread; ``fetch`` may run on several at once
+(the prediction writers' fetch workers). A new layout is captured while
+those threads wait on earlier chunks' events, so the capture is
+thread-local: CUDA calls of other threads neither invalidate it nor are
+refused during it, and it still raises on any unsafe call of its own
+thread.
 """
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Union
 
@@ -120,6 +128,8 @@ class InferenceModel:
                                 "launch_s": 0.0, "fetch_s": 0.0}
         #: host-clock seconds of warming up and capturing new layouts
         self.capture_s = 0.0
+        # guards the counters that concurrent fetches update
+        self._fetch_lock = threading.Lock()
 
     # -- the forward --------------------------------------------------------------------
     def _forward(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -134,7 +144,9 @@ class InferenceModel:
     def _capture(self, packed: torch.Tensor, spec: PackSpec) -> _Graph:
         """Warm a new layout up eagerly on a side stream (loads the kernels'
         libraries and sets their one-time attributes), then capture its
-        forward over a static input buffer into the shared memory pool."""
+        forward over a static input buffer into the shared memory pool. The
+        capture is thread-local: other threads may wait on events or free
+        pinned buffers meanwhile (see the module's docstring)."""
         static_in = torch.empty(packed.shape, dtype=torch.uint8, device=self.device)
         static_in.copy_(packed, non_blocking=True)
         side = torch.cuda.Stream(self.device)
@@ -144,7 +156,7 @@ class InferenceModel:
         torch.cuda.current_stream(self.device).wait_stream(side)
         before = {fn.__name__: fn.captured for fn in KERNELS}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             static_out = self._forward(unpack_db(static_in, spec))
         launches = {fn.__name__: fn.captured - before[fn.__name__] for fn in KERNELS}
         return _Graph(graph, static_in, static_out, launches)
@@ -216,7 +228,9 @@ class InferenceModel:
             handle.ready.synchronize()
         out = handle.out.numpy()
         result = self._unpad(out, handle)
-        self.dispatch_phases["fetch_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        with self._fetch_lock:
+            self.dispatch_phases["fetch_s"] += dt
         return result
 
     def _unpad(self, out: np.ndarray, h: Handle) -> np.ndarray:

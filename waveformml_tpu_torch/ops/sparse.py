@@ -129,3 +129,27 @@ def swap_sparse_from_dense(sparse_out: np.ndarray, dense: np.ndarray,
     count of distinct consecutive event ids, not the event number."""
     b = consecutive_event_index(coords[:, -1])
     sparse_out[:] = dense[b, coords[:, 0].astype(np.int64), coords[:, 1].astype(np.int64)]
+
+
+def swap_sparse_from_event(sparse_out: np.ndarray, per_event: np.ndarray,
+                           coords: np.ndarray) -> None:
+    """Write per-event values ``[B(, ...)]`` onto every row of that event,
+    in place, with the same consecutive renumbering of the event ids."""
+    sparse_out[:] = per_event[consecutive_event_index(coords[:, -1])]
+
+
+def normalize_waveforms(coords: np.ndarray, waveforms: np.ndarray,
+                        gain_factors: np.ndarray) -> np.ndarray:
+    """Raw int16 ADC waveform pairs ``[N, 2·S]`` (left samples, then right)
+    → float32, each half times its PMT's factor of ``gain_factors``
+    ``[NX, NY, 2]``; the event column of ``coords`` is renumbered in place
+    to consecutive batch indices."""
+    n, two_s = waveforms.shape
+    s = two_s // 2
+    x = coords[:, 0].astype(np.int64)
+    y = coords[:, 1].astype(np.int64)
+    out = np.empty((n, two_s), dtype=np.float32)
+    out[:, :s] = waveforms[:, :s] * gain_factors[x, y, 0][:, None]
+    out[:, s:] = waveforms[:, s:] * gain_factors[x, y, 1][:, None]
+    coords[:, -1] = consecutive_event_index(coords[:, -1])
+    return out

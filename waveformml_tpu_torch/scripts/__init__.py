@@ -1,0 +1,2 @@
+"""Command-line scripts of the port (counterparts of the repository's
+``scripts/``)."""

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import getpass
 import glob
+import hashlib
 import json
 import logging
 import os
@@ -161,6 +162,29 @@ def get_run_info() -> Dict[str, Any]:
         "argv": sys.argv,
         "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
     }
+
+
+def get_file_md5(path: str) -> str:
+    """The md5 of a file's content, or of a directory's (a checkpoint
+    directory): then of each file's relative path and content, in sorted
+    order."""
+    h = hashlib.md5()
+    files = ([os.path.join(root, name) for root, _, names in sorted(os.walk(path))
+              for name in sorted(names)] if os.path.isdir(path) else [path])
+    for fp in files:
+        if fp != path:
+            h.update(os.path.relpath(fp, path).encode())
+        with open(fp, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 20), b""):
+                h.update(chunk)
+    return h.hexdigest()
+
+
+def p2x_stem(path: str) -> str:
+    """A file's basename without its P2X type suffix: 'run1_WFCal.h5' →
+    'run1' (the prediction-writer CLIs' output stem)."""
+    base = os.path.basename(path)
+    return base[:base.rfind("_")] if "_" in base else base[:-3]
 
 
 def write_run_info(log_dir: str) -> None:
