@@ -96,8 +96,27 @@ order, it:
    throughout it; each writer's rows held to its run with
    ``device="cpu"``, its launches from replays asserted and its rows/s,
    events/s, stage seconds, dispatch phases, graphs and replays printed;
-11. prints one JSON line describing every kernel (launches: those of the
-   training run, K3's of the features path; K1 and K4 also at
+   IRNIM's scores of card and CPU each against float64, both distances
+   printed;
+11. evaluates checkpoints on the card through ``evaluate.run``, the
+   function ``python -m waveformml_tpu_torch.evaluate`` calls, over
+   in-memory test chunks (no h5py there), each checkpoint written by a
+   1-epoch fit: SubMPSD.json (the serving weights; ``PSDEvaluator``; K1
+   and K2, their launches asserted) over 4 chunks of 4096 events,
+   SegQuantifier.json (``SegEvaluator``; K1) and SingleEndedZCNN.json with
+   a synthetic calibration group (``ZEvaluatorWF``: ``Calibrator``,
+   ``CalCurve``, ``calc_calib_z_E``) over 2; each again with ``--device
+   cpu``: the outputs, and every array each evaluator accumulated, held to
+   the CPU run's (argmax flips only at ties, counted); prints the test
+   metrics, events/s, the per-chunk split of the test pass (host prep, copy
+   in, device forward, copy back, ``add_batch`` on the host) and
+   ``dump()``'s time, and the figures where matplotlib renders them (else
+   that it does not);
+12. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
+   serving chunks' waveform pairs: K3 once a chunk, the feature means
+   against the CPU run within K3's tolerance;
+13. prints one JSON line describing every kernel (launches: those of the
+   training run, K3's of the analysis path; K1 and K4 also at
    SegQuantifier.json's widths, with its training run's launches), the
    card line again, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -108,7 +127,10 @@ with warm L2, no host launch cost, but with the card's own few µs per
 replay, printed as the timing floor; K2 is also timed 20 calls to a graph).
 """
 import ast
+import contextlib
 import copy
+import importlib.util
+import io
 import json
 import os
 import statistics
@@ -204,6 +226,14 @@ CLI_SPLITS = {"n_train": 1024, "n_validate": 512, "n_test": 512, "shuffled_size"
 # synthetic calibration database's group
 WRITER_READS, WRITER_TAIL_ROWS, WRITER_EVENTS = 32, 320, 26500
 WRITER_CALGROUP = "smokecal"
+# evaluate phase: test chunks of SubMPSD.json, and of SegQuantifier.json and
+# SingleEndedZCNN.json (whose CPU forward and classical reconstruction take
+# seconds a chunk); each evaluator's accumulated arrays against the CPU
+# run's, counts exactly, the rest to EVAL_RTOL plus EVAL_ATOL times the
+# array's largest magnitude; the Z run's synthetic calibration group
+EVAL_CHUNKS, EVAL_SEGMENT_CHUNKS = 4, 2
+EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-5
+EVAL_CALGROUP = "evalcal"
 
 
 def card_line() -> str:
@@ -1806,11 +1836,12 @@ def compare_writer_rows(got, want, inp, kind: str, scores=None, z=None):
     within LOGIT_ATOL plus LOGIT_RTOL times the largest |output| of the
     row (for one output a row, the output itself). Returns (largest |card
     - reference|, largest |card - CPU|, outputs where card and CPU differ
-    by more than LOGIT_ATOL plus LOGIT_RTOL times the output itself)."""
+    by more than LOGIT_ATOL plus LOGIT_RTOL times the output itself,
+    largest |CPU - reference|: None without float64 outputs)."""
     from waveformml_tpu_torch.detector import Z_NORMALIZATION_FACTOR
     from waveformml_tpu_torch.engineering.se_mask import seg_status_maps
 
-    stats = [0.0, 0.0, 0]
+    stats = [0.0, 0.0, 0, None]
 
     def same(a, b, label):
         assert np.ascontiguousarray(a).tobytes() == np.ascontiguousarray(b).tobytes(), label
@@ -1833,6 +1864,8 @@ def compare_writer_rows(got, want, inp, kind: str, scores=None, z=None):
         stats[0] = max(stats[0], float(np.abs(a - want).max()))
         stats[1] = max(stats[1], float(np.abs(a - b).max()))
         stats[2] += int((np.abs(a - b) > LOGIT_ATOL + LOGIT_RTOL * np.abs(b)).sum())
+        if ref is not None:
+            stats[3] = max(stats[3] or 0.0, float(np.abs(b - want).max()))
 
     assert got.dtype == want.dtype and got.shape == want.shape == inp.shape
     if kind != "phys":
@@ -2078,7 +2111,7 @@ def run_writers() -> None:
             t1 = time.perf_counter()
             cpu_writer.write_predictions()
             cpu_wall = time.perf_counter() - t1
-            err_ref, err_cpu, beyond = compare_writer_rows(
+            err_ref, err_cpu, beyond, cpu_ref = compare_writer_rows(
                 got, cpu_writer.tables[cpu_writer.data_type.name], records, kind, scores, z)
             n_rows = records.shape[0]
             ev = records["coord"][:, 2]
@@ -2099,11 +2132,287 @@ def run_writers() -> None:
                   f"outputs, {'card' if scores is None and z is None else 'card and CPU'}, "
                   f"within {LOGIT_ATOL} + {LOGIT_RTOL} x the row's largest |output| of "
                   f"{'the CPU run' if scores is None and z is None else 'float64'} (card "
-                  f"largest |difference| {err_ref:.3g}); card against CPU largest "
+                  f"largest |difference| {err_ref:.3g}"
+                  f"{'' if cpu_ref is None else f', CPU {cpu_ref:.3g}'}); card against CPU largest "
                   f"|difference| {err_cpu:.3g}, {beyond} outputs beyond {LOGIT_ATOL} + "
                   f"{LOGIT_RTOL} x the output",
                   flush=True)
         del os.environ["PROSPECT_CALDB"]
+
+
+# -- the evaluation ----------------------------------------------------------------------
+
+class RecordingLogger:
+    """Records the tags an evaluator logs; each figure is closed at once."""
+
+    def __init__(self):
+        self.figures, self.histograms, self.scalars = set(), set(), {}
+
+    def log_figure(self, tag, fig, step=0, close=True):
+        import matplotlib.pyplot as plt
+
+        self.figures.add(tag)
+        plt.close(fig)
+
+    def log_histogram(self, tag, values, step=0):
+        self.histograms.add(tag)
+
+    def log_scalar(self, tag, value, step=0):
+        self.scalars[tag] = float(value)
+
+    def log_scalars(self, values, step=0):
+        for k, v in values.items():
+            self.log_scalar(k, v, step)
+
+    def flush(self):
+        pass
+
+
+@contextlib.contextmanager
+def recorded_batches(evaluator_cls):
+    """Every (host batch, test outputs) that evaluators of a class are fed
+    while the block runs, in order."""
+    calls, original = [], evaluator_cls.add_batch
+
+    def add_batch(self, block, db, test_out):
+        calls.append((db, test_out))
+        return original(self, block, db, test_out)
+
+    evaluator_cls.add_batch = add_batch
+    try:
+        yield calls
+    finally:
+        evaluator_cls.add_batch = original
+
+
+def array_differences(got, want) -> list:
+    """The accumulated arrays (``evaluation.accumulated_arrays``) in which
+    two evaluators differ: integer-valued ones (counts) at any entry, the
+    others by more than EVAL_RTOL·|want| + EVAL_ATOL·max|want|."""
+    from waveformml_tpu_torch.evaluation import accumulated_arrays
+
+    a, b = accumulated_arrays(got), accumulated_arrays(want)
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    out = []
+    for k in b:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        assert x.shape == y.shape, (k, x.shape, y.shape)
+        if np.array_equal(x, y, equal_nan=True):
+            continue
+        finite = np.isfinite(y)
+        counts = np.array_equal(np.isfinite(x), finite) and all(
+            np.array_equal(v[finite], np.round(v[finite])) for v in (x, y))
+        scale = float(np.abs(y[finite]).max()) if finite.any() else 0.0
+        if counts or not np.allclose(x, y, rtol=EVAL_RTOL, atol=EVAL_ATOL * scale,
+                                     equal_nan=True):
+            out.append(k)
+    return out
+
+
+def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=None):
+    """``python -m waveformml_tpu_torch.evaluate``'s ``run`` on the card
+    over in-memory test chunks, from a checkpoint written by a 1-epoch fit
+    from ``state``, with every kernel's count set to 0 just before and read
+    just after (each launch of the model's kernels a test chunk asserted),
+    then again with ``--device cpu`` (the plain versions). Asserts that the
+    evaluator was built and fed every chunk; holds the test outputs
+    (``output_key``) of card and CPU to LOGIT_RTOL, LOGIT_ATOL, the
+    predictions that differ to argmax ties within that tolerance, and the
+    evaluators' accumulated arrays to each other (``array_differences``);
+    where outputs within the tolerance make some differ (a flipped tie, a
+    value on a histogram's bin edge), an evaluator fed the CPU run's host
+    batches with the card's outputs must equal the card's. Prints the test
+    metrics, the test pass's events/s and per-chunk split (host prep, copy
+    in, device forward, copy back, ``add_batch``), ``dump()``'s ms, and
+    the count of figures where matplotlib renders them. Returns the card
+    run's launches."""
+    from waveformml_tpu_torch import evaluate
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+    from waveformml_tpu_torch.engineering.callbacks import LoggingCallback
+    from waveformml_tpu_torch.evaluation import accumulated_arrays
+    from waveformml_tpu_torch.io.sql import write_synthetic_caldb
+
+    figures = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        if calgroup:
+            os.environ["PROSPECT_CALDB"] = os.path.join(tmp, "cal.db")
+            write_synthetic_caldb(os.environ["PROSPECT_CALDB"], calgroup, seed=SEED + 70)
+        try:
+            cfg = load_config(cfg_path)
+            fit = make_trainer(cfg, state, plain=False,
+                               checkpoint_dir=os.path.join(tmp, "version_0"), max_epochs=1)
+            t0 = time.perf_counter()
+            fit.fit(BlockDataModule(train, val))
+            print(f"{tag} evaluate: checkpoint of a 1-epoch fit over {len(train)} chunks in "
+                  f"{time.perf_counter() - t0:.2f} s: {os.path.basename(fit.best_ckpt_path)}",
+                  flush=True)
+            argv = [cfg_path, fit.best_ckpt_path] + (["-c", calgroup] if calgroup else [])
+            evaluator_cls = type(fit.task.make_evaluator())
+            runs = {}
+            for device in ("cuda", "cpu"):
+                args = evaluate.build_parser().parse_args(argv + ["--device", device])
+                config = load_config(cfg_path)
+                evaluate.apply_overrides(config, args)
+                logger = RecordingLogger() if figures else None
+                out = io.StringIO()
+                with recorded_batches(evaluator_cls) as batches, contextlib.redirect_stdout(out):
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    res = evaluate.run(config, args, BlockDataModule([], [], test),
+                                       logger=logger)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = read_counts()
+                runs[device] = dict(res, batches=batches, wall=wall, launches=launches,
+                                    logger=logger, printed=out.getvalue().strip())
+        finally:
+            os.environ.pop("PROSPECT_CALDB", None)
+    card, cpu = runs["cuda"], runs["cpu"]
+    trainer = card["trainer"]
+    model = trainer.task.model
+    want_launches = training_launches(model, 0, len(test))
+    assert card["launches"] == want_launches, (tag, card["launches"], want_launches)
+    assert not any(cpu["launches"].values()), cpu["launches"]
+    for run in (card, cpu):
+        ev = run["trainer"].task.evaluator
+        assert isinstance(ev, evaluator_cls) and len(run["batches"]) == len(test), (
+            tag, type(ev), len(run["batches"]))
+        assert set(run["test"]) and all(np.isfinite(v) for v in run["test"].values())
+    for k in card["test"]:
+        assert np.isclose(card["test"][k], cpu["test"][k], rtol=LOGIT_RTOL, atol=LOGIT_ATOL), (
+            tag, k, card["test"], cpu["test"])
+
+    # the outputs: card against CPU; argmax flips only at ties within that
+    flips = 0
+    for (db_g, got), (db_w, want) in zip(card["batches"], cpu["batches"]):
+        assert sorted(db_g) == sorted(db_w)
+        for k in db_w:
+            assert np.array_equal(db_g[k], db_w[k]), (tag, k)
+        g, w = np.asarray(got[output_key]), np.asarray(want[output_key])
+        assert g.shape == w.shape and np.isfinite(g).all(), (tag, g.shape, w.shape)
+        np.testing.assert_allclose(g, w, rtol=LOGIT_RTOL, atol=LOGIT_ATOL, err_msg=tag)
+        if "pred" in want:
+            flip = np.asarray(got["pred"]) != np.asarray(want["pred"])
+            top2 = np.sort(w[flip], axis=1)[:, -2:]
+            gap = top2[:, 1] - top2[:, 0]
+            tie = 2 * (LOGIT_ATOL + LOGIT_RTOL * np.abs(w[flip]).max(axis=1))
+            assert (gap <= tie).all(), (tag, gap, tie)
+            flips += int(flip.sum())
+    card_ev, cpu_ev = card["trainer"].task.evaluator, cpu["trainer"].task.evaluator
+    if hasattr(cpu_ev, "confusion"):
+        assert np.abs(card_ev.confusion - cpu_ev.confusion).sum() <= 2 * flips, tag
+    differ = array_differences(card_ev, cpu_ev)
+    explained = ""
+    if differ:
+        replay = cpu["trainer"].task.make_evaluator()
+        for (db, _), (_, out) in zip(cpu["batches"], card["batches"]):
+            replay.add_batch(None, db, out)
+        assert not array_differences(card_ev, replay), (tag, array_differences(card_ev, replay))
+        explained = (f"; {len(differ)} differ ({differ}), all from the outputs: an evaluator "
+                     f"fed the CPU run's batches with the card's outputs equals the card's")
+    n_arrays = len(accumulated_arrays(cpu_ev))
+
+    phases = trainer.test_phases
+    events = sum(p["events"] for p in phases)
+    test_wall = sum(p["wall_s"] for p in phases)
+    per = {k: statistics.mean(p[k] for p in phases) * 1e3
+           for k in ("host_prep_s", "h2d_s", "copy_back_s", "collect_s", "wall_s")}
+    timed = [p["device_ms"] for p in phases if p["device_ms"] is not None]
+    forward = statistics.mean(timed) if timed else float("nan")
+    dump = [cb.dump_seconds for cb in trainer.callbacks if isinstance(cb, LoggingCallback)]
+    print(f"{tag} evaluate: {card['printed']}", flush=True)
+    print(f"{tag} evaluate: evaluator {type(card_ev).__name__} fed {len(card['batches'])} "
+          f"chunks, {events} events; run() {card['wall']:.3f} s (wall, host clock; CPU run "
+          f"{cpu['wall']:.3f} s); test pass {test_wall:.4f} s = {events / test_wall:.1f} "
+          f"events/s; per chunk (ms, means): host prep {per['host_prep_s']:.3f}, copy in "
+          f"{per['h2d_s']:.3f}, device forward {forward:.4f} (CUDA events), copy back "
+          f"{per['copy_back_s']:.3f}, add_batch (host) {per['collect_s']:.3f}, wall "
+          f"{per['wall_s']:.3f}; device busy share {forward * len(phases) / (test_wall * 1e3):.4f}; "
+          f"dump() {dump[0] * 1e3:.3f} ms; launches {card['launches']}", flush=True)
+    print(f"{tag} evaluate: outputs ({output_key}) match the CPU run (rtol={LOGIT_RTOL}, "
+          f"atol={LOGIT_ATOL}); {flips} argmax ties flipped; host batches equal; "
+          f"{n_arrays} accumulated arrays held to the CPU run's (counts exactly, the rest to "
+          f"rtol={EVAL_RTOL} + {EVAL_ATOL} x the array's largest |value|){explained}",
+          flush=True)
+    if figures:
+        assert card["logger"].figures == cpu["logger"].figures and card["logger"].figures
+        print(f"{tag} evaluate: dump() rendered {len(card['logger'].figures)} figures and "
+              f"{len(card['logger'].histograms)} histograms, the same tags as the CPU run's",
+              flush=True)
+    else:
+        print(f"{tag} evaluate: dump() was not rendered: matplotlib is not installed on this "
+              f"machine (the pass ran without a logger, so dump() returned at once)",
+              flush=True)
+    return card["launches"]
+
+
+def run_evaluation(state, train, val) -> dict:
+    """The evaluate phase: SubMPSD.json (fp32, its shipped widths, the
+    serving run's weights; K1 and K2) over EVAL_CHUNKS test chunks of 4096
+    events, SegQuantifier.json (K1) and SingleEndedZCNN.json with a
+    calibration group (``Calibrator``, ``CalCurve``, ``calc_calib_z_E``)
+    over EVAL_SEGMENT_CHUNKS, each from seeded weights. Returns the
+    SubMPSD run's launches."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block, segment_block
+
+    n_samples = load_config(CONFIG).system_config.n_samples
+    rng = np.random.default_rng(SEED + 60)
+    test = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(EVAL_CHUNKS)]
+    launches = run_evaluate("SubMPSD.json", CONFIG, state, train, val, test, "logits")
+    assert launches["subm_conv_rows"] > 0 and launches["site_grouped_matmul"] > 0, launches
+    for i, (path, label, key, calgroup) in enumerate((
+            (CONFIG_SEGQ, "ez", "predictions", None),
+            (CONFIG_Z, "z", "predictions", EVAL_CALGROUP))):
+        cfg = load_config(path)
+        n = cfg.system_config.n_samples
+        rng = np.random.default_rng(SEED + 61 + i)
+        blocks = [segment_block(rng, EVENTS_PER_CHUNK, n, label=label)
+                  for _ in range(2 + 1 + EVAL_SEGMENT_CHUNKS)]
+        seg_state = seeded_state(cfg, SEED + 63 + i, blocks[0])
+        run_evaluate(os.path.basename(path), path, seg_state, blocks[:2], blocks[2:3],
+                     blocks[3:], key, calgroup)
+    return launches
+
+
+def run_analyze(chunks, n_samples: int) -> int:
+    """``analyze_records`` (scripts/analyze_waveforms.py) over the serving
+    chunks' waveform pairs on the card, every kernel's count set to 0 just
+    before and read just after (K3 once a chunk), and on the CPU: the
+    average waveforms equal, each feature mean within the mean of K3's
+    per-row tolerance (``features_limits``) over those rows. Returns K3's
+    launches."""
+    from waveformml_tpu_torch.ops.waveform_features import (features_limits,
+                                                            waveform_features_plain)
+    from waveformml_tpu_torch.scripts.analyze_waveforms import analyze_records
+
+    records = [ch["waveforms"] for ch in chunks]
+    zero_counts()
+    t0 = time.perf_counter()
+    card = analyze_records(records, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    assert launches == dict(dict.fromkeys(launches, 0), waveform_features=len(records)), launches
+    t0 = time.perf_counter()
+    cpu = analyze_records(records, "cpu")
+    cpu_wall = time.perf_counter() - t0
+    assert card["n"] == cpu["n"] == sum(r.shape[0] for r in records)
+    assert np.array_equal(card["mean"], cpu["mean"]) and np.array_equal(card["err"], cpu["err"])
+    halves = torch.from_numpy(np.concatenate([r[:, :n_samples] for r in records]))
+    limits = features_limits(waveform_features_plain(halves), halves, TOL["waveform_features"])
+    diffs = {}
+    for (k, v), limit in zip(cpu["features"].items(), limits):
+        diffs[k] = abs(card["features"][k] - v)
+        assert diffs[k] <= float(limit.mean()), (k, card["features"][k], v, float(limit.mean()))
+    print(f"analyze_records: {card['n']} waveform pairs in {len(records)} chunks in "
+          f"{wall:.4f} s on the card (CPU {cpu_wall:.4f} s); launches {launches}; feature "
+          f"means {({k: round(v, 6) for k, v in card['features'].items()})}, |card - CPU| "
+          f"{({k: float(f'{v:.3g}') for k, v in diffs.items()})}, each within the mean of "
+          f"K3's per-row tolerance; average waveforms equal", flush=True)
+    return launches["waveform_features"]
 
 
 def main() -> int:
@@ -2357,7 +2666,7 @@ def main() -> int:
     run_training_flags(cfg, state, train + [labelled_block(train_rng, EVENTS_PER_CHUNK,
                                                            n_samples)], val)
     # the JSON line reports each kernel's launches on the training path where
-    # it runs there, else on the waveform-features path
+    # it runs there; K3's are replaced by those of its user path below
     launches = {name: train_launches[name] or launches.get(name, 0) for name in train_launches}
 
     # -- 7. SubMPSD_w128.json in half precision -------------------------------
@@ -2378,7 +2687,13 @@ def main() -> int:
     # -- 10. the prediction writers --------------------------------------------
     run_writers()
 
-    # -- 11. report -----------------------------------------------------------
+    # -- 11. the evaluation ----------------------------------------------------
+    run_evaluation(state, train, val)
+
+    # -- 12. the waveform analysis, K3's user path ------------------------------
+    launches["waveform_features"] = run_analyze(chunks, n_samples)
+
+    # -- 13. report -----------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),

@@ -1,8 +1,10 @@
 """The port stands alone: importing it, module by module, loads neither
-JAX nor the JAX package nor h5py, and no source of the port or of
-chip_smoke.py refers to them. The one exception: the HDF5 loaders import
-h5py inside their own functions (``H5PY_LOADERS``), when they run, so that
-the package imports without it."""
+JAX nor the JAX package nor h5py, matplotlib or tensorboardX, and no
+source of the port or of chip_smoke.py refers to JAX, the JAX package or
+h5py. The one exception: the HDF5 loaders import h5py inside their own
+functions (``H5PY_LOADERS``), when they run, so that the package imports
+without it. matplotlib and tensorboardX are imported only inside the
+functions that draw or log (the card machine has neither)."""
 import ast
 import os
 import pkgutil
@@ -12,7 +14,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "waveformml_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "h5py", "waveformml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "h5py", "waveformml_tpu", "matplotlib",
+             "tensorboardX")
+#: imported only inside functions, never when a module of the port is imported
+LAZY = ("matplotlib", "tensorboardX")
 #: module → the top-level functions of it whose body may import h5py
 H5PY_LOADERS = {"waveformml_tpu_torch/io/hdf5.py": ("open_h5", "is_group", "_fixed_str_type")}
 
@@ -43,7 +48,9 @@ def test_import_loads_no_jax():
     for name in ("ops.waveform_features", "inference.model", "engineering.trainer", "optim",
                  "nn.functional", "datasets.synthetic", "inference.prediction_writer",
                  "write_predictions", "scripts.write_z_and_class", "io.hdf5", "io.sql",
-                 "io.xml"):
+                 "io.xml", "evaluate", "evaluation.psd_eval", "evaluation.z_eval",
+                 "engineering.callbacks", "utils.plot", "utils.tb",
+                 "scripts.analyze_waveforms"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -80,4 +87,28 @@ def test_sources_do_not_refer_to_jax():
             if m.group(0).strip() == "import h5py" and line in allowed:
                 continue
             offenders.append(f"{rel}:{line}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_matplotlib_and_tensorboardx_are_imported_inside_functions():
+    """No module of the port imports matplotlib or tensorboardX at its top
+    level (including under a top-level ``if`` or ``try``)."""
+    offenders = []
+    for dirpath, _, filenames in os.walk(PORT):
+        for f in filenames:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read())
+            nodes = list(tree.body)
+            while nodes:
+                node = nodes.pop()
+                if isinstance(node, (ast.If, ast.Try)):
+                    nodes += node.body + node.orelse + getattr(node, "finalbody", [])
+                    nodes += [s for h in getattr(node, "handlers", []) for s in h.body]
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                         [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+                if any(n.split(".")[0] in LAZY for n in names):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
     assert not offenders, offenders

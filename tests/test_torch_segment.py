@@ -238,6 +238,27 @@ def test_criterion_params_are_refused():
 
 
 def test_evaluators_are_not_ported_yet():
-    _, ptask = _pair("LitZ", _config("LitZ", Z_NET))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ptask.make_evaluator()
+    """Each segment task's ``make_evaluator`` builds the JAX task's
+    evaluator class with its settings; where the port has no evaluator
+    (the base, which ``LitWaveform`` would reach), it raises, naming the
+    ROADMAP.md item that ports it."""
+    from waveformml_tpu_torch.engineering.base import TaskBase
+
+    classifier = copy.deepcopy(SEG_NET)
+    classifier["criterion_class"] = "CrossEntropyLoss"
+    for name, cfg in (("LitZ", _config("LitZ", Z_NET)),
+                      ("LitZ", _config("LitZ", Z_NET, algorithm="features")),
+                      ("LitEZ", _config("LitEZ", EZ_NET)),
+                      ("LitEZ", _config("LitEZ", EZ_NET, algorithm="features")),
+                      ("LitSegQuantifier", _config("LitSegQuantifier", SEG_NET,
+                                                   target_index=1, SELoss=True)),
+                      ("LitSegClassifier", _config("LitSegClassifier", classifier, n_type=5))):
+        jtask, ptask = _pair(name, cfg)
+        want, got = jtask.make_evaluator(), ptask.make_evaluator()
+        assert type(got).__name__ == type(want).__name__, name
+        assert type(got).__module__ == type(want).__module__.replace(
+            "waveformml_tpu.", "waveformml_tpu_torch."), name
+        for attr in ("SE_only", "target_index", "E_scale", "hascal"):
+            assert getattr(got, attr, None) == getattr(want, attr, None), (name, attr)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        TaskBase.make_evaluator(ptask)

@@ -116,6 +116,8 @@ class TaskBase:
         self.criterion = build_criterion(
             config.net_config.criterion_class,
             getattr(config.net_config, "criterion_params", None))
+        #: the test pass's evaluator (``Trainer.test`` builds it)
+        self.evaluator = None
         # grow-only per-site capacity of the head's slot layout, so that its
         # [S, MAX] shape does not flap between buckets from batch to batch
         self._site_cap = 0
@@ -139,8 +141,17 @@ class TaskBase:
         return z_model
 
     def make_evaluator(self, logger=None):
-        raise NotImplementedError("the evaluators are not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
+        """The task's test-pass evaluator (each task has its own; that of
+        ``LitWaveform`` comes with the task)."""
+        raise NotImplementedError(f"{type(self).__name__} has no evaluator in the port "
+                                  "(LitWaveform's: ROADMAP.md queue 1 item 9)")
+
+    def _eval_params(self) -> Dict:
+        """The config's ``evaluation_config`` as a dict ({} without one)."""
+        from waveformml_tpu_torch.config import to_dict
+
+        ec = getattr(self.config, "evaluation_config", None)
+        return to_dict(ec) if ec is not None else {}
 
     # -- host-side batch preparation -------------------------------------------
     def row_bucket(self, block: FileBlock) -> int:

@@ -3,8 +3,8 @@ masked loss and metric sums for training and validation, and their
 test-time outputs. ``LitPSD`` classifies events; ``LitZ`` and ``LitEZ``
 regress z, and E and z, per segment through the dense-grid segment loss;
 ``LitSegClassifier`` and ``LitSegQuantifier`` classify and regress per
-row, optionally over the single-ended segments only. Their evaluators are
-not ported yet (``make_evaluator`` raises)."""
+row, optionally over the single-ended segments only. ``make_evaluator``
+picks each task's evaluator as the JAX task does."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -64,6 +64,18 @@ class LitPSD(TaskBase):
                 "pred": torch.argmax(outputs, dim=-1),
                 "logprob": torch.log_softmax(outputs, dim=-1)}
 
+    def make_evaluator(self, logger=None):
+        """``PhysEvaluator`` over the phys-feature datasets, else
+        ``PSDEvaluator`` (ref: LitPSD.py:35-46)."""
+        from waveformml_tpu_torch.evaluation.psd_eval import PhysEvaluator, PSDEvaluator
+
+        dc = self.config.dataset_config
+        cls = (PhysEvaluator if dc.dataset_class in (
+            "PulseDatasetDet", "PulseDatasetDetWithZ", "PulseDatasetDetWithEZ")
+            else PSDEvaluator)
+        return cls(list(self.config.system_config.type_names), logger,
+                   calgroup=getattr(dc, "calgroup", None), **self._eval_params())
+
 
 @registry.register("LitZ", aliases=("src.engineering.LitZ.LitZ", "LitZ.LitZ"))
 class LitZ(TaskBase):
@@ -119,6 +131,27 @@ class LitZ(TaskBase):
         _, _, target_dense, preds = self.segment_loss(outputs, db, db["labels_rows"])
         return {"predictions": preds, "target": target_dense}
 
+    def make_evaluator(self, logger=None):
+        """``ZEvaluatorRealWFNorm`` where the test set's labels are the
+        phys records, ``ZEvaluatorPhys`` for the ``features`` algorithm,
+        else ``ZEvaluatorWF`` (ref: LitZ.py:49-60)."""
+        from waveformml_tpu_torch.evaluation.z_eval import (ZEvaluatorPhys,
+                                                            ZEvaluatorRealWFNorm, ZEvaluatorWF)
+
+        dc = self.config.dataset_config
+        calgroup = getattr(dc, "calgroup", None)
+        params = self._eval_params()
+        tp = getattr(dc, "test_dataset_params", None)
+        if (tp is not None and getattr(tp, "label_name", None) == "phys"
+                and not hasattr(tp, "label_index")):
+            if hasattr(tp, "additional_fields"):
+                params["additional_field_names"] = list(tp.additional_fields)
+            return ZEvaluatorRealWFNorm(logger, calgroup=calgroup, **params)
+        params.pop("additional_field_names", None)
+        if getattr(self.config.net_config, "algorithm", None) == "features":
+            return ZEvaluatorPhys(logger, calgroup=calgroup, **params)
+        return ZEvaluatorWF(logger, calgroup=calgroup, **params)
+
 
 @registry.register("LitEZ", aliases=("src.engineering.LitEZ.LitEZ", "LitEZ.LitEZ"))
 class LitEZ(TaskBase):
@@ -162,6 +195,15 @@ class LitEZ(TaskBase):
         _, _, tz, pz = self.segment_loss(outputs[:, 1:2], db, t[:, 1])
         return {"predictions": torch.cat([pe, pz], dim=1),
                 "target": torch.cat([te, tz], dim=1)}
+
+    def make_evaluator(self, logger=None):
+        """``EZEvaluatorPhys`` for the ``features`` algorithm, else
+        ``EZEvaluatorWF`` (ref: LitEZ.py:26-35)."""
+        from waveformml_tpu_torch.evaluation.ez_eval import EZEvaluatorPhys, EZEvaluatorWF
+
+        cls = EZEvaluatorPhys if self.phys_coord else EZEvaluatorWF
+        return cls(logger, calgroup=getattr(self.config.dataset_config, "calgroup", None),
+                   e_scale=self.e_adjust)
 
 
 class _RowTask(TaskBase):
@@ -219,6 +261,12 @@ class LitSegClassifier(_RowTask):
         return {"logits": outputs, "pred": torch.argmax(outputs, dim=-1),
                 "prob": torch.softmax(outputs, dim=-1)}
 
+    def make_evaluator(self, logger=None):
+        from waveformml_tpu_torch.evaluation.pid_eval import PIDEvaluator
+
+        return PIDEvaluator(logger, calgroup=getattr(self.config.dataset_config, "calgroup", None),
+                            SE_only=self.SE_only)
+
 
 @registry.register("LitSegQuantifier",
                    aliases=("src.engineering.LitSegQuantifier.LitSegQuantifier",
@@ -246,3 +294,9 @@ class LitSegQuantifier(_RowTask):
     def test_outputs(self, outputs: torch.Tensor,
                      db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {"predictions": outputs}
+
+    def make_evaluator(self, logger=None):
+        from waveformml_tpu_torch.evaluation.seg_eval import SegEvaluator
+
+        return SegEvaluator(logger, calgroup=getattr(self.config.dataset_config, "calgroup", None),
+                            target_index=self.target_index, SE_only=self.SE_only)

@@ -14,7 +14,10 @@ gives them. ``device=None`` means the card.
 
 Each step's host-clock phases and, on the card, the device time of its
 forward, backward and optimizer step (CUDA events, read once per epoch so
-that no step waits for the device) are kept in ``step_phases``. A
+that no step waits for the device) are kept in ``step_phases``, and each
+test batch's in ``test_phases``. ``test`` builds the task's evaluator and
+feeds it every test batch; the default callback (``LoggingCallback``)
+renders it at the end of the pass. A
 ``logger`` (``utils.tb.TBLogger``) gets what the JAX ``Trainer`` logs:
 each epoch's lr and its own metrics, and the test metrics at step 0.
 ``add_argparse_args`` and ``kwargs_from_args`` make the arguments CLI
@@ -36,7 +39,7 @@ import torch
 from waveformml_tpu_torch.config import to_dict
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
-from waveformml_tpu_torch.engineering.callbacks import EarlyStopping
+from waveformml_tpu_torch.engineering.callbacks import EarlyStopping, LoggingCallback
 from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_scheduler,
                                         clip_by_global_norm_, set_learning_rate)
 
@@ -62,7 +65,8 @@ class Trainer:
 
     * ``callbacks``: objects whose ``on_validation_end(trainer, metrics,
       epoch)``, ``on_train_end(trainer)`` and ``on_test_end(trainer,
-      metrics)`` are called where they exist;
+      metrics)`` are called where they exist (None: one
+      ``LoggingCallback``);
     * ``checkpoint_dir``: where the best checkpoint goes (none without it),
       one ``torch.save`` file ``epoch=E-val_loss=V.ckpt`` (``save_checkpoint``);
     * ``max_epochs``: defaults to the config's ``total_epoch``;
@@ -103,7 +107,7 @@ class Trainer:
         task.device = self.device
         task.model.to(self.device)
         oc = config.optimize_config
-        self.callbacks = list(callbacks or [])
+        self.callbacks = list(callbacks) if callbacks is not None else [LoggingCallback()]
         self.logger = logger
         self.checkpoint_dir = checkpoint_dir
         self.max_epochs = max_epochs if max_epochs is not None else oc.total_epoch
@@ -136,6 +140,16 @@ class Trainer:
         #: every training step's phases: host_prep_s, h2d_s, device_ms (None
         #: off the card), wall_s (from its start to the next step's), events
         self.step_phases: List[Dict[str, Any]] = []
+        #: every test batch's phases: host_prep_s, h2d_s, device_ms (the
+        #: forward's CUDA-event span; None off the card), copy_back_s (the
+        #: test outputs to the host), collect_s (the evaluator's or the
+        #: caller's ``collect``), wall_s (from its start to the next
+        #: batch's, the last to the end of the pass), events
+        self.test_phases: List[Dict[str, Any]] = []
+        #: the last validation's and test pass's metric arrays (the
+        #: confusion matrix), as numpy
+        self.last_val_arrays: Dict[str, np.ndarray] = {}
+        self.last_test_arrays: Dict[str, np.ndarray] = {}
         self._epoch_wall: List[float] = []
         self._epoch_rows: List[float] = []
 
@@ -168,16 +182,18 @@ class Trainer:
                 if name not in cls._NON_FLAG_PARAMS and hasattr(args, name)}
 
     # -- batches ----------------------------------------------------------------------
-    def device_batch(self, block: FileBlock) -> Tuple[Dict[str, torch.Tensor], float, float]:
+    def device_batch(self, block: FileBlock
+                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, np.ndarray], float, float]:
         """Pad a block, build its plans on the host and copy it to the
-        device; returns the device batch and the seconds of the two phases
-        (host prep, copy in) on the host clock."""
+        device; returns the device batch, the host batch it was copied
+        from, and the seconds of the two phases (host prep, copy in) on the
+        host clock."""
         task = self.task
         t0 = time.perf_counter()
         db_host = task.prepare_block(block, task.row_bucket(block), task.event_bucket(block))
         t1 = time.perf_counter()
         db = task.to_device(db_host)
-        return db, t1 - t0, time.perf_counter() - t1
+        return db, db_host, t1 - t0, time.perf_counter() - t1
 
     # -- steps ------------------------------------------------------------------------
     def training_step(self, db: Dict[str, torch.Tensor]):
@@ -277,7 +293,7 @@ class Trainer:
         rows = 0
         for block in _take(loader, self._limit(loader, self.limit_train_batches)):
             start = time.perf_counter()
-            db, host_prep_s, h2d_s = self.device_batch(block)
+            db, _, host_prep_s, h2d_s = self.device_batch(block)
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True)) if cuda else None
             if events:
@@ -308,20 +324,54 @@ class Trainer:
     @torch.no_grad()
     def _eval_epoch(self, loader, prefix: str, limit: Optional[float] = None,
                     collect: Optional[Callable] = None) -> Dict[str, float]:
+        """One pass over ``loader`` in eval mode: the loss and metrics under
+        ``prefix``; the metric arrays kept as ``last_<prefix>_arrays``
+        (copied off the device once, after the pass). ``collect(block,
+        db_host, test_out)`` gets each batch's host arrays and its test
+        outputs (numpy); a test pass records ``test_phases``."""
+        cuda = self.device.type == "cuda"
         loss_sum, weight = 0.0, 0.0
         agg: Dict[str, torch.Tensor] = {}
+        phases: List[Dict[str, Any]] = []
         for block in _take(loader, self._limit(loader, limit)):
-            db = self.device_batch(block)[0]
+            start = time.perf_counter()
+            db, db_host, host_prep_s, h2d_s = self.device_batch(block)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)) if cuda else None
+            if events:
+                events[0].record()
             outputs = self.task.model_outputs(db, train=False)
+            if events:
+                events[1].record()
             ls, w, metrics = self.task.loss_and_metrics(outputs, db)
             loss_sum += float(ls)
             weight += float(w)
             _accumulate(agg, metrics)
+            copy_back_s = collect_s = 0.0
             if collect is not None:
                 n = (block.coords.shape[0] if self.task.output_unit == "row"
                      else self.task.n_events(block))
-                collect(block, db, {k: v[:n].cpu().numpy()
-                                    for k, v in self.task.test_outputs(outputs, db).items()})
+                t0 = time.perf_counter()
+                test_out = {k: v[:n].cpu().numpy()
+                            for k, v in self.task.test_outputs(outputs, db).items()}
+                t1 = time.perf_counter()
+                collect(block, db_host, test_out)
+                copy_back_s, collect_s = t1 - t0, time.perf_counter() - t1
+            phases.append({"start": start, "host_prep_s": host_prep_s, "h2d_s": h2d_s,
+                           "cuda_events": events, "copy_back_s": copy_back_s,
+                           "collect_s": collect_s, "events": self.task.n_events(block)})
+        end = time.perf_counter()
+        for i, p in enumerate(phases):
+            ev = p.pop("cuda_events")
+            p["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            p["wall_s"] = (phases[i + 1]["start"] if i + 1 < len(phases) else end) - p.pop("start")
+        if prefix == "test":
+            self.test_phases = phases
+        arrays = {k: v.cpu().numpy() for k, v in agg.items() if v.dim() >= 2}
+        if prefix == "val":
+            self.last_val_arrays = arrays
+        else:
+            self.last_test_arrays = arrays
         out = {f"{prefix}_loss": loss_sum / max(weight, 1e-12)}
         out.update(_finalize(agg, f"{prefix}_"))
         return out
@@ -335,10 +385,23 @@ class Trainer:
         task's metrics, the JAX ``Trainer``'s keys), also given to the
         callbacks' ``on_test_end`` and logged at step 0. ``collect(block,
         db, test_out)`` is called for each test block, in order, with its
-        device batch and its test outputs (numpy, the task's
-        ``test_outputs``, e.g. ``logits``, ``pred``, ``logprob``, over the
-        block's real events, or its real rows for a per-row task)."""
+        host batch (the padded numpy arrays of ``prepare_block``) and its
+        test outputs (numpy, the task's ``test_outputs``, e.g. ``logits``,
+        ``pred``, ``logprob``, over the block's real events, or its real
+        rows for a per-row task). Without ``collect`` the task's evaluator
+        (``task.evaluator``, else built by ``make_evaluator(logger)``; a
+        failure to build it is a warning) gets each block through its
+        ``add_batch``."""
         data_module.setup("test")
+        evaluator = getattr(self.task, "evaluator", None)
+        if evaluator is None:
+            try:
+                evaluator = self.task.make_evaluator(self.logger)
+                self.task.evaluator = evaluator
+            except Exception as e:
+                log.warning("evaluator construction failed: %s", e)
+        if collect is None and evaluator is not None:
+            collect = evaluator.add_batch
         metrics = self._eval_epoch(data_module.test_dataloader(), "test",
                                    self.limit_test_batches, collect)
         for cb in self.callbacks:

@@ -1,15 +1,16 @@
-"""SQLite calibration access (the port's copy of the part of
-waveformml_tpu/io/sql.py that the prediction writers use): per-segment
-gains, energy resolutions and times from the experiment's calibration
-schema (named_object, segment_response, calibration_group, pmt_response,
-graph_points), and a synthetic database in that schema for tests. The
-calibration curves (``CalCurve``) and the waveform-parameter database come
-with the evaluation."""
+"""SQLite calibration access (the port's copy of
+waveformml_tpu/io/sql.py): per-segment gains, energy resolutions and times
+and the per-PMT calibration curves (``CalCurve``, a scipy smoothing spline
+through a curve's graph points) from the experiment's calibration schema
+(named_object, segment_response, calibration_group, pmt_response,
+graph_points), the waveform-parameter sweep database (``WFParamsDB``), and
+a synthetic calibration database in that schema for tests. scipy is
+imported when a curve is first evaluated."""
 from __future__ import annotations
 
 import sqlite3
 from math import floor
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +64,50 @@ class SQLiteBase:
         self._conn.close()
 
 
+class CalCurve:
+    """A calibration curve's graph points and its scipy smoothing spline
+    (weighted by 1/dy unless some dy is 0); a curve without points is
+    falsy."""
+
+    def __init__(self):
+        self.xs: List[float] = []
+        self.ys: List[float] = []
+        self.xerr: List[float] = []
+        self.yerr: List[float] = []
+        self.spline = None
+
+    def __len__(self) -> int:
+        return len(self.xs)
+
+    def add_point(self, x: float, y: float, dx: float = 0.0, dy: float = 0.0) -> None:
+        self.xs.append(x)
+        self.ys.append(y)
+        self.xerr.append(dx)
+        self.yerr.append(dy)
+
+    def sort(self) -> None:
+        order = sorted(zip(self.xs, self.ys, self.xerr, self.yerr))
+        self.xs, self.ys, self.xerr, self.yerr = (list(t) for t in zip(*order))
+
+    def get_spline(self) -> None:
+        from scipy.interpolate import splrep
+
+        if 0 in self.yerr:
+            self.spline = splrep(self.xs, self.ys)
+        else:
+            self.spline = splrep(self.xs, self.ys, w=[1.0 / y for y in self.yerr])
+
+    def eval(self, x):
+        from scipy.interpolate import splev
+
+        if self.spline is None:
+            self.get_spline()
+        return splev(x, self.spline)
+
+    def __repr__(self):
+        return f"CalCurve(x={self.xs}, y={self.ys})"
+
+
 def chan_to_coords(chan: int) -> Tuple[int, int, int]:
     """PMT channel → (x, y, side)."""
     r = chan % 2
@@ -105,6 +150,84 @@ class CalibrationDB(SQLiteBase):
             rel_times[x, y] = r[5]
             seg_times[x, y] = r[6]
         return gains, eres, rel_times, seg_times
+
+    def get_curves(self):
+        """The group's per-channel curves, one dict ``{chan: CalCurve or
+        None}`` each of attenuation, light sum, time, linearity, PSD and
+        time interpolation, and ``e_ncapt`` ``[NX, NY, 2]``."""
+        curves: Tuple[Dict[int, Optional[CalCurve]], ...] = tuple({} for _ in range(6))
+        e_ncapt = np.zeros((NX, NY, 2), dtype=np.float32)
+        row = self.fetchone("SELECT pmt_response_id FROM calibration_group WHERE object_id = ?",
+                            (self.calgroup_id,))
+        pmt_response_id = row[0] if row else None
+        if pmt_response_id:
+            for r in self.fetchall(
+                    "SELECT chan, atten_curve_id, lsum_curve_id, time_curve_id, "
+                    "linearity_curve_id, psd_curve_id, t_interp_curve_id, E_ncapt "
+                    "FROM pmt_response WHERE object_id = ?", (pmt_response_id,)):
+                if r[0] is None:
+                    continue
+                chan = int(r[0])
+                for k in range(6):
+                    curves[k][chan] = self.get_cal_curve(r[k + 1])
+                x, y, side = chan_to_coords(chan)
+                e_ncapt[x, y, side] = r[7]
+        return (*curves, e_ncapt)
+
+    def get_cal_curve(self, obj_id) -> Optional[CalCurve]:
+        """The curve of a graph-points object, None without an id."""
+        if not obj_id:
+            return None
+        curve = CalCurve()
+        for r in self.fetchall("SELECT x, y, dx, dy FROM graph_points WHERE object_id = ?",
+                               (obj_id,)):
+            curve.add_point(*r)
+        return curve
+
+
+class WFParamsDB(SQLiteBase):
+    """The waveform-simulation parameter sweep: parameter sets
+    (``param_set``) and each set's per-segment curve differences from a
+    calibration (``curve_diffs``)."""
+
+    def insert_set(self, param_set: Dict) -> None:
+        self.insert_dict("param_set", param_set)
+
+    def get_unique_name(self) -> str:
+        self.execute("SELECT seq FROM SQLITE_SEQUENCE WHERE name = 'param_set'")
+        result = self.cur.fetchone()
+        return f"WaveCal{int(result[0]) + 1}" if result else "WaveCal1"
+
+    def retrieve_simnames_for_eval(self, calname: str):
+        self.execute(
+            "SELECT id, name FROM param_set WHERE id NOT IN "
+            "(SELECT p.id FROM param_set p LEFT JOIN curve_diffs c "
+            "ON c.param_set_id = p.id WHERE c.calname = ?)", (calname,))
+        return self.cur.fetchall()
+
+    def insert_eval_for_seg(self, calname: str, seg: int, wfid: int,
+                            params: Sequence[float]) -> None:
+        self.insert_dict("curve_diffs", {
+            "param_set_id": wfid, "calname": calname, "seg": seg,
+            "normed_diff": sum(params), "psd_nd0": params[0], "psd_nd1": params[1],
+            "att_nd0": params[2], "att_nd1": params[3],
+            "t_nd0": params[4], "t_nd1": params[5]})
+
+    def query_smallest_diffs(self, calname: str, seg: int, params=None,
+                             limit: int = 10, min=None, max=None):
+        plist = (", p." + ", p.".join(params)) if params else ""
+        where = ""
+        if min is not None:
+            where += f" and CAST(LTRIM(p.name, 'WaveCal') AS INTEGER) >= {int(min)}"
+        if max is not None:
+            where += f" and CAST(LTRIM(p.name, 'WaveCal') AS INTEGER) <= {int(max)}"
+        self.execute(
+            f"SELECT c.seg, p.name, c.normed_diff, c.att_nd0, c.att_nd1, c.t_nd0, "
+            f"c.t_nd1, c.psd_nd0, c.psd_nd1{plist} FROM param_set p LEFT JOIN "
+            f"curve_diffs c ON c.param_set_id = p.id WHERE c.seg = ? AND "
+            f"c.calname = ?{where} ORDER BY c.normed_diff ASC LIMIT {int(limit)}",
+            (seg, calname))
+        return self.cur.fetchall()
 
 
 def get_gains(db_path: str, calgroup: str) -> np.ndarray:

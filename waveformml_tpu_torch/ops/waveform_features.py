@@ -88,6 +88,21 @@ def _condition(terms: torch.Tensor) -> torch.Tensor:
     return torch.where(mass == 0, torch.ones_like(mass), mass / terms.sum(dim=1).abs())
 
 
+def features_limits(want, wfs: torch.Tensor, tol: float) -> Tuple[torch.Tensor, ...]:
+    """Each row's allowed |K3 - plain| for (arrival, psd, total, peak),
+    float64 [n] each, given the plain version's outputs ``want`` over rows
+    wfs: tol·(1 + |want|), times the row's condition number for total and
+    psd (see ``features_close``)."""
+    x = wfs.to(torch.float64)
+    a = want[0].to(torch.float64)
+    fi = torch.arange(x.shape[1], dtype=torch.float64, device=x.device).expand_as(x)
+    windows = torch.cat([x * _window_weights(fi, a + PSD_WINDOW_LO, a + PSD_DIVIDER),
+                         x * _window_weights(fi, a + PSD_DIVIDER, a + PSD_WINDOW_HI)], dim=1)
+    kappa = (None, _condition(windows), _condition(x), None)
+    units = [tol * (1 + w.to(torch.float64).abs()) for w in want]
+    return tuple(u if k is None else u * k for u, k in zip(units, kappa))
+
+
 def features_close(got, want, wfs: torch.Tensor, tol: float) -> Dict[str, float]:
     """Hold K3's outputs ``got`` against the plain version's ``want`` (both
     (arrival, psd, total, peak)) for rows wfs. Returns the largest |got -
@@ -103,17 +118,11 @@ def features_close(got, want, wfs: torch.Tensor, tol: float) -> Dict[str, float]
       Σ|x|/|Σx|; for psd = slow/(fast + slow) it is Σ|w·x| over both
       windows / |fast + slow|, which bounds psd's move to that factor
       times (1 + |psd|)."""
-    x = wfs.to(torch.float64)
-    a = want[0].to(torch.float64)
-    fi = torch.arange(x.shape[1], dtype=torch.float64, device=x.device).expand_as(x)
-    windows = torch.cat([x * _window_weights(fi, a + PSD_WINDOW_LO, a + PSD_DIVIDER),
-                         x * _window_weights(fi, a + PSD_DIVIDER, a + PSD_WINDOW_HI)], dim=1)
-    kappa = (None, _condition(windows), _condition(x), None)
+    limits = features_limits(want, wfs, tol)
     out = {"max_abs_err": 0.0, "psd_excess": 0.0, "psd_kappa": 1.0}
-    for name, g, w, k in zip(("arrival", "psd", "total", "peak"), got, want, kappa):
+    for name, g, w, limit in zip(("arrival", "psd", "total", "peak"), got, want, limits):
         d = (g.to(torch.float64) - w.to(torch.float64)).abs()
         unit = tol * (1 + w.to(torch.float64).abs())
-        limit = unit if k is None else unit * k
         bad = ~(d <= limit)
         if bool(bad.any()):
             i = int(bad.nonzero()[0, 0])
@@ -123,7 +132,8 @@ def features_close(got, want, wfs: torch.Tensor, tol: float) -> Dict[str, float]
             out["max_abs_err"] = max(out["max_abs_err"], float(d.max()))
             if name == "psd":
                 i = int((d / unit).argmax())
-                out["psd_excess"], out["psd_kappa"] = float(d[i] / unit[i]), float(k[i])
+                out["psd_excess"], out["psd_kappa"] = (float(d[i] / unit[i]),
+                                                       float(limit[i] / unit[i]))
     return out
 
 

@@ -1,10 +1,13 @@
-"""TensorBoard scalars of a run (the port's counterpart of ``TBLogger`` in
-waveformml_tpu/utils/tb.py). tensorboardX is imported when a logger is
-constructed, so the package imports without it."""
+"""TensorBoard scalars, figures and histograms of a run (the port's
+counterpart of ``TBLogger`` in waveformml_tpu/utils/tb.py). tensorboardX
+is imported when a logger is constructed, so the package imports without
+it; figures need matplotlib."""
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Any, Dict
+
+import numpy as np
 
 
 class TBLogger:
@@ -24,6 +27,22 @@ class TBLogger:
     def log_scalars(self, values: Dict[str, float], step: int) -> None:
         for k, v in values.items():
             self.log_scalar(k, v, step)
+
+    def log_figure(self, tag: str, figure, step: int = 0, close: bool = True) -> None:
+        self.writer.add_figure(tag, figure, step, close=close)
+
+    def log_histogram(self, tag: str, values, step: int = 0) -> None:
+        self.writer.add_histogram(tag, np.asarray(values), step)
+
+    def log_hparams(self, hparams: Dict[str, Any], metrics: Dict[str, float]) -> None:
+        """The run's scalar hyperparameters with ``metrics``; where the
+        writer refuses them, the metrics as scalars at step 0."""
+        flat = {k: v for k, v in hparams.items() if isinstance(v, (int, float, str, bool))}
+        try:
+            self.writer.add_hparams(flat, metrics)
+        except Exception:
+            for k, v in metrics.items():
+                self.log_scalar(k, v, 0)
 
     def flush(self) -> None:
         self.writer.flush()

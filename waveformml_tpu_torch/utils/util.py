@@ -1,7 +1,8 @@
 """Host helpers (the port's own copies of those of
 waveformml_tpu/utils/util.py): logging, the model folder and the run
 directories' names, file-name patterns, thread counts, the run's
-provenance, checkpoint discovery and background prefetch."""
+provenance, checkpoint discovery, background prefetch, and the bins and
+safe division of the evaluators."""
 from __future__ import annotations
 
 import getpass
@@ -18,6 +19,8 @@ import sys
 import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional, Sequence, TypeVar
+
+import numpy as np
 
 T = TypeVar("T")
 
@@ -257,3 +260,23 @@ def prefetch_iter(iterable: Iterable[T], depth: int = 2) -> Iterator[T]:
             yield item
     finally:
         stop.set()
+
+
+def get_bins(low: float, high: float, n: int) -> np.ndarray:
+    """n+1 bin edges from low to high."""
+    return np.linspace(low, high, int(n) + 1)
+
+
+def get_bin_midpoints(low: float, high: float, n: int) -> np.ndarray:
+    """The n bins' centres from low to high."""
+    edges = get_bins(low, high, n)
+    return 0.5 * (edges[:-1] + edges[1:])
+
+
+def safe_divide(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Elementwise a/b in float64, 0 where b == 0."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    out = np.zeros(np.broadcast(a, b).shape, dtype=np.float64)
+    np.divide(a, b, out=out, where=(b != 0))
+    return out
