@@ -112,10 +112,24 @@ order, it:
    in, device forward, copy back, ``add_batch`` on the host) and
    ``dump()``'s time, and the figures where matplotlib renders them (else
    that it does not);
-12. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
+12. exports the eval forward of the four configs that serve on the card
+   and reloads it: SubMPSD.json through ``evaluate.run`` with ``--script``
+   (what ``python -m waveformml_tpu_torch.evaluate --script`` runs), from
+   the evaluation's checkpoint, SubMPSD_w128.json (a 1-epoch fit),
+   SegQuantifier.json and SingleEndedZCNN.json through
+   ``Trainer.export_model``; prints each program's custom-op nodes (K1 in
+   the row-path ones, K2 in the SubMPSD ones); reloads all four in one
+   fresh process that imports torch and the port only and runs each on
+   the card, its output within 1e-5 of the eager forward and its K1 and K2
+   launches equal to one eager forward's; runs ``torch.library.opcheck``
+   on the five ops with CUDA tensors at SubMPSD.json's shapes; and times
+   the op dispatch (a K1 call, a K2 call and an eager SubMPSD.json training
+   step through the ops, with the raw ctypes calls and through
+   ``torch.library.custom_op`` twins of the ops);
+13. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
    serving chunks' waveform pairs: K3 once a chunk, the feature means
    against the CPU run within K3's tolerance;
-13. prints one JSON line describing every kernel (launches: those of the
+14. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the analysis path; K1 and K4 also at
    SegQuantifier.json's widths, with its training run's launches), the
    card line again, and as its last line ``{"ok": true, "device": {...}}``.
@@ -142,8 +156,8 @@ import time
 import numpy as np
 import torch
 
-CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "config", "examples", "SubMPSD.json")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT, "config", "examples", "SubMPSD.json")
 # the compute-heavy width, in half precision as shipped (bf16 features,
 # float32 parameters)
 CONFIG_W128 = os.path.join(os.path.dirname(CONFIG), "SubMPSD_w128.json")
@@ -234,6 +248,11 @@ WRITER_CALGROUP = "smokecal"
 EVAL_CHUNKS, EVAL_SEGMENT_CHUNKS = 4, 2
 EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-5
 EVAL_CALGROUP = "evalcal"
+# export phase: a reloaded program against the eager forward, the run-to-run
+# bound of K1's and K2's float atomics; calls a block of the dispatch timing
+# and its rounds (each round times every route twice, in mirrored order)
+EXPORT_TOL = 1e-5
+DISPATCH_CALLS, DISPATCH_ROUNDS = 100, 5
 
 
 def card_line() -> str:
@@ -1071,16 +1090,11 @@ def run_w128(chunks, train, val):
     from waveformml_tpu_torch.detector import MAX_RANGE
     from waveformml_tpu_torch.inference.model import InferenceModel
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
-    from waveformml_tpu_torch.models.nets import SubMPSDNet
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
 
     cfg = load_config(CONFIG_W128)
     assert cfg.system_config.half_precision
-    gen = torch.Generator().manual_seed(SEED + 10)
-    model = SubMPSDNet(cfg, generator=gen)
-    with torch.no_grad():
-        model.head0.bias.normal_(generator=gen)
-    state = model.state_dict()
+    state = w128_state(cfg)
     # float16 features, as half precision's datasets give them
     inputs = [(ch["coords"], (ch["waveforms"] / MAX_RANGE).astype(np.float16))
               for ch in chunks]
@@ -1159,10 +1173,7 @@ def run_w128(chunks, train, val):
           f"{agree}/{n_events} events", flush=True)
 
     # training, float16 features as the datasets give them
-    def half(blocks):
-        return [FileBlock(b.coords, b.feats.astype(np.float16), b.labels) for b in blocks]
-
-    data = BlockDataModule(half(train), half(val))
+    data = BlockDataModule(half_blocks(train), half_blocks(val))
     trainer = make_trainer(cfg, state, plain=False)
     step = counted_fit(trainer, data, "w128 training")
     plain = make_trainer(cfg, state, plain=True)
@@ -1181,6 +1192,25 @@ def run_w128(chunks, train, val):
               f"{per_chunk[name]}, a training step {a_step[name]}; in the training run "
               f"{step[name]}", flush=True)
     return results
+
+
+def w128_state(cfg) -> dict:
+    """SubMPSD_w128.json's model with seeded random weights and head bias,
+    as a state_dict."""
+    from waveformml_tpu_torch.models.nets import SubMPSDNet
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    model = SubMPSDNet(cfg, generator=gen)
+    with torch.no_grad():
+        model.head0.bias.normal_(generator=gen)
+    return model.state_dict()
+
+
+def half_blocks(blocks):
+    """Blocks with float16 features, as half precision's datasets give them."""
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+
+    return [FileBlock(b.coords, b.feats.astype(np.float16), b.labels) for b in blocks]
 
 
 def seeded_state(cfg, seed: int, block) -> dict:
@@ -2209,10 +2239,12 @@ def array_differences(got, want) -> list:
     return out
 
 
-def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=None):
+def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=None,
+                 work_dir=None):
     """``python -m waveformml_tpu_torch.evaluate``'s ``run`` on the card
     over in-memory test chunks, from a checkpoint written by a 1-epoch fit
-    from ``state``, with every kernel's count set to 0 just before and read
+    from ``state`` (into ``work_dir/<tag>/version_0``, which outlives the
+    call, where given), with every kernel's count set to 0 just before and read
     just after (each launch of the model's kernels a test chunk asserted),
     then again with ``--device cpu`` (the plain versions). Asserts that the
     evaluator was built and fed every chunk; holds the test outputs
@@ -2225,7 +2257,7 @@ def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=No
     metrics, the test pass's events/s and per-chunk split (host prep, copy
     in, device forward, copy back, ``add_batch``), ``dump()``'s ms, and
     the count of figures where matplotlib renders them. Returns the card
-    run's launches."""
+    run's launches and the checkpoint's path."""
     from waveformml_tpu_torch import evaluate
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
@@ -2240,8 +2272,9 @@ def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=No
             write_synthetic_caldb(os.environ["PROSPECT_CALDB"], calgroup, seed=SEED + 70)
         try:
             cfg = load_config(cfg_path)
+            ckpt_dir = os.path.join(work_dir, tag) if work_dir else tmp
             fit = make_trainer(cfg, state, plain=False,
-                               checkpoint_dir=os.path.join(tmp, "version_0"), max_epochs=1)
+                               checkpoint_dir=os.path.join(ckpt_dir, "version_0"), max_epochs=1)
             t0 = time.perf_counter()
             fit.fit(BlockDataModule(train, val))
             print(f"{tag} evaluate: checkpoint of a 1-epoch fit over {len(train)} chunks in "
@@ -2345,24 +2378,27 @@ def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=No
         print(f"{tag} evaluate: dump() was not rendered: matplotlib is not installed on this "
               f"machine (the pass ran without a logger, so dump() returned at once)",
               flush=True)
-    return card["launches"]
+    return card["launches"], fit.best_ckpt_path
 
 
-def run_evaluation(state, train, val) -> dict:
+def run_evaluation(state, train, val, work_dir) -> tuple:
     """The evaluate phase: SubMPSD.json (fp32, its shipped widths, the
     serving run's weights; K1 and K2) over EVAL_CHUNKS test chunks of 4096
     events, SegQuantifier.json (K1) and SingleEndedZCNN.json with a
     calibration group (``Calibrator``, ``CalCurve``, ``calc_calib_z_E``)
-    over EVAL_SEGMENT_CHUNKS, each from seeded weights. Returns the
-    SubMPSD run's launches."""
+    over EVAL_SEGMENT_CHUNKS, each from seeded weights, each checkpoint
+    kept under ``work_dir``. Returns the SubMPSD run's launches and, for
+    each config, (config path, checkpoint, test chunks)."""
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import labelled_block, segment_block
 
     n_samples = load_config(CONFIG).system_config.n_samples
     rng = np.random.default_rng(SEED + 60)
     test = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(EVAL_CHUNKS)]
-    launches = run_evaluate("SubMPSD.json", CONFIG, state, train, val, test, "logits")
+    launches, ckpt = run_evaluate("SubMPSD.json", CONFIG, state, train, val, test, "logits",
+                                  work_dir=work_dir)
     assert launches["subm_conv_rows"] > 0 and launches["site_grouped_matmul"] > 0, launches
+    checkpoints = {CONFIG: (ckpt, test)}
     for i, (path, label, key, calgroup) in enumerate((
             (CONFIG_SEGQ, "ez", "predictions", None),
             (CONFIG_Z, "z", "predictions", EVAL_CALGROUP))):
@@ -2372,9 +2408,322 @@ def run_evaluation(state, train, val) -> dict:
         blocks = [segment_block(rng, EVENTS_PER_CHUNK, n, label=label)
                   for _ in range(2 + 1 + EVAL_SEGMENT_CHUNKS)]
         seg_state = seeded_state(cfg, SEED + 63 + i, blocks[0])
-        run_evaluate(os.path.basename(path), path, seg_state, blocks[:2], blocks[2:3],
-                     blocks[3:], key, calgroup)
-    return launches
+        _, ckpt = run_evaluate(os.path.basename(path), path, seg_state, blocks[:2],
+                               blocks[2:3], blocks[3:], key, calgroup, work_dir=work_dir)
+        checkpoints[path] = (ckpt, blocks[3:])
+    return launches, checkpoints
+
+
+# -- the export -------------------------------------------------------------------------
+
+#: run in a fresh process by ``run_export``, which imports torch and the port
+#: only: reloads each (program, batch, output) of its arguments with
+#: ``load_exported`` and runs it on the card, K1's and K2's counts set to 0
+#: just before and read just after; prints one JSON line a program
+RELOAD_SCRIPT = r"""
+import json
+import sys
+
+import torch
+
+from waveformml_tpu_torch.engineering.trainer import load_exported
+from waveformml_tpu_torch.ops.row_conv import subm_conv_rows
+from waveformml_tpu_torch.ops.site_head import site_grouped_matmul
+
+args = sys.argv[1:]
+for program, batch, out_path in zip(args[0::3], args[1::3], args[2::3]):
+    db = {k: v.cuda() for k, v in torch.load(batch).items()}
+    run = load_exported(program)
+    torch.cuda.synchronize()
+    subm_conv_rows.launches = site_grouped_matmul.launches = 0
+    out = run(db)
+    torch.cuda.synchronize()
+    launches = {"subm_conv_rows": subm_conv_rows.launches,
+                "site_grouped_matmul": site_grouped_matmul.launches}
+    torch.save(out.cpu(), out_path)
+    foreign = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "flax", "waveformml_tpu"})
+    print(json.dumps({"program": program, "shape": list(out.shape), "dtype": str(out.dtype),
+                      "finite": bool(torch.isfinite(out).all()),
+                      "sum_abs": float(out.abs().sum()), "first": out.flatten()[:6].tolist(),
+                      "launches": launches, "foreign_modules": foreign}), flush=True)
+"""
+
+
+def exported_ops(path: str) -> dict:
+    """The custom-op nodes of an exported program's graph, counted by op."""
+    program = torch.export.load(path)
+    ops = {}
+    for node in program.graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("waveformml."):
+            ops[target] = ops.get(target, 0) + 1
+    return ops
+
+
+def loaded_trainer(cfg_path: str, ckpt: str):
+    """A fresh Trainer on the card over the config's task, the checkpoint's
+    weights loaded."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.engineering.trainer import Trainer
+    from waveformml_tpu_torch.registry import retrieve_class
+
+    cfg = load_config(cfg_path)
+    trainer = Trainer(cfg, retrieve_class(cfg.run_config.run_class)(cfg))
+    trainer.load_checkpoint(ckpt)
+    return trainer
+
+
+def check_ops_on_card(trainer, db) -> None:
+    """``torch.library.opcheck`` of the five custom ops with CUDA tensors at
+    SubMPSD.json's shapes: its first conv (K1, K4), its head (K2, K5) and
+    the first PMT's half of the chunk's waveforms (K3)."""
+    from waveformml_tpu_torch.detector import NX, NY
+
+    model = trainer.task.model
+    conv, head = model.stack.l0, model.head0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    mask, feats = db["mask"], db["feats"].float().contiguous()
+    n, n_events = mask.shape[0], db["labels"].shape[0]
+    plan = db[f"plan_k{conv.kernel_size}"]
+    weight, bias = conv.weight.detach(), conv.bias.detach()
+    g = torch.randn(n, weight.shape[2], device="cuda", generator=gen)
+    rows = torch.relu(torch.randn(n, head.cin, device="cuda", generator=gen))
+    rows = torch.where(mask[:, None], rows, 0.0).contiguous()
+    k3 = head.weight.detach().view(head.cin, NX * NY, head.features)
+    layout = (db["plan_site_take"], db["plan_site_ev"], db["plan_site_s"], n_events)
+    d_out = torch.randn(n_events, head.features, device="cuda", generator=gen)
+    n_samples = trainer.config.system_config.n_samples
+    cases = {"subm_conv_rows": (feats, plan, weight, bias, mask),
+             "subm_conv_rows_wgrad": (feats, plan, g, mask, True),
+             "site_grouped_matmul": (rows, k3, *layout, head.bias.detach()),
+             "site_grouped_matmul_bwd": (d_out, rows, k3, *layout, True),
+             "waveform_features": (feats[:, :n_samples].contiguous(),)}
+    for name, args in cases.items():
+        t0 = time.perf_counter()
+        result = torch.library.opcheck(getattr(torch.ops.waveformml, name).default, args)
+        assert set(result.values()) == {"SUCCESS"}, (name, result)
+        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        print(f"export opcheck waveformml::{name} on the card at {shapes}: {result} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+#: the kernels the dispatch timing reroutes: (module, public name)
+ROUTED = (("row_conv", "subm_conv_rows"), ("row_conv", "subm_conv_rows_wgrad"),
+          ("site_head", "site_grouped_matmul"), ("site_head", "site_grouped_matmul_bwd"),
+          ("waveform_features", "waveform_features"))
+#: the same CUDA implementations as ``torch.library.custom_op`` ops, made
+#: once (``custom_op_twins``), for the dispatch timing only
+_TWINS = {}
+
+
+def custom_op_twins() -> dict:
+    """The CUDA implementations of the five kernels registered a second
+    time, through ``torch.library.custom_op`` in a namespace of their own,
+    which is how the ops were first written: ``{public name: op}``."""
+    import importlib
+
+    if not _TWINS:
+        for module, name in ROUTED:
+            fn = getattr(importlib.import_module(f"waveformml_tpu_torch.ops.{module}"),
+                         f"{name}_cuda")
+            _TWINS[name] = torch.library.custom_op(f"waveformml_timing::{name}",
+                                                   mutates_args=(), device_types="cuda")(fn)
+    return _TWINS
+
+
+@contextlib.contextmanager
+def kernel_calls(route: str):
+    """Inside the block, the kernels' public wrappers call them through
+    ``route``: "op" (the port's ops, as they are), "raw" (the CUDA
+    implementations called directly, past the dispatcher: the ctypes
+    launches as they were before the kernels were ops) or "custom_op"
+    (``custom_op_twins``); for a timing only."""
+    import importlib
+
+    modules = [(importlib.import_module(f"waveformml_tpu_torch.ops.{m}"), n) for m, n in ROUTED]
+    saved = [(m, n, getattr(m, f"{n}_op")) for m, n in modules]
+    try:
+        for m, n in modules:
+            if route == "raw":
+                setattr(m, f"{n}_op", getattr(m, f"{n}_cuda"))
+            elif route == "custom_op":
+                setattr(m, f"{n}_op", custom_op_twins()[n])
+        yield
+    finally:
+        for m, n, op in saved:
+            setattr(m, f"{n}_op", op)
+
+
+def routed_times_ms(fn, routes, calls: int = DISPATCH_CALLS,
+                    rounds: int = DISPATCH_ROUNDS) -> dict:
+    """Host ms a call of ``fn()`` through each route of ``kernel_calls``:
+    ``rounds`` rounds of blocks of ``calls`` calls, each round in the order
+    of ``routes`` and back (op, raw, raw, op), each block's time to enqueue
+    its calls (host clock, before its wait for the card) and to finish them
+    (to the end of that wait); medians over each route's blocks."""
+    def block(route):
+        with kernel_calls(route):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return (t1 - t0) * 1e3 / calls, (t2 - t0) * 1e3 / calls
+
+    for route in routes:
+        with kernel_calls(route):
+            fn()
+            fn()
+    runs = {route: [] for route in routes}
+    for _ in range(rounds):
+        for route in (*routes, *routes[::-1]):
+            runs[route].append(block(route))
+    return {route: {"enqueue_ms": statistics.median(r[0] for r in v),
+                    "wall_ms": statistics.median(r[1] for r in v)} for route, v in runs.items()}
+
+
+def run_dispatch_timing(cfg_path: str, state, train, card: str) -> dict:
+    """What the op dispatch costs on the host: a K1 call (SubMPSD.json's
+    first conv, through its public wrapper), a K2 call (its head) and an
+    eager SubMPSD.json training step, each through the port's ops against
+    the raw ctypes calls (``routed_times_ms``); then again with
+    ``torch.library.custom_op`` twins of the ops as a third route (the
+    first such call imports torch._dynamo into the process). Prints each
+    with the card's name and power limit."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.detector import NX, NY
+    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows
+    from waveformml_tpu_torch.ops.site_head import site_grouped_matmul
+
+    trainer = make_trainer(load_config(cfg_path), state, plain=False)
+    db = trainer.device_batch(train[0])[0]
+    model = trainer.task.model
+    conv, head = model.stack.l0, model.head0
+    k1 = (db["feats"].float().contiguous(), db[f"plan_k{conv.kernel_size}"],
+          conv.weight.detach(), conv.bias.detach(), db["mask"])
+    rows = torch.relu(torch.randn(db["mask"].shape[0], head.cin, device="cuda"))
+    k2 = (rows, head.weight.detach().view(head.cin, NX * NY, head.features),
+          db["plan_site_take"], db["plan_site_ev"], db["plan_site_s"],
+          db["labels"].shape[0], head.bias.detach())
+    cases = (("K1 subm_conv_rows call", lambda: subm_conv_rows(*k1), "us"),
+             ("K2 site_grouped_matmul call", lambda: site_grouped_matmul(*k2), "us"),
+             ("SubMPSD.json training step", lambda: trainer.training_step(db), "ms"))
+    out = {}
+    for routes in (("op", "raw"), ("op", "raw", "custom_op")):
+        for name, fn, unit in cases:
+            t = routed_times_ms(fn, routes)
+            out[(name, routes)] = t
+            scale = 1e3 if unit == "us" else 1.0
+            times = "; ".join(f"{r} {t[r]['enqueue_ms'] * scale:.4f} / {t[r]['wall_ms'] * scale:.4f}"
+                              for r in routes)
+            over = ", ".join(f"{r} {(t[r]['wall_ms'] - t['raw']['wall_ms']) * scale:+.4f} {unit} "
+                             f"({t[r]['wall_ms'] / t['raw']['wall_ms'] - 1:+.2%})"
+                             for r in routes if r != "raw")
+            print(f"export dispatch, {name}, routes {'/'.join(routes)} ({unit} a call to "
+                  f"enqueue / to finish, medians of {2 * DISPATCH_ROUNDS} blocks of "
+                  f"{DISPATCH_CALLS}): {times}; over raw: {over}; {card}", flush=True)
+    return out
+
+
+def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
+    """The export phase. For SubMPSD.json (through ``evaluate.run`` with
+    ``--script``, what ``python -m waveformml_tpu_torch.evaluate --script``
+    runs, over in-memory test chunks), SubMPSD_w128.json (half precision;
+    a 1-epoch fit from seeded weights), SegQuantifier.json and
+    SingleEndedZCNN.json (``Trainer.export_model``), each from the
+    checkpoint its evaluation or fit wrote, on its first test chunk: the
+    program's custom-op nodes (K1 in the three row-path configs, K2 in the
+    two SubMPSD ones, none in Z); the program reloaded in one fresh
+    process that imports torch and the port only (``RELOAD_SCRIPT``) and
+    run on the card, its output within EXPORT_TOL of a fresh Trainer's
+    eager forward over the same batch and its K1 and K2 launches equal to
+    that forward's (counts set to 0 just before and read just after each).
+    Then ``torch.library.opcheck`` of the five ops on the card and the
+    dispatch timing. Returns the dispatch timing."""
+    from waveformml_tpu_torch import evaluate
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+
+    fit = make_trainer(load_config(CONFIG_W128), w128_state(load_config(CONFIG_W128)),
+                       plain=False, max_epochs=1,
+                       checkpoint_dir=os.path.join(work_dir, "SubMPSD_w128.json", "version_0"))
+    fit.fit(BlockDataModule(half_blocks(train[:2]), half_blocks(val)))
+    checkpoints = dict(checkpoints)
+    checkpoints[CONFIG_W128] = (fit.best_ckpt_path, half_blocks(checkpoints[CONFIG][1][:1]))
+    expected = {CONFIG: ("subm_conv_rows", "site_grouped_matmul"),
+                CONFIG_W128: ("subm_conv_rows", "site_grouped_matmul"),
+                CONFIG_SEGQ: ("subm_conv_rows",), CONFIG_Z: ()}
+    cases = []
+    for cfg_path, kernels in expected.items():
+        ckpt, test = checkpoints[cfg_path]
+        tag = os.path.basename(cfg_path)
+        t0 = time.perf_counter()
+        if cfg_path == CONFIG:
+            args = evaluate.build_parser().parse_args([cfg_path, ckpt, "--script",
+                                                       "--limit_test_batches", "1"])
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                path = evaluate.run(load_config(cfg_path), args,
+                                    BlockDataModule([], [], test))["exported"]
+            assert path == os.path.join(evaluate.log_dir_for(ckpt), "model.pt2"), path
+            how = (f"evaluate.run with --script (python -m waveformml_tpu_torch.evaluate's run, "
+                   f"over in-memory test chunks: no h5py here; it printed "
+                   f"{printed.getvalue().strip()!r})")
+        else:
+            path = loaded_trainer(cfg_path, ckpt).export_model(
+                os.path.join(os.path.dirname(ckpt), "model.pt2"), test[0])
+            how = "Trainer.export_model"
+        export_s = time.perf_counter() - t0
+        ops = exported_ops(path)
+        print(f"export {tag}: {how} wrote {path} ({os.path.getsize(path)} bytes) in "
+              f"{export_s:.2f} s; custom-op nodes of its graph {ops}", flush=True)
+        assert {k.split(".")[1] for k in ops} == set(kernels), (tag, ops)
+        # a fresh Trainer: the site capacity of the batch the export traced
+        trainer = loaded_trainer(cfg_path, ckpt)
+        db = trainer.device_batch(test[0])[0]
+        zero_counts()
+        eager = trainer.task.apply_model(db)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for k in kernels:
+            assert launches[k] > 0, (tag, launches)
+        base = os.path.dirname(path)
+        torch.save({k: v.cpu() for k, v in db.items()}, os.path.join(base, "batch.pt"))
+        cases.append(dict(tag=tag, path=path, batch=os.path.join(base, "batch.pt"),
+                          out=os.path.join(base, "reloaded.pt"), eager=eager.cpu(),
+                          launches={k: launches[k] for k in ("subm_conv_rows",
+                                                             "site_grouped_matmul")}))
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    argv = [sys.executable, "-c", RELOAD_SCRIPT]
+    for c in cases:
+        argv += [c["path"], c["batch"], c["out"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"reloading the exported programs failed:\n{proc.stderr}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == len(cases), proc.stdout
+    print(f"export: {len(cases)} programs reloaded and run in one fresh process in "
+          f"{time.perf_counter() - t0:.2f} s (wall, its start included)", flush=True)
+    for c, line in zip(cases, lines):
+        print(f"export {c['tag']} reloaded: {json.dumps(line)}", flush=True)
+        assert line["program"] == c["path"] and line["finite"] and not line["foreign_modules"]
+        got = torch.load(c["out"])
+        torch.testing.assert_close(got, c["eager"], rtol=EXPORT_TOL, atol=EXPORT_TOL)
+        assert line["launches"] == c["launches"], (c["tag"], line["launches"], c["launches"])
+        print(f"export {c['tag']}: the reloaded program's output matches the eager forward "
+              f"(rtol=atol={EXPORT_TOL}; largest |difference| "
+              f"{float((got - c['eager']).abs().max()):.3g}); its K1/K2 launches "
+              f"{line['launches']} equal one eager forward's", flush=True)
+
+    trainer = loaded_trainer(CONFIG, checkpoints[CONFIG][0])
+    check_ops_on_card(trainer, trainer.device_batch(checkpoints[CONFIG][1][0])[0])
+    return run_dispatch_timing(CONFIG, state, train, card)
 
 
 def run_analyze(chunks, n_samples: int) -> int:
@@ -2687,13 +3036,17 @@ def main() -> int:
     # -- 10. the prediction writers --------------------------------------------
     run_writers()
 
-    # -- 11. the evaluation ----------------------------------------------------
-    run_evaluation(state, train, val)
+    with tempfile.TemporaryDirectory() as work_dir:
+        # -- 11. the evaluation ------------------------------------------------
+        _, checkpoints = run_evaluation(state, train, val, work_dir)
 
-    # -- 12. the waveform analysis, K3's user path ------------------------------
+        # -- 12. the export ----------------------------------------------------
+        run_export(checkpoints, state, train, val, work_dir, card)
+
+    # -- 13. the waveform analysis, K3's user path ------------------------------
     launches["waveform_features"] = run_analyze(chunks, n_samples)
 
-    # -- 13. report -----------------------------------------------------------
+    # -- 14. report -----------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),

@@ -10,7 +10,8 @@ setup(
     packages=find_packages(include=["waveformml_tpu", "waveformml_tpu.*",
                                     "waveformml_tpu_torch*"]),
     package_data={"waveformml_tpu": ["config_requirements.json"],
-                  "waveformml_tpu_torch": ["config_requirements.json"]},
+                  "waveformml_tpu_torch": ["config_requirements.json", "csrc/*",
+                                           "scripts/templates/*"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "h5py", "scipy",

@@ -3,9 +3,9 @@ package's, on the CPU: ``Trainer.test`` of a narrow SubMPSD with the JAX
 model's weights (``convert.flax_to_state_dict``) gives the JAX
 ``Trainer.test``'s metrics, evaluator arrays and logged tags over the same
 blocks; ``python -m waveformml_tpu_torch.evaluate`` writes into the
-checkpoint's version directory (``occlude_<n>`` with ``-oc``) and prints
-``test:``; ``analyze_records`` gives the JAX ``AnalyzeWaveforms``'s
-average waveforms and feature means."""
+checkpoint's version directory (``occlude_<n>`` with ``-oc``, ``model.pt2``
+with ``--script``) and prints ``test:``; ``analyze_records`` gives the JAX
+``AnalyzeWaveforms``'s average waveforms and feature means."""
 import ast
 import copy
 import glob
@@ -159,8 +159,11 @@ def test_evaluate_cli_writes_into_the_version_directory(checkpoint, capsys):
     assert event_bytes() > before + 10_000
     assert not os.path.exists(os.path.join(version, "evaluate"))
     assert evaluate.log_dir_for(checkpoint["ckpt"], 3) == os.path.join(version, "occlude_3")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        evaluate.main([checkpoint["config"], checkpoint["ckpt"], "--script"])
+    # --script exports the eval forward into the same directory
+    assert evaluate.main([checkpoint["config"], checkpoint["ckpt"], "--script",
+                          "--limit_test_batches", "1", "--device", "cpu", "-v", "1"]) == 0
+    assert set(_printed_test(capsys.readouterr().out)) == {"test_loss", "test_accuracy"}
+    assert os.path.getsize(os.path.join(version, "model.pt2")) > 0
 
 
 def test_evaluate_module_occludes_into_its_own_directory(checkpoint):

@@ -1,10 +1,11 @@
 """The port stands alone: importing it, module by module, loads neither
-JAX nor the JAX package nor h5py, matplotlib or tensorboardX, and no
-source of the port or of chip_smoke.py refers to JAX, the JAX package or
-h5py. The one exception: the HDF5 loaders import h5py inside their own
-functions (``H5PY_LOADERS``), when they run, so that the package imports
-without it. matplotlib and tensorboardX are imported only inside the
-functions that draw or log (the card machine has neither)."""
+JAX nor the JAX package nor h5py, matplotlib, tensorboard or tensorboardX,
+and no source of the port or of chip_smoke.py refers to JAX, the JAX
+package or h5py. The one exception: the HDF5 loaders import h5py inside
+their own functions (``H5PY_LOADERS``), when they run, so that the package
+imports without it (the scripts open files through them). matplotlib,
+tensorboard and tensorboardX are imported only inside the functions that
+draw, read or log events (the card machine has none of them)."""
 import ast
 import os
 import pkgutil
@@ -15,9 +16,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "waveformml_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "h5py", "waveformml_tpu", "matplotlib",
-             "tensorboardX")
+             "tensorboard", "tensorboardX")
 #: imported only inside functions, never when a module of the port is imported
-LAZY = ("matplotlib", "tensorboardX")
+LAZY = ("matplotlib", "tensorboard", "tensorboardX")
 #: module → the top-level functions of it whose body may import h5py
 H5PY_LOADERS = {"waveformml_tpu_torch/io/hdf5.py": ("open_h5", "is_group", "_fixed_str_type")}
 
@@ -50,7 +51,12 @@ def test_import_loads_no_jax():
                  "write_predictions", "scripts.write_z_and_class", "io.hdf5", "io.sql",
                  "io.xml", "evaluate", "evaluation.psd_eval", "evaluation.z_eval",
                  "engineering.callbacks", "utils.plot", "utils.tb",
-                 "scripts.analyze_waveforms"):
+                 "scripts.analyze_waveforms", "scripts.compare_gains",
+                 "scripts.compare_sim_cal_curve", "scripts.eval_wf_params",
+                 "scripts.gen_wf_param_config", "scripts.compare_calibration_curves",
+                 "scripts.run_occlusion_study", "scripts.eval_occlusion_study",
+                 "scripts.compare_pmt_wf", "scripts.add_attr", "scripts.plot_model_weights",
+                 "scripts.peak_finder"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -91,8 +97,8 @@ def test_sources_do_not_refer_to_jax():
 
 
 def test_matplotlib_and_tensorboardx_are_imported_inside_functions():
-    """No module of the port imports matplotlib or tensorboardX at its top
-    level (including under a top-level ``if`` or ``try``)."""
+    """No module of the port imports matplotlib, tensorboard or tensorboardX
+    at its top level (including under a top-level ``if`` or ``try``)."""
     offenders = []
     for dirpath, _, filenames in os.walk(PORT):
         for f in filenames:

@@ -26,6 +26,10 @@ written by hand in CUDA C++:
 * ``ops.site_head.site_grouped_matmul_bwd`` -- K5, its backward
 * ``ops.waveform_features.waveform_features`` -- K3, per-row scan
 
-Each kernel has a plain PyTorch version in the same module: the wrapper uses
-it for CPU tensors and launches the kernel (or raises) for CUDA tensors.
+Each kernel has a plain PyTorch version in the same module and is a
+``torch.library`` custom op (``torch.ops.waveformml.<name>``): the
+dispatcher runs the plain version for CPU tensors and launches the kernel
+(or raises) for CUDA tensors, and a fake kernel lets ``torch.export`` trace
+a forward through it (``engineering.trainer.Trainer.export_model``,
+``load_exported``; ``python -m waveformml_tpu_torch.evaluate --script``).
 """

@@ -412,6 +412,32 @@ class Trainer:
             self.logger.flush()
         return metrics
 
+    # -- export -----------------------------------------------------------------------
+    def export_model(self, path: str, sample_block: FileBlock) -> str:
+        """Write the eval forward as a ``torch.export`` program (weights
+        included) to ``path``, the counterpart of the JAX ``Trainer``'s
+        StableHLO export (ref: LitBase.py:103-109 writes TorchScript on the
+        first test batch). It is traced on ``sample_block``'s device batch
+        (``device_batch``: its row and event buckets, its site capacity), with
+        static shapes as the JAX export has, and takes a device batch dict
+        of those shapes; the kernels are the nodes of their custom ops.
+        Reload it with ``load_exported``."""
+        # the program keeps its example inputs: on the card each leaf is a
+        # view of one packed buffer, which torch.export.save cannot store
+        db = {k: v.clone() for k, v in self.device_batch(sample_block)[0].items()}
+        model = self.task.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                program = torch.export.export(EvalForward(self.task), (db,), strict=False)
+        finally:
+            model.train(was_training)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        torch.export.save(program, path)
+        log.info("exported the model to %s", path)
+        return path
+
     # -- checkpoints ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """One ``torch.save`` file: the model's ``state_dict``, the
@@ -511,6 +537,48 @@ class Trainer:
         if not self._epoch_wall:
             return None
         return sum(self._epoch_rows) / max(sum(self._epoch_wall), 1e-12)
+
+
+class EvalForward(torch.nn.Module):
+    """A task's eval forward as a module over a device batch dict, what
+    ``TaskBase.apply_model`` computes (the model in eval mode, float32
+    outputs), for ``torch.export``."""
+
+    def __init__(self, task):
+        super().__init__()
+        self.model = task.model
+        self.task = task
+
+    def forward(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.model(self.task.sparse_batch(db)).float()
+
+
+def load_exported(path: str, device: Optional[Union[str, torch.device]] = None
+                  ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+    """The program that ``Trainer.export_model`` wrote, as a function of a
+    device batch dict (``Trainer.device_batch``'s keys and shapes) that
+    returns the model's outputs, without gradients. It runs on the device it
+    was exported on, which must be ``device`` (None: the card); the custom
+    ops of the kernels are registered first. A batch of other shapes (another
+    row or event bucket) raises through the program's own shape guard. The
+    program runs with cuDNN's float32 convolutions in full float32, as the
+    eager forward runs them (``ops.sparse_conv.ieee_fp32_convs``): the flag
+    that the eager convs set is the process's, not the graph's."""
+    from waveformml_tpu_torch.ops import row_conv, site_head, waveform_features  # noqa: F401
+    from waveformml_tpu_torch.ops.sparse_conv import ieee_fp32_convs
+
+    dev = resolve_device(device)
+    program = torch.export.load(path)
+    on = {t.device.type for t in program.state_dict.values()}
+    if on - {dev.type}:
+        raise ValueError(f"{path} was exported on {sorted(on)}, not {dev.type}")
+    module = program.module()
+
+    def forward(db: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with torch.no_grad(), ieee_fp32_convs():
+            return module({k: v.to(dev) for k, v in db.items()})
+
+    return forward
 
 
 def _take(loader, n: int) -> Iterator:

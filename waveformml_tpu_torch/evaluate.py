@@ -14,6 +14,11 @@ a warning; the figures need matplotlib.
 
 ``--device`` (default ``cuda``) picks the device: the card, or ``cpu`` for
 the plain PyTorch versions of the kernels. HDF5 input needs h5py.
+``--script`` writes the eval forward, traced on the first test block, to
+``model.pt2`` in the log directory before the test pass (``torch.export``,
+the counterpart of the JAX package's StableHLO export; the kernels are the
+nodes of their custom ops); ``engineering.trainer.load_exported`` reloads
+it.
 """
 from __future__ import annotations
 
@@ -22,12 +27,6 @@ import logging
 import os
 import sys
 from typing import Any, Dict, Optional
-
-#: ``--script`` exports the model in the JAX package (StableHLO); the port's
-#: forward launches K1 and K2 through ctypes, which an export cannot trace
-SCRIPT_NOT_PORTED = ("--script is not ported yet (ROADMAP.md queue 1 item 7: an export of "
-                     "the forward needs K1 and K2 as torch.library custom ops)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     from waveformml_tpu_torch.engineering.trainer import int_or_float
@@ -41,7 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--occlude", "-oc", type=int, default=None,
                    help="feature index to occlude (zero) at test time")
     p.add_argument("--script", "-s", action="store_true",
-                   help="export the model beside the logs (not ported yet)")
+                   help="export the eval forward to <log dir>/model.pt2 before the "
+                        "test pass (torch.export; reload with "
+                        "engineering.trainer.load_exported)")
     p.add_argument("--verbosity", "-v", type=int, default=3)
     p.add_argument("--num_threads", "-nt", type=int, default=None)
     # an int is a batch count, a float <= 1 a fraction of the loader
@@ -77,10 +78,12 @@ def run(config, args: argparse.Namespace, data_module, logger=None) -> Dict[str,
     ``main`` does once it has parsed the flags, applied the overrides to
     ``config`` (``apply_overrides``) and built the data module: the log
     directory and its logger (``logger`` where given, else a TensorBoard
-    logger there, None without tensorboardX), the checkpoint, the test
-    pass and the ``test:`` line. Returns ``{"log_dir", "test",
-    "trainer"}``."""
-    from waveformml_tpu_torch.engineering.trainer import Trainer
+    logger there, None without tensorboardX), the checkpoint, with
+    ``args.script`` the export of the eval forward on the first test block
+    to ``<log_dir>/model.pt2``, the test pass and the ``test:`` line.
+    Returns ``{"log_dir", "test", "trainer", "exported"}`` (the export's
+    path, or None)."""
+    from waveformml_tpu_torch.engineering.trainer import Trainer, _take
     from waveformml_tpu_torch.main import _rounded, _tb_logger
     from waveformml_tpu_torch.registry import retrieve_class
 
@@ -95,6 +98,11 @@ def run(config, args: argparse.Namespace, data_module, logger=None) -> Dict[str,
         trainer = Trainer(config, task, args.device, logger=logger,
                           limit_test_batches=args.limit_test_batches)
         trainer.load_checkpoint(args.checkpoint)
+        exported = None
+        if args.script:
+            data_module.setup("test")
+            first = next(iter(_take(data_module.test_dataloader(), 1)))
+            exported = trainer.export_model(os.path.join(log_dir, "model.pt2"), first)
         metrics = trainer.test(data_module)
     finally:
         if own_logger and logger is not None:
@@ -102,7 +110,7 @@ def run(config, args: argparse.Namespace, data_module, logger=None) -> Dict[str,
             # study reads test_loss back from it)
             logger.close()
     print("test:", _rounded(metrics), flush=True)
-    return {"log_dir": log_dir, "test": metrics, "trainer": trainer}
+    return {"log_dir": log_dir, "test": metrics, "trainer": trainer, "exported": exported}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -111,8 +119,6 @@ def main(argv: Optional[list] = None) -> int:
     from waveformml_tpu_torch.utils.util import apply_num_threads, setup_logger
 
     args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
-    if args.script:
-        raise NotImplementedError(SCRIPT_NOT_PORTED)
     apply_num_threads(args.num_threads)
     setup_logger(args.verbosity)
     config = load_config(args.config)

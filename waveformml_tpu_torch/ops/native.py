@@ -8,6 +8,16 @@ named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header is rebuilt
 and an unchanged one is reused. ``build()`` starts one ``nvcc`` per missing
 library, all at once, and waits for all of them.
+
+Each kernel is a ``torch.library`` custom op in the ``waveformml``
+namespace (``define_op``): its CUDA kernel launches the hand-written kernel
+through ctypes, its CPU kernel is the plain PyTorch version and its fake
+kernel gives the output shapes, dtypes and strides, so that the dispatcher
+picks the device and ``torch.export`` traces a forward that calls a kernel
+as one node of its graph. They are registered through the dispatcher's
+own API (``torch.library.Library``) rather than ``torch.library.custom_op``,
+whose Python autograd and aliasing wrappers add tens of µs of host time to
+every call (``chip_smoke.py``'s dispatch timing, PERF.md §6).
 """
 from __future__ import annotations
 
@@ -27,7 +37,34 @@ SOURCES = ("row_conv", "row_conv_wgrad", "site_head", "site_head_bwd", "waveform
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the ``torch.library`` namespace of the port's kernels
+NAMESPACE = "waveformml"
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+#: the library that holds the ops' definitions and kernels; it lives as
+#: long as the process (a collected library unregisters them)
+_LIBRARY = None
+
+
+def define_op(name: str, schema: str, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define the custom op ``waveformml::<name><schema>`` (it mutates none
+    of its arguments) with ``cpu`` as its CPU kernel, ``cuda`` as its CUDA
+    kernel and ``fake`` as its fake (and meta) kernel; returns the op.
+    Raises ImportError where torch has no ``torch.library.register_fake``
+    (before 2.4): the kernels have no other way in."""
+    global _LIBRARY
+    if not hasattr(torch.library, "register_fake"):
+        raise ImportError(f"the port's kernels are torch.library custom ops, which need "
+                          f"torch >= 2.4 (this is torch {torch.__version__})")
+    if _LIBRARY is None:
+        _LIBRARY = torch.library.Library(NAMESPACE, "DEF")
+    _LIBRARY.define(name + schema)
+    _LIBRARY.impl(name, cpu, "CPU")
+    _LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIBRARY)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def _nvcc() -> str:

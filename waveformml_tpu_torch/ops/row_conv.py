@@ -5,20 +5,21 @@ The neighbour plan ``[N, K²]`` int32 lists, for each row, the row of each
 site in its centred K×K window (-1 where the site is empty, out of the
 detector or the row is padding). It depends on coords only, so the host
 builds it once per batch with numpy and every conv of the stack shares it.
-The conv itself is kernel K1 (``csrc/row_conv.cu``) on the card and
-``subm_conv_rows_plain`` on the CPU.
+The conv itself is the custom op ``waveformml::subm_conv_rows``: kernel K1
+(``csrc/row_conv.cu``) for CUDA tensors, ``subm_conv_rows_plain`` for CPU
+tensors, the dispatcher choosing by device.
 
 Its gradient (``SubMConvRows``, an autograd Function) follows the JAX
 package's custom VJP (waveformml_tpu/ops/row_conv.py:_subm_bwd): the
 feature gradient is K1 again, over the same plan, with the window reversed
-and the kernel transposed; the kernel and bias gradients are kernel K4
-(``csrc/row_conv_wgrad.cu``, ``subm_conv_rows_wgrad``) on the card and
-``subm_conv_rows_wgrad_plain`` on the CPU.
+and the kernel transposed; the kernel and bias gradients are the custom op
+``waveformml::subm_conv_rows_wgrad``: kernel K4 (``csrc/row_conv_wgrad.cu``)
+for CUDA tensors, ``subm_conv_rows_wgrad_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,29 +129,10 @@ def _check(feats, plan, kernel, bias, mask) -> None:
             raise ValueError("the CUDA kernel takes contiguous tensors")
 
 
-def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor,
-                   bias: Optional[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
-    """Row-space SubM conv: ``out[r] = mask[r]·(Σ_k feats[plan[r, k]] @
-    kernel[k] + bias)``, absent taps (-1) contributing zero.
-
-    feats [N, Cin], plan [N, K²] int32, kernel [K², Cin, Cout], bias [Cout]
-    or None, mask [N] bool → [N, Cout]. CUDA tensors run kernel K1
-    (``csrc/row_conv.cu``, which replaces the XLA gather + GEMM of
-    waveformml_tpu/ops/row_conv.py:subm_conv_rows); CPU tensors run
-    ``subm_conv_rows_plain``. Plan entries must lie in ``[-1, N)``.
-
-    On the H100 it is bound by bytes. K1 fuses the gather into its operand
-    loads (no [N, K², Cin] operand in memory) and multiplies only the rows
-    that have a tap, in groups of 8, on the tensor cores in TF32 with a
-    3-pass split that keeps fp32 accuracy: one launch writes the centre tap,
-    bias and mask per 32-row tile, a second adds the other taps per 256-row
-    block with fp32 atomics, so a row with two or more off-centre taps can
-    differ in its last bits from run to run (the note in
-    ``csrc/row_conv.cu`` has the details).
-    """
-    _check(feats, plan, kernel, bias, mask)
-    if not feats.is_cuda:
-        return subm_conv_rows_plain(feats, plan, kernel, bias, mask)
+def subm_conv_rows_cuda(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor,
+                        bias: Optional[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel of the op: K1's launch on operands that ``_check``
+    has passed."""
     n, cin = feats.shape
     kk, _, cout = kernel.shape
     out = torch.empty((n, cout), dtype=torch.float32, device=feats.device)
@@ -165,6 +147,45 @@ def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor
         # the centre tap's grid, and for K² > 1 the other taps' grid
         native.count_launches(subm_conv_rows, 1 if kk == 1 else 2)
     return out
+
+
+def _subm_conv_rows_fake(feats, plan, kernel, bias, mask):
+    dtype = torch.promote_types(feats.dtype, kernel.dtype)
+    if bias is not None:
+        dtype = torch.promote_types(dtype, bias.dtype)
+    return feats.new_empty((feats.shape[0], kernel.shape[2]), dtype=dtype)
+
+
+subm_conv_rows_op = native.define_op(
+    "subm_conv_rows",
+    "(Tensor feats, Tensor plan, Tensor kernel, Tensor? bias, Tensor mask) -> Tensor",
+    cpu=subm_conv_rows_plain, cuda=subm_conv_rows_cuda, fake=_subm_conv_rows_fake)
+
+
+def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
+    """Row-space SubM conv: ``out[r] = mask[r]·(Σ_k feats[plan[r, k]] @
+    kernel[k] + bias)``, absent taps (-1) contributing zero.
+
+    feats [N, Cin], plan [N, K²] int32, kernel [K², Cin, Cout], bias [Cout]
+    or None, mask [N] bool → [N, Cout]. Checks its operands, then calls
+    the custom op ``waveformml::subm_conv_rows``, which runs kernel K1
+    (``csrc/row_conv.cu``, which replaces the XLA gather + GEMM of
+    waveformml_tpu/ops/row_conv.py:subm_conv_rows) on CUDA tensors and
+    ``subm_conv_rows_plain`` on CPU tensors. Plan entries must lie in
+    ``[-1, N)``.
+
+    On the H100 it is bound by bytes. K1 fuses the gather into its operand
+    loads (no [N, K², Cin] operand in memory) and multiplies only the rows
+    that have a tap, in groups of 8, on the tensor cores in TF32 with a
+    3-pass split that keeps fp32 accuracy: one launch writes the centre tap,
+    bias and mask per 32-row tile, a second adds the other taps per 256-row
+    block with fp32 atomics, so a row with two or more off-centre taps can
+    differ in its last bits from run to run (the note in
+    ``csrc/row_conv.cu`` has the details).
+    """
+    _check(feats, plan, kernel, bias, mask)
+    return subm_conv_rows_op(feats, plan, kernel, bias, mask)
 
 
 subm_conv_rows.launches = subm_conv_rows.captured = 0
@@ -233,6 +254,54 @@ def _check_wgrad(feats, plan, g, mask) -> None:
             raise ValueError("the CUDA kernel takes contiguous tensors")
 
 
+def _subm_conv_rows_wgrad_cpu(feats, plan, g, mask, with_bias):
+    # an op returns no None: d_bias is [0] without the bias
+    d_kernel, d_bias = subm_conv_rows_wgrad_plain(feats, plan, g, mask, with_bias)
+    return d_kernel, d_bias if with_bias else g.new_empty(0)
+
+
+def subm_conv_rows_wgrad_cuda(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tensor,
+                              mask: torch.Tensor, with_bias: bool
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel of the op: K4's launch on operands that
+    ``_check_wgrad`` has passed (d_bias ``[0]`` without the bias)."""
+    n, cin = feats.shape
+    kk, cout = plan.shape[1], g.shape[1]
+    lib = native.load("row_conv_wgrad", _WGRAD_FUNCTIONS)
+    floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.subm_conv_rows_wgrad_scratch(n, cin, cout, kk, ctypes.byref(floats), ctypes.byref(ints))
+    dev = feats.device
+    partial = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    lists = torch.empty(ints.value, dtype=torch.int32, device=dev)
+    d_kernel = torch.empty((kk, cin, cout), dtype=torch.float32, device=dev)
+    d_bias = torch.empty(cout if with_bias else 0, dtype=torch.float32, device=dev)
+    err = lib.subm_conv_rows_wgrad(
+        feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
+        partial.data_ptr(), lists.data_ptr(), d_kernel.data_ptr(),
+        d_bias.data_ptr() if with_bias else None, n, cin, cout, kk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(lib, err, "subm_conv_rows_wgrad")
+    # where there are outputs: the centre tap's grid where there are rows,
+    # and the reduction's grid
+    if kk * cin * cout + (cout if with_bias else 0) > 0:
+        native.count_launches(subm_conv_rows_wgrad, int(n > 0 and cout > 0) + 1)
+    return d_kernel, d_bias
+
+
+def _subm_conv_rows_wgrad_fake(feats, plan, g, mask, with_bias):
+    cout = g.shape[1]
+    return (feats.new_empty((plan.shape[1], feats.shape[1], cout),
+                            dtype=torch.promote_types(feats.dtype, g.dtype)),
+            g.new_empty(cout if with_bias else 0))
+
+
+subm_conv_rows_wgrad_op = native.define_op(
+    "subm_conv_rows_wgrad",
+    "(Tensor feats, Tensor plan, Tensor g, Tensor mask, bool with_bias) -> (Tensor, Tensor)",
+    cpu=_subm_conv_rows_wgrad_cpu, cuda=subm_conv_rows_wgrad_cuda,
+    fake=_subm_conv_rows_wgrad_fake)
+
+
 def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tensor,
                          mask: torch.Tensor, with_bias: bool = True):
     """Kernel and bias gradients of ``subm_conv_rows``: ``dW[k] = Σ_r
@@ -240,10 +309,13 @@ def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tenso
     mask[r]·g[r]``.
 
     feats [N, Cin], plan [N, K²] int32, g [N, Cout], mask [N] bool →
-    (d_kernel [K², Cin, Cout], d_bias [Cout] or None). CUDA tensors run
-    kernel K4 (``csrc/row_conv_wgrad.cu``, which replaces the XLA gather +
-    contraction of waveformml_tpu/ops/row_conv.py:_subm_bwd); CPU tensors run
-    ``subm_conv_rows_wgrad_plain``. Plan entries must lie in ``[-1, N)``.
+    (d_kernel [K², Cin, Cout], d_bias [Cout] or None). Checks its operands,
+    then calls the custom op ``waveformml::subm_conv_rows_wgrad``, which
+    runs kernel K4 (``csrc/row_conv_wgrad.cu``, which replaces the XLA
+    gather + contraction of waveformml_tpu/ops/row_conv.py:_subm_bwd) on
+    CUDA tensors and ``subm_conv_rows_wgrad_plain`` on CPU tensors; the op
+    gives an empty d_bias for ``with_bias=False``. Plan entries must lie in
+    ``[-1, N)``.
 
     K4 takes the centre tap, present for every real row, as a split-K GEMM
     on the tensor cores (TF32 with a 3-pass split, fp32 accuracy): each
@@ -258,29 +330,8 @@ def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tenso
     differ by a few ulp of the sum of the magnitudes of each output's terms.
     """
     _check_wgrad(feats, plan, g, mask)
-    if not feats.is_cuda:
-        return subm_conv_rows_wgrad_plain(feats, plan, g, mask, with_bias)
-    n, cin = feats.shape
-    kk, cout = plan.shape[1], g.shape[1]
-    lib = native.load("row_conv_wgrad", _WGRAD_FUNCTIONS)
-    floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.subm_conv_rows_wgrad_scratch(n, cin, cout, kk, ctypes.byref(floats), ctypes.byref(ints))
-    dev = feats.device
-    partial = torch.empty(floats.value, dtype=torch.float32, device=dev)
-    lists = torch.empty(ints.value, dtype=torch.int32, device=dev)
-    d_kernel = torch.empty((kk, cin, cout), dtype=torch.float32, device=dev)
-    d_bias = torch.empty(cout, dtype=torch.float32, device=dev) if with_bias else None
-    err = lib.subm_conv_rows_wgrad(
-        feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
-        partial.data_ptr(), lists.data_ptr(), d_kernel.data_ptr(),
-        d_bias.data_ptr() if with_bias else None, n, cin, cout, kk,
-        torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(lib, err, "subm_conv_rows_wgrad")
-    # where there are outputs: the centre tap's grid where there are rows,
-    # and the reduction's grid
-    if kk * cin * cout + (cout if with_bias else 0) > 0:
-        native.count_launches(subm_conv_rows_wgrad, int(n > 0 and cout > 0) + 1)
-    return d_kernel, d_bias
+    d_kernel, d_bias = subm_conv_rows_wgrad_op(feats, plan, g, mask, with_bias)
+    return d_kernel, d_bias if with_bias else None
 
 
 subm_conv_rows_wgrad.launches = subm_conv_rows_wgrad.captured = 0

@@ -4,11 +4,14 @@ detector sites as the groups (counterpart of waveformml_tpu/ops/site_head.py).
 The host sorts a batch's rows by site into a ``[S, MAX]`` slot grid
 (``host_site_layout``). The device gathers each slot's row, multiplies it by
 its site's ``[C, F]`` slice of the Linear kernel and adds the result into
-its event's output row, which starts from the Linear's bias. That is kernel
-K2 (``csrc/site_head.cu``) on the card and ``site_grouped_matmul_plain`` on
-the CPU. Its gradient (``SiteGroupedMatmul``, an autograd Function) is
-kernel K5 (``csrc/site_head_bwd.cu``) on the card and
-``site_grouped_matmul_bwd_plain`` on the CPU.
+its event's output row, which starts from the Linear's bias. That is the
+custom op ``waveformml::site_grouped_matmul``: kernel K2
+(``csrc/site_head.cu``) for CUDA tensors, ``site_grouped_matmul_plain`` for
+CPU tensors, the dispatcher choosing by device. Its gradient
+(``SiteGroupedMatmul``, an autograd Function) is the custom op
+``waveformml::site_grouped_matmul_bwd``: kernel K5
+(``csrc/site_head_bwd.cu``) for CUDA tensors,
+``site_grouped_matmul_bwd_plain`` for CPU tensors.
 
 Encoding: ``site_take``/``site_ev`` are 1-based with 0 = empty slot and
 ``site_s`` is the 1-based site of each group, so zero padding anywhere
@@ -17,7 +20,7 @@ means "empty".
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +130,50 @@ def _check(rows, k3, take1, ev1, site1, bias) -> None:
             raise ValueError("the CUDA kernel takes contiguous tensors")
 
 
+def _site_grouped_matmul_cpu(rows, k3, take1, ev1, site1, n_events, bias):
+    # the plain version's values in the kernel's output layout
+    f = k3.shape[2]
+    out = torch.empty((n_events, output_stride(f)), dtype=torch.float32)
+    out[:, :f] = site_grouped_matmul_plain(rows, k3, take1, ev1, site1, n_events, bias)
+    return out[:, :f]
+
+
+def site_grouped_matmul_cuda(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tensor,
+                             ev1: torch.Tensor, site1: torch.Tensor, n_events: int,
+                             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA kernel of the op: K2's launch on operands that ``_check``
+    has passed."""
+    g, max_slots = take1.shape
+    c, s, f = k3.shape
+    ldo = output_stride(f)
+    out = torch.empty((n_events, ldo), dtype=torch.float32, device=rows.device)
+    lib = native.load("site_head", _FUNCTIONS)
+    err = lib.site_grouped_matmul_fwd(
+        rows.data_ptr(), k3.data_ptr(), bias.data_ptr() if bias is not None else None,
+        take1.data_ptr(), ev1.data_ptr(), site1.data_ptr(), out.data_ptr(), g,
+        max_slots, c, s, f, ldo, n_events,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    native.check_launch(lib, err, "site_grouped_matmul")
+    if n_events and f:
+        # the bias grid, and where there are slots the products' grid
+        native.count_launches(site_grouped_matmul, 2 if g and max_slots else 1)
+    return out[:, :f]
+
+
+def _site_grouped_matmul_fake(rows, k3, take1, ev1, site1, n_events, bias):
+    f = k3.shape[2]
+    return rows.new_empty_strided((n_events, f), (output_stride(f), 1),
+                                  dtype=torch.float32)
+
+
+site_grouped_matmul_op = native.define_op(
+    "site_grouped_matmul",
+    "(Tensor rows, Tensor k3, Tensor take1, Tensor ev1, Tensor site1, SymInt n_events, "
+    "Tensor? bias) -> Tensor",
+    cpu=_site_grouped_matmul_cpu, cuda=site_grouped_matmul_cuda,
+    fake=_site_grouped_matmul_fake)
+
+
 def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tensor,
                         ev1: torch.Tensor, site1: torch.Tensor, n_events: int,
                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -136,8 +183,10 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
     rows [N, C] (padding rows already zero), k3 [C, S, F] (the flatten-order
     kernel reshaped), take1/ev1 [G, MAX] int32 1-based (0 empty), site1 [G]
     int32 1-based (clamped to [1, S]), bias [F] or None (zero) → [n_events,
-    F] float32. Row indices must lie in ``[0, N]``. CUDA tensors run kernel
-    K2 (``csrc/site_head.cu``); CPU tensors run ``site_grouped_matmul_plain``.
+    F] float32. Row indices must lie in ``[0, N]``. Checks its operands,
+    then calls the custom op ``waveformml::site_grouped_matmul``, which runs
+    kernel K2 (``csrc/site_head.cu``) on CUDA tensors and
+    ``site_grouped_matmul_plain`` on CPU tensors.
 
     K2 replaces the XLA gather + einsum + scatter-add of
     waveformml_tpu/ops/site_head.py:site_grouped_matmul and the bias add
@@ -157,7 +206,9 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
     float4 adds into the event rows, one RED per 4 outputs. For
     those, the output is allocated ``[n_events, output_stride(F)]`` (16-byte
     aligned rows, the only layout the kernel takes) and the ``[:, :F]`` view
-    is returned: for F = 50 rows are 52 floats apart.
+    is returned: for F = 50 rows are 52 floats apart. The op gives that
+    layout on every device (its fake kernel too), the plain version's
+    values copied into it on the CPU.
 
     The adds of an event's slots land in an order that varies from run to
     run, so an output can differ from run to run, and from the plain
@@ -166,23 +217,7 @@ def site_grouped_matmul(rows: torch.Tensor, k3: torch.Tensor, take1: torch.Tenso
     atol = 1e-5. The note in ``csrc/site_head.cu`` has the details.
     """
     _check(rows, k3, take1, ev1, site1, bias)
-    if not rows.is_cuda:
-        return site_grouped_matmul_plain(rows, k3, take1, ev1, site1, n_events, bias)
-    g, max_slots = take1.shape
-    c, s, f = k3.shape
-    ldo = output_stride(f)
-    out = torch.empty((n_events, ldo), dtype=torch.float32, device=rows.device)
-    lib = native.load("site_head", _FUNCTIONS)
-    err = lib.site_grouped_matmul_fwd(
-        rows.data_ptr(), k3.data_ptr(), bias.data_ptr() if bias is not None else None,
-        take1.data_ptr(), ev1.data_ptr(), site1.data_ptr(), out.data_ptr(), g,
-        max_slots, c, s, f, ldo, n_events,
-        torch.cuda.current_stream(rows.device).cuda_stream)
-    native.check_launch(lib, err, "site_grouped_matmul")
-    if n_events and f:
-        # the bias grid, and where there are slots the products' grid
-        native.count_launches(site_grouped_matmul, 2 if g and max_slots else 1)
-    return out[:, :f]
+    return site_grouped_matmul_op(rows, k3, take1, ev1, site1, n_events, bias)
 
 
 site_grouped_matmul.launches = site_grouped_matmul.captured = 0
@@ -221,16 +256,76 @@ _BWD_FUNCTIONS = {"site_grouped_matmul_bwd":
                   [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2}
 
 
+def _site_grouped_matmul_bwd_cpu(d_out, rows, k3, take1, ev1, site1, n_events, with_bias):
+    # an op returns no None (d_bias is [0] without the bias); d_rows is
+    # copied out of the padded buffer it is a view of, to the start of its
+    # storage as the kernel's
+    d_rows, d_k3, d_bias = site_grouped_matmul_bwd_plain(d_out, rows, k3, take1, ev1, site1,
+                                                         n_events, with_bias)
+    return d_rows.clone(), d_k3, d_bias if with_bias else d_out.new_empty(0)
+
+
+def site_grouped_matmul_bwd_cuda(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.Tensor,
+                                 take1: torch.Tensor, ev1: torch.Tensor, site1: torch.Tensor,
+                                 n_events: int, with_bias: bool
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA kernel of the op: K5's launch on operands that
+    ``site_grouped_matmul_bwd`` has checked (d_bias ``[0]`` without the
+    bias)."""
+    g, max_slots = take1.shape
+    n, c = rows.shape
+    s, f = k3.shape[1], k3.shape[2]
+    lib = native.load("site_head_bwd", _BWD_FUNCTIONS)
+    groups_floats, bias_floats = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.site_grouped_matmul_bwd_scratch(g, c, s, f, n_events, ctypes.byref(groups_floats),
+                                        ctypes.byref(bias_floats))
+    dev = rows.device
+    scratch = torch.empty(groups_floats.value + bias_floats.value, dtype=torch.float32,
+                          device=dev)
+    d_rows = torch.empty((n, c), dtype=torch.float32, device=dev)
+    d_k3 = torch.empty((c, s, f), dtype=torch.float32, device=dev)
+    d_bias = torch.empty(f if with_bias else 0, dtype=torch.float32, device=dev)
+    err = lib.site_grouped_matmul_bwd(
+        d_out.data_ptr(), rows.data_ptr(), k3.data_ptr(), take1.data_ptr(), ev1.data_ptr(),
+        site1.data_ptr(), d_rows.data_ptr(), d_k3.data_ptr(),
+        d_bias.data_ptr() if with_bias else None, scratch.data_ptr(),
+        scratch.data_ptr() + 4 * groups_floats.value, n, g, max_slots, c, s, f, n_events,
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(lib, err, "site_grouped_matmul_bwd")
+    # zeroing and bias runs where there are rows, events or outputs (the
+    # tickets), the groups' grid where there are outputs
+    outputs = c * s * f + (f if with_bias else 0) > 0
+    native.count_launches(site_grouped_matmul_bwd,
+                          int(n > 0 or (with_bias and n_events > 0) or outputs) + int(outputs))
+    return d_rows, d_k3, d_bias
+
+
+def _site_grouped_matmul_bwd_fake(d_out, rows, k3, take1, ev1, site1, n_events, with_bias):
+    return (torch.empty_like(rows, memory_format=torch.contiguous_format),
+            torch.empty_like(k3, memory_format=torch.contiguous_format),
+            d_out.new_empty(k3.shape[2] if with_bias else 0))
+
+
+site_grouped_matmul_bwd_op = native.define_op(
+    "site_grouped_matmul_bwd",
+    "(Tensor d_out, Tensor rows, Tensor k3, Tensor take1, Tensor ev1, Tensor site1, "
+    "SymInt n_events, bool with_bias) -> (Tensor, Tensor, Tensor)",
+    cpu=_site_grouped_matmul_bwd_cpu, cuda=site_grouped_matmul_bwd_cuda,
+    fake=_site_grouped_matmul_bwd_fake)
+
+
 def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.Tensor,
                             take1: torch.Tensor, ev1: torch.Tensor, site1: torch.Tensor,
                             n_events: int, with_bias: bool = True):
     """Gradients of ``site_grouped_matmul`` with its bias: d_out [n_events,
     F] and the forward's operands → ``(d_rows [N, C], d_k3 [C, S, F],
-    d_bias [F] or None)``. CUDA tensors run kernel K5
+    d_bias [F] or None)``. Checks its operands, then calls the custom op
+    ``waveformml::site_grouped_matmul_bwd``, which runs kernel K5
     (``csrc/site_head_bwd.cu``, which replaces the XLA autodiff of
     waveformml_tpu/ops/site_head.py:site_grouped_matmul and of the bias add
-    in waveformml_tpu/models/blocks.py:FoldedSiteLinear); CPU tensors run
-    ``site_grouped_matmul_bwd_plain``.
+    in waveformml_tpu/models/blocks.py:FoldedSiteLinear) on CUDA tensors and
+    ``site_grouped_matmul_bwd_plain`` on CPU tensors; the op gives an empty
+    d_bias for ``with_bias=False``.
 
     K5 writes each filled slot's row gradient with a plain store: a row must
     sit in at most one slot, as in every layout ``host_site_layout`` builds
@@ -260,39 +355,14 @@ def site_grouped_matmul_bwd(d_out: torch.Tensor, rows: torch.Tensor, k3: torch.T
         raise ValueError(f"d_out {tuple(d_out.shape)} != ({n_events}, {f})")
     if d_out.device != rows.device:
         raise ValueError("all operands must be on one device")
-    if not rows.is_cuda:
-        return site_grouped_matmul_bwd_plain(d_out, rows, k3, take1, ev1, site1, n_events,
-                                             with_bias)
-    if d_out.dtype != torch.float32:
-        raise TypeError("the CUDA kernel takes a float32 d_out")
-    if not d_out.is_contiguous():
-        raise ValueError("the CUDA kernel takes a contiguous d_out")
-    g, max_slots = take1.shape
-    n, c = rows.shape
-    s = k3.shape[1]
-    lib = native.load("site_head_bwd", _BWD_FUNCTIONS)
-    groups_floats, bias_floats = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.site_grouped_matmul_bwd_scratch(g, c, s, f, n_events, ctypes.byref(groups_floats),
-                                        ctypes.byref(bias_floats))
-    dev = rows.device
-    scratch = torch.empty(groups_floats.value + bias_floats.value, dtype=torch.float32,
-                          device=dev)
-    d_rows = torch.empty((n, c), dtype=torch.float32, device=dev)
-    d_k3 = torch.empty((c, s, f), dtype=torch.float32, device=dev)
-    d_bias = torch.empty(f, dtype=torch.float32, device=dev) if with_bias else None
-    err = lib.site_grouped_matmul_bwd(
-        d_out.data_ptr(), rows.data_ptr(), k3.data_ptr(), take1.data_ptr(), ev1.data_ptr(),
-        site1.data_ptr(), d_rows.data_ptr(), d_k3.data_ptr(),
-        d_bias.data_ptr() if with_bias else None, scratch.data_ptr(),
-        scratch.data_ptr() + 4 * groups_floats.value, n, g, max_slots, c, s, f, n_events,
-        torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(lib, err, "site_grouped_matmul_bwd")
-    # zeroing and bias runs where there are rows, events or outputs (the
-    # tickets), the groups' grid where there are outputs
-    outputs = c * s * f + (f if with_bias else 0) > 0
-    native.count_launches(site_grouped_matmul_bwd,
-                          int(n > 0 or (with_bias and n_events > 0) or outputs) + int(outputs))
-    return d_rows, d_k3, d_bias
+    if rows.is_cuda:
+        if d_out.dtype != torch.float32:
+            raise TypeError("the CUDA kernel takes a float32 d_out")
+        if not d_out.is_contiguous():
+            raise ValueError("the CUDA kernel takes a contiguous d_out")
+    d_rows, d_k3, d_bias = site_grouped_matmul_bwd_op(d_out, rows, k3, take1, ev1, site1,
+                                                      n_events, with_bias)
+    return d_rows, d_k3, d_bias if with_bias else None
 
 
 site_grouped_matmul_bwd.launches = site_grouped_matmul_bwd.captured = 0

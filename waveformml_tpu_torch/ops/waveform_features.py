@@ -12,8 +12,10 @@ For each waveform row of ``[n, S]``:
   ``integrate_lininterp_range``;
 * total   -- the row sum.
 
-CUDA tensors run kernel K3 (``csrc/waveform_features.cu``); CPU tensors run
-``waveform_features_plain``, a torch copy of ``_features_math``.
+They are the custom op ``waveformml::waveform_features``: kernel K3
+(``csrc/waveform_features.cu``) for CUDA tensors, ``waveform_features_plain``
+(a torch copy of ``_features_math``) for CPU tensors, the dispatcher
+choosing by device.
 """
 from __future__ import annotations
 
@@ -157,19 +159,10 @@ _FUNCTIONS = {"waveform_features_fwd":
               + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
-def waveform_features(wfs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """(arrival, psd, total, peak), each [n], of waveform rows wfs [n, S].
-
-    CUDA tensors (float32, unit stride along a row, any row stride) run
-    kernel K3 (``csrc/waveform_features.cu``, which replaces
-    waveformml_tpu/ops/pallas_dsp.py:waveform_features_pallas); CPU tensors
-    run ``waveform_features_plain``."""
-    if wfs.dim() != 2 or wfs.shape[1] < 1:
-        raise ValueError(f"expected wfs [n, S], got {tuple(wfs.shape)}")
-    if not wfs.is_cuda:
-        return waveform_features_plain(wfs)
-    if wfs.dtype != torch.float32 or wfs.stride(1) != 1:
-        raise TypeError("the CUDA kernel takes float32 rows with unit stride")
+def waveform_features_cuda(wfs: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA kernel of the op: K3's launch on rows that
+    ``waveform_features`` has checked."""
     n, s = wfs.shape
     outs = tuple(torch.empty(n, dtype=torch.float32, device=wfs.device)
                  for _ in range(4))
@@ -183,6 +176,30 @@ def waveform_features(wfs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     native.check_launch(lib, err, "waveform_features")
     native.count_launches(waveform_features, 1)
     return outs
+
+
+def _waveform_features_fake(wfs):
+    return tuple(wfs.new_empty(wfs.shape[0]) for _ in range(4))
+
+
+waveform_features_op = native.define_op(
+    "waveform_features", "(Tensor wfs) -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=waveform_features_plain, cuda=waveform_features_cuda, fake=_waveform_features_fake)
+
+
+def waveform_features(wfs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(arrival, psd, total, peak), each [n], of waveform rows wfs [n, S].
+
+    Checks the rows, then calls the custom op ``waveformml::waveform_features``,
+    which runs kernel K3 (``csrc/waveform_features.cu``, which replaces
+    waveformml_tpu/ops/pallas_dsp.py:waveform_features_pallas) on CUDA
+    tensors (float32, unit stride along a row, any row stride) and
+    ``waveform_features_plain`` on CPU tensors."""
+    if wfs.dim() != 2 or wfs.shape[1] < 1:
+        raise ValueError(f"expected wfs [n, S], got {tuple(wfs.shape)}")
+    if wfs.is_cuda and (wfs.dtype != torch.float32 or wfs.stride(1) != 1):
+        raise TypeError("the CUDA kernel takes float32 rows with unit stride")
+    return waveform_features_op(wfs)
 
 
 waveform_features.launches = waveform_features.captured = 0
