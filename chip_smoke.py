@@ -82,7 +82,23 @@ order, it:
    the plain versions on the card, K1's and K4's launches asserted; then
    the CLI over SingleEndedZCNN.json, 2 epochs and a test, over in-memory
    blocks;
-10. runs the prediction writers on the card, each through its own pipeline
+10. runs the sparse event classifiers as shipped, from seeded random
+   weights and head biases, over chunks of 4096 events of both kinds:
+   OPs3ns_SCNet.json (``SCNet``: SubM 130→32, BatchNorm, ReLU, SubM 32→8,
+   ReLU in row space, ToDense, Linear 1232→32→2): K1 at both convs and as
+   d_feats, K4 at both (bitwise over two runs) against their plain
+   versions with their times, bounds and library times; 4 chunks served
+   (held to the plain versions on the card and a CPU run) and 2 epochs × 4
+   steps of ``Trainer.fit`` against the plain versions' run, every launch
+   count asserted against the count derived from the code; GEP.json,
+   IoniClassifierCNN.json (``SPConvNet``: the TCN, ``SparseConv2DBlock``)
+   and DensePSD.json (``DenseConvNet``) on the dense grid: 4 chunks
+   served (the first against a CPU run), the forward's device time by
+   kernel, 2 epochs × 4 steps with two blocks' steps held to CPU steps, no
+   kernel launched; then ``main --validate`` on
+   OPs3ns_SCNet.json (1 epoch over in-memory blocks) and on a copy whose
+   head reads 1231 features, which it refuses;
+11. runs the prediction writers on the card, each through its own pipeline
    (prefetch reader, dispatch, three fetch workers, table writer; the HDF5
    reader and table writer replaced by the in-memory stand-ins of
    ``datasets/synthetic.py``, saying so), over 32 read chunks of seeded
@@ -98,7 +114,7 @@ order, it:
    events/s, stage seconds, dispatch phases, graphs and replays printed;
    IRNIM's scores of card and CPU each against float64, both distances
    printed;
-11. evaluates checkpoints on the card through ``evaluate.run``, the
+12. evaluates checkpoints on the card through ``evaluate.run``, the
    function ``python -m waveformml_tpu_torch.evaluate`` calls, over
    in-memory test chunks (no h5py there), each checkpoint written by a
    1-epoch fit: SubMPSD.json (the serving weights; ``PSDEvaluator``; K1
@@ -112,13 +128,13 @@ order, it:
    in, device forward, copy back, ``add_batch`` on the host) and
    ``dump()``'s time, and the figures where matplotlib renders them (else
    that it does not);
-12. exports the eval forward of the four configs that serve on the card
+13. exports the eval forward of five configs that serve on the card
    and reloads it: SubMPSD.json through ``evaluate.run`` with ``--script``
    (what ``python -m waveformml_tpu_torch.evaluate --script`` runs), from
-   the evaluation's checkpoint, SubMPSD_w128.json (a 1-epoch fit),
-   SegQuantifier.json and SingleEndedZCNN.json through
+   the evaluation's checkpoint, SubMPSD_w128.json and OPs3ns_SCNet.json
+   (1-epoch fits), SegQuantifier.json and SingleEndedZCNN.json through
    ``Trainer.export_model``; prints each program's custom-op nodes (K1 in
-   the row-path ones, K2 in the SubMPSD ones); reloads all four in one
+   the row-path ones, K2 in the SubMPSD ones); reloads all five in one
    fresh process that imports torch and the port only and runs each on
    the card, its output within 1e-5 of the eager forward and its K1 and K2
    launches equal to one eager forward's; runs ``torch.library.opcheck``
@@ -126,12 +142,13 @@ order, it:
    the op dispatch (a K1 call, a K2 call and an eager SubMPSD.json training
    step through the ops, with the raw ctypes calls and through
    ``torch.library.custom_op`` twins of the ops);
-13. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
+14. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
    serving chunks' waveform pairs: K3 once a chunk, the feature means
    against the CPU run within K3's tolerance;
-14. prints one JSON line describing every kernel (launches: those of the
+15. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the analysis path; K1 and K4 also at
-   SegQuantifier.json's widths, with its training run's launches), the
+   SegQuantifier.json's and OPs3ns_SCNet.json's widths, each with its
+   training run's launches), the
    card line again, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -165,6 +182,14 @@ CONFIG_W128 = os.path.join(os.path.dirname(CONFIG), "SubMPSD_w128.json")
 # SegQuantifier's SubM chain on the row path (K1, K4)
 CONFIG_Z = os.path.join(os.path.dirname(CONFIG), "SingleEndedZCNN.json")
 CONFIG_SEGQ = os.path.join(os.path.dirname(CONFIG), "SegQuantifier.json")
+# the sparse event classifiers as shipped: OPs3ns_SCNet's pure-SubM DSL stack
+# in row space (K1, K4), and three on the dense grid (cuDNN): GEP and
+# IoniClassifierCNN (SPConvNet, with and without the TCN), DensePSD
+CONFIG_OPS = os.path.join(os.path.dirname(CONFIG), "OPs3ns_SCNet.json")
+CONFIGS_GRID_NETS = tuple(os.path.join(os.path.dirname(CONFIG), f"{name}.json")
+                          for name in ("GEP", "IoniClassifierCNN", "DensePSD"))
+# training blocks of a grid net whose steps are each held to a CPU step
+GRID_STEP_CHECKS = 2
 # events of a serving chunk that the per-segment phases also run on the CPU
 CPU_EVENTS = 256
 N_CHUNKS = 4
@@ -291,6 +316,22 @@ def graph_time_ms(fn, calls: int = 1) -> float:
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / (REPLAYS_PER_SAMPLE * calls))
+    return statistics.median(samples)
+
+
+def replay_time_ms(graph) -> float:
+    """Median device time of one replay of a captured ``torch.cuda.CUDAGraph``
+    (CUDA events around REPLAYS_PER_SAMPLE back-to-back replays)."""
+    samples = []
+    for _ in range(TIMING_SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPLAYS_PER_SAMPLE):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / REPLAYS_PER_SAMPLE)
     return statistics.median(samples)
 
 
@@ -1254,14 +1295,16 @@ def prepared(task, block):
                                              task.event_bucket(block)))
 
 
-def run_segment_serving(cfg, state, chunks, tag):
-    """A per-segment config served through ``InferenceModel`` on the card:
-    each chunk one packed copy in, one replay of its layout's CUDA graph
-    (the grid scatter, the occupancy dilation and the convs inside it) and
-    a copy out; the graphs, replays and launches asserted; where the
-    serving time goes; the outputs held to the eager forward, to the plain
-    versions on the card (where the model has row convs) and, for the first
-    CPU_EVENTS events, to a CPU run of the port. Returns the launches."""
+def run_segment_serving(cfg, state, chunks, tag, cpu_events=CPU_EVENTS):
+    """A per-segment config (or an event classifier) served through
+    ``InferenceModel`` on the card: each chunk one packed copy in, one
+    replay of its layout's CUDA graph (the grid scatter, the occupancy
+    dilation and the convs inside it) and a copy out; the graphs, replays
+    and launches asserted; where the serving time goes; the outputs held to
+    the eager forward, to the plain versions on the card (where the model
+    has row convs) and, for the first ``cpu_events`` events of the first
+    chunk (all of them where None), to a CPU run of the port. Returns the
+    launches."""
     from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
     from waveformml_tpu_torch.inference.model import InferenceModel
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
@@ -1292,6 +1335,7 @@ def run_segment_serving(cfg, state, chunks, tag):
     block0 = FileBlock(chunks[0][0], chunks[0][1], np.zeros(chunks[0][0].shape[0], np.float32))
     db = prepared(task, block0)
     forward_ms = graph_time_ms(lambda: task.apply_model(db))
+    served_ms = [replay_time_ms(g.graph) for g in server.graphs.values()]
     n_events = N_CHUNKS * EVENTS_PER_CHUNK
     names = {"host_prep_s": "host prep (pad, plans, pack)", "h2d_s": "copy in",
              "launch_s": "replay + copy out", "fetch_s": "fetch"}
@@ -1301,18 +1345,26 @@ def run_segment_serving(cfg, state, chunks, tag):
     print(f"{tag} serving: {N_CHUNKS} chunks, {n_events} events in {wall:.4f} s = "
           f"{n_events / wall:.1f} events/s; graphs {len(server.graphs)}, launches {launches}, "
           f"of which from replays {replayed}", flush=True)
+    # the device is busy for the serving graphs' replays: their own time (a
+    # graph of the eager forward may get other cuDNN algorithms than the
+    # serving graph, captured into its memory pool, as the grid nets show)
+    busy = sum(ms * g.replays for ms, g in zip(served_ms, server.graphs.values()))
     print(f"{tag} serving breakdown (ms/chunk, share of wall): {phases}; device forward "
-          f"{forward_ms:.4f}; wall {wall * 1e3 / N_CHUNKS:.3f}; device busy share "
-          f"{N_CHUNKS * forward_ms / (wall * 1e3):.4f}; packed chunk bytes {packed}", flush=True)
+          f"{forward_ms:.4f} (a graph of the eager forward), a replay of each serving graph "
+          f"{[round(ms, 4) for ms in served_ms]}; wall {wall * 1e3 / N_CHUNKS:.3f}; device "
+          f"busy share {busy / (wall * 1e3):.4f} (the serving replays' time over the wall); "
+          f"packed chunk bytes {packed}", flush=True)
 
     row = task.output_unit == "row"
+    classifier = hasattr(task, "n_type")
     has_rows = any(isinstance(m, RowSubMConv2d) for m in task.model.modules())
     reference = InferenceModel(cfg, state) if has_rows else None
     if reference is not None:
         set_plain(reference.task.model, True)
     err_eager = err_plain = 0.0
     for (c, f), out in zip(chunks, outs):
-        want_shape = (c.shape[0], 1) if row else (EVENTS_PER_CHUNK, 1, 14, 11)
+        want_shape = ((c.shape[0], 1) if row else (EVENTS_PER_CHUNK, task.n_type) if classifier
+                      else (EVENTS_PER_CHUNK, 1, 14, 11))
         assert out.shape == want_shape and np.isfinite(out).all(), out.shape
         n = c.shape[0] if row else EVENTS_PER_CHUNK
         direct = task.apply_model(prepared(task, FileBlock(
@@ -1323,34 +1375,47 @@ def run_segment_serving(cfg, state, chunks, tag):
             want = reference(c, f)
             np.testing.assert_allclose(out, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
             err_plain = max(err_plain, float(np.abs(out - want).max()))
-    # the outputs at the real rows: most of them live
-    live = float(np.mean(np.concatenate([
-        (o[:, 0] if row else o[c[:, -1], 0, c[:, 0], c[:, 1]]) != 0
-        for (c, _), o in zip(chunks, outs)])))
-    assert live > 0.05, live
-    c0, f0 = chunks[0]
-    small = c0[:, -1] < CPU_EVENTS
-    t0 = time.perf_counter()
-    cpu = InferenceModel(cfg, state, device="cpu")(c0[small], f0[small])
-    cpu_s = time.perf_counter() - t0
-    card = server(c0[small], f0[small])
-    np.testing.assert_allclose(card, cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
-    print(f"{tag} outputs {outs[0].shape} a chunk, {live:.3f} of those at real rows nonzero: "
+    if classifier:
+        # the logits vary with the events: each class is some event's argmax
+        picked = np.concatenate([o.argmax(-1) for o in outs])
+        live = float(np.mean(picked == 0))
+        what = f"class 0 the argmax of {live:.3f} of the events"
+    else:
+        # the outputs at the real rows: most of them live
+        live = float(np.mean(np.concatenate([
+            (o[:, 0] if row else o[c[:, -1], 0, c[:, 0], c[:, 1]]) != 0
+            for (c, _), o in zip(chunks, outs)])))
+        what = f"{live:.3f} of those at real rows nonzero"
+        assert live > 0.05, live
+    cpu_s, cpu_err, n_cpu = 0.0, 0.0, 0
+    cpu_server = InferenceModel(cfg, state, device="cpu")
+    for (c, f), out in zip(chunks[:1], outs):
+        pick = c[:, -1] < cpu_events if cpu_events else np.ones(c.shape[0], bool)
+        t0 = time.perf_counter()
+        cpu = cpu_server(c[pick], f[pick])
+        cpu_s += time.perf_counter() - t0
+        card = server(c[pick], f[pick]) if cpu_events else out
+        np.testing.assert_allclose(card, cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        cpu_err = max(cpu_err, float(np.abs(card - cpu).max()))
+        n_cpu += cpu.shape[0] if not row else int(np.unique(c[pick][:, -1]).size)
+    print(f"{tag} outputs {outs[0].shape} a chunk, {what}: "
           f"the graph path matches the eager forward (largest |difference| {err_eager:.3g})"
           + (f" and the plain versions on the card ({err_plain:.3g})" if has_rows else "")
-          + f", and {CPU_EVENTS} events match a CPU run of the port ({cpu_s:.2f} s) "
-          f"(rtol={LOGIT_RTOL}, atol={LOGIT_ATOL})", flush=True)
+          + f", and {n_cpu} events match a CPU run of the port ({cpu_s:.2f} s; largest "
+          f"|difference| {cpu_err:.3g}) (rtol={LOGIT_RTOL}, atol={LOGIT_ATOL})", flush=True)
     return launches
 
 
 def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
-    """``Trainer.fit`` of a per-segment config on the card, 2 epochs × 4
-    steps, with each kernel's count set to 0 before and read after (and
-    asserted), the per-step breakdown and the peak device memory; the
-    losses held to the same run with the plain versions on the card
-    (``reference="plain"``) or on the CPU (``"cpu"``); the best
-    checkpoint's test loss against its recorded validation loss. Returns
-    the launches."""
+    """``Trainer.fit`` of a config on the card, 2 epochs × 4 steps, with
+    each kernel's count set to 0 before and read after (and asserted), the
+    per-step breakdown and the peak device memory; the losses held to the
+    same run with the plain versions on the card (``reference="plain"``) or
+    on the CPU (``"cpu"``: the free-running trajectory printed, each step
+    held to a CPU step from the card's state), or only each of the first
+    GRID_STEP_CHECKS training blocks' steps held to a CPU step from the
+    card's state (``"steps"``); the best checkpoint's test loss against its
+    recorded validation loss. Returns the launches."""
     from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
     from waveformml_tpu_torch.inference.model import InferenceModel
 
@@ -1360,24 +1425,31 @@ def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         launches = counted_fit(trainer, data, f"{tag} training")
         peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        ref = make_trainer(cfg, state, plain=True,
-                           device="cpu" if reference == "cpu" else None)
-        zero_counts()
-        ref.fit(data)
-        assert not any(read_counts().values())
-        ref_s = time.perf_counter() - t0
         print(f"{tag} training: peak device memory {peak / 2**30:.3f} GiB "
               f"(torch.cuda.max_memory_allocated); losses "
-              f"{np.round(trainer.step_losses, 6).tolist()}; the "
-              f"{'plain versions on the card' if reference == 'plain' else 'CPU run'} "
-              f"({ref_s:.1f} s): {np.round(ref.step_losses, 6).tolist()}", flush=True)
+              f"{np.round(trainer.step_losses, 6).tolist()}", flush=True)
+        if reference == "steps":
+            t0 = time.perf_counter()
+            check_steps_on_cpu(cfg, state, train[:GRID_STEP_CHECKS], tag)
+            print(f"{tag} training: the step checks took {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        else:
+            t0 = time.perf_counter()
+            ref = make_trainer(cfg, state, plain=True,
+                               device="cpu" if reference == "cpu" else None)
+            zero_counts()
+            ref.fit(data)
+            assert not any(read_counts().values())
+            print(f"{tag} training: the "
+                  f"{'plain versions on the card' if reference == 'plain' else 'CPU run'} "
+                  f"({time.perf_counter() - t0:.1f} s): "
+                  f"{np.round(ref.step_losses, 6).tolist()}", flush=True)
         if reference == "plain":
             np.testing.assert_allclose(trainer.step_losses, ref.step_losses,
                                        rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
             print(f"{tag} training losses match the plain versions' (rtol={TRAIN_RTOL}, "
                   f"atol={TRAIN_ATOL})", flush=True)
-        else:
+        elif reference == "cpu":
             rel = np.abs(np.subtract(trainer.step_losses, ref.step_losses)) / np.abs(
                 ref.step_losses)
             again = make_trainer(cfg, state, plain=False)
@@ -1402,6 +1474,30 @@ def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
     return launches
 
 
+def biases_before_batchnorm(model):
+    """The parameter names of the conv biases that a BatchNorm follows:
+    their gradient is rounding. Returns those of the sparse stacks, whose
+    BatchNorm sums the occupied sites, and those of ``Conv2DBlock``, whose
+    BatchNorm sums every site of every real event (~6·10^5 terms a channel
+    at 4096 events, most of them the bias alone)."""
+    from waveformml_tpu_torch.models.blocks import Conv2DBlock
+    from waveformml_tpu_torch.models.sparse_blocks import _SpecNet
+
+    params = dict(model.named_parameters())
+    sparse, dense = set(), set()
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(module, _SpecNet):
+            specs = module.specs
+            for i in range(len(specs) - 1):
+                if specs[i + 1][0] == "bn":
+                    sparse |= {k for k in (f"{prefix}l{i}.conv.bias", f"{prefix}l{i}.bias")
+                               if k in params}
+        elif isinstance(module, Conv2DBlock):
+            dense |= {f"{prefix}conv_{i}.bias" for i in range(len(module.layers))}
+    return sparse, dense
+
+
 def check_steps_on_cpu(cfg, state, blocks, tag) -> None:
     """Training steps on the card, one a block of ``blocks`` in turn, each
     against the same step on the CPU taken from the card's state just
@@ -1411,16 +1507,20 @@ def check_steps_on_cpu(cfg, state, blocks, tag) -> None:
     adds its momentum into it in place, the CPU's does not) within
     STEP_UPDATE_RTOL of the CPU's in norm (a conv bias before a
     BatchNorm, whose update is rounding, of GRAD_BN_FLOOR times the largest
-    update norm). A free-running trajectory
+    update norm; before a dense grid's BatchNorm, each device's update of
+    it within GRAD_BN_FLOOR times the largest update norm, the two
+    roundings not compared). A free-running trajectory
     compounds every difference of two summation orders; these steps do
     not."""
     card = make_trainer(cfg, state, plain=False)
     cpu = make_trainer(cfg, state, plain=True, device="cpu")
-    specs = card.task.model.stack.specs
-    # a conv bias before a BatchNorm moves by rounding only
-    before_bn = {f"{card.task.model._stack_name}.l{i}.conv.bias"
-                 for i, s in enumerate(specs[:-1]) if specs[i + 1][0] == "bn"}
+    # a conv bias before a BatchNorm moves by rounding only; before a dense
+    # grid's BatchNorm that rounding is of sums of ~10^5-10^6 cancelling
+    # terms, so there each device's update is held to rounding on its own
+    before_bn, before_dense_bn = biases_before_batchnorm(card.task.model)
+    worst_dense = 0.0
     worst_loss = worst_norm = worst_elem = 0.0
+    worst_name = None
     for block in blocks:
         cpu.task.model.load_state_dict(card.task.model.state_dict())
         # a copy: on one device the two optimizers would share momentum buffers
@@ -1436,21 +1536,34 @@ def check_steps_on_cpu(cfg, state, blocks, tag) -> None:
             update = p.detach().cpu() - before[name]
             want_update = cpu_params[name].detach() - before[name]
             diffs[name] = (float((update - want_update).norm()), float(want_update.norm()))
-            if name not in before_bn:
+            if name in before_dense_bn:
+                moved = max(float(update.norm()), float(want_update.norm()))
+                diffs[name] = (moved, 0.0)
+            elif name not in before_bn:
                 worst_elem = max(worst_elem, float((update - want_update).abs().max())
                                  / max(float(want_update.abs().max()), 1e-30))
         largest = max(norm for _, norm in diffs.values())
         for name, (diff, norm) in diffs.items():
+            if name in before_dense_bn:
+                # each device moved it by rounding: far below a trained update
+                assert diff <= GRAD_BN_FLOOR * largest, (name, diff, largest)
+                worst_dense = max(worst_dense, diff / largest)
+                continue
             if name in before_bn:
                 norm = max(norm, GRAD_BN_FLOOR * largest)
             assert diff <= STEP_UPDATE_RTOL * norm, (name, diff, norm)
-            worst_norm = max(worst_norm, diff / max(norm, 1e-30))
+            if diff / max(norm, 1e-30) >= worst_norm:
+                worst_norm, worst_name = diff / max(norm, 1e-30), name
     print(f"{tag} training, {len(blocks)} steps each from the card's state: losses within "
           f"{worst_loss:.3g} (relative; rtol={STEP_RTOL}), every parameter's update within "
-          f"{worst_norm:.3g} of the CPU's in norm (≤ {STEP_UPDATE_RTOL}; for the conv biases "
+          f"{worst_norm:.3g} of the CPU's in norm ({worst_name}; ≤ {STEP_UPDATE_RTOL}; for "
+          f"the conv biases "
           f"before a BatchNorm, {sorted(before_bn)}, of {GRAD_BN_FLOOR}·the largest update "
           f"norm); largest element difference {worst_elem:.3g} of the parameter's largest "
-          f"|update|", flush=True)
+          f"|update|" + (f"; the conv biases before the dense grid's BatchNorm, "
+                         f"{sorted(before_dense_bn)}, moved by at most {worst_dense:.3g} of the "
+                         f"largest update norm on either device (≤ {GRAD_BN_FLOOR})"
+                         if before_dense_bn else ""), flush=True)
 
 
 def gradients_against_float64(cfg, state, block, tag) -> None:
@@ -1649,6 +1762,158 @@ def run_segq(tag="SegQuantifier"):
               f"{serving[name]}, a training step {a_step[name]}, in the training run "
               f"{training[name]}", flush=True)
     return results, training
+
+
+def run_sparse_nets(tag="OPs3ns_SCNet"):
+    """The sparse event classifiers as shipped, from seeded random weights
+    and head biases (BatchNorm statistics of one train-mode forward), over
+    4096-event chunks of both particle kinds. OPs3ns_SCNet.json (the
+    slice's main path: SubM 130→32 with BatchNorm and ReLU, SubM 32→8 with
+    ReLU, in row space; ToDense; Linear 1232→32, ReLU, Linear 32→2): K1 at
+    both convs and as the second one's d_feats, K4 at both (Cin + 1 = 131,
+    33; bitwise over two runs) against their plain versions; 4 chunks
+    served (logits held to the plain versions on the card and a CPU run),
+    2 epochs × 4 steps of ``Trainer.fit`` held to the plain versions' run,
+    every launch count asserted against the count its code derives. Then
+    GEP.json, IoniClassifierCNN.json and DensePSD.json on the dense grid
+    (cuDNN in float32): 4 chunks served, the first held to a CPU run over
+    every event; 2 epochs × 4 steps, the steps of two blocks each held to a
+    CPU step from the card's state; no kernel launched. Returns OPs3ns's
+    kernel numbers, its training launches, its state and its blocks."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+
+    cfg = load_config(CONFIG_OPS)
+    n_samples = cfg.system_config.n_samples
+    rng = np.random.default_rng(SEED + 90)
+    chunks = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(N_CHUNKS)]
+    state = seeded_state(cfg, SEED + 91, chunks[0])
+    task = LitPSD(cfg)
+    task.model.load_state_dict(state)
+    db = prepared(task, FileBlock(chunks[0].coords, chunks[0].feats, chunks[0].labels))
+    convs = [tuple(m.weight.shape) for m in task.model.stack.modules() if hasattr(m, "plain")]
+    print(f"{tag} stack: row path {task.model.row_path}, convs {convs}, specs "
+          f"{task.model.stack.specs}; head input {task.model.n_linear}; rows of the first "
+          f"chunk {int(db['mask'].sum())} in a bucket of {db['mask'].shape[0]}", flush=True)
+    results = {"subm_conv_rows": check_subm_conv_rows(task.model, db, db["feats"],
+                                                      tag=f"{tag} ")}
+    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(
+        task.model, db, db["feats"], tag=f"{tag} ")
+    results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
+                                                   d_feats_err)
+    inputs = [(b.coords, b.feats) for b in chunks]
+    serving = run_segment_serving(cfg, state, inputs, tag)
+    train = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(TRAIN_CHUNKS)]
+    val = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+    training = run_segment_training(cfg, state, train, val, tag, reference="plain")
+    a_forward = training_launches(task.model, 0, 1)
+    a_step = training_launches(task.model, 1, 0)
+    calls = len(convs)
+    for name, r in results.items():
+        assert serving[name] > 0 or name == "subm_conv_rows_wgrad", serving
+        assert training[name] > 0, training
+        print(f"{tag} {name}: ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
+              f"max_abs_err={r['max_abs_err']:.3g}; launches (grids, as the wrapper counts "
+              f"them) derived from the code: a forward {a_forward[name]}, a training step "
+              f"{a_step[name]}; counted: in the serving run {serving[name]} "
+              f"({N_CHUNKS} replays), in the training run {training[name]}", flush=True)
+    print(f"{tag}: K1 is called {calls} times a forward (each 3x3 conv launches its "
+          f"centre-tap grid and its other taps' grid), once more a training step as the "
+          f"second conv's d_feats; K4 once a conv a step (two grids)", flush=True)
+
+    for path in CONFIGS_GRID_NETS:
+        run_grid_net(path, SEED + 100 + CONFIGS_GRID_NETS.index(path))
+    return results, training, state, train, val
+
+
+def run_grid_net(path: str, seed: int) -> None:
+    """A grid event classifier as shipped (no hand-written kernel on its
+    path), from seeded random weights: 4 serving chunks of 4096 events,
+    the first held to a CPU run over every event, its device forward by
+    kernel, and 2 epochs × 4 steps of
+    ``Trainer.fit``, the first GRID_STEP_CHECKS blocks' steps each held to
+    a CPU step from the card's state; no kernel launched in either."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+
+    tag = os.path.basename(path)[:-5]
+    t_start = time.perf_counter()
+    cfg = load_config(path)
+    n_samples = cfg.system_config.n_samples
+    rng = np.random.default_rng(seed)
+    chunks = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(N_CHUNKS)]
+    state = seeded_state(cfg, seed + 1, chunks[0])
+    net = cfg.net_config.net_class
+    print(f"{tag}: {net} at {n_samples} samples, "
+          f"{sum(v.numel() for v in state.values())} parameters and statistics", flush=True)
+    serving = run_segment_serving(cfg, state, [(b.coords, b.feats) for b in chunks], tag,
+                                  cpu_events=None)
+    # where a forward's device time goes, by kernel (torch.profiler)
+    task = LitPSD(cfg)
+    task.model.load_state_dict(state)
+    db = prepared(task, chunks[0])
+    kernels = sorted(grid_times_ms(lambda: task.apply_model(db), reps=5).items(),
+                     key=lambda kv: -kv[1])
+    print(f"{tag} forward by kernel (ms a forward, torch.profiler over 5 eager forwards, "
+          f"the largest 8 of {len(kernels)}): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in kernels[:8])
+          + f"; all {sum(v for _, v in kernels):.4f}", flush=True)
+    train = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(TRAIN_CHUNKS)]
+    val = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+    training = run_segment_training(cfg, state, train, val, tag, reference="steps")
+    assert not any(serving.values()) and not any(training.values()), (serving, training)
+    print(f"{tag}: no kernel launched in serving or training ({serving}, {training}); "
+          f"the config's phase took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def run_validate_cli(train, val) -> None:
+    """``main --validate`` on OPs3ns_SCNet.json (the DSL's shapes checked,
+    then 1 epoch over the in-memory blocks: no h5py here) and on a copy
+    whose head reads 1231 features where ToDense gives 1232, which must
+    raise before anything is built."""
+    from waveformml_tpu_torch import main as cli
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+
+    with tempfile.TemporaryDirectory() as tmp, open(CONFIG_OPS) as f:
+        cfg = json.load(f)
+        cfg["system_config"]["model_base_path"] = os.path.join(tmp, "model")
+        good = os.path.join(tmp, "OPs3ns_SCNet.json")
+        with open(good, "w") as f:
+            json.dump(cfg, f)
+        head = cfg["net_config"]["algorithm"].index("nn.Linear") + 1
+        assert cfg["net_config"]["algorithm"][head] == [1232, 32]
+        cfg["net_config"]["algorithm"][head] = [1231, 32]
+        bad = os.path.join(tmp, "OPs3ns_SCNet_wrong_head.json")
+        with open(bad, "w") as f:
+            json.dump(cfg, f)
+        try:
+            cli.main([bad, "--validate", "--max_epochs", "1"])
+        except IOError as e:
+            message = str(e)
+        else:
+            raise AssertionError("main --validate accepted a head of 1231 features")
+        assert "Expecting the input dimensions to be 1232, got 1231" in message, message
+        chosen = cli.choose_data_module
+        cli.choose_data_module = lambda config: BlockDataModule(train[:2], val)
+        out = io.StringIO()
+        zero_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([good, "--validate", "--max_epochs", "1"])
+        finally:
+            cli.choose_data_module = chosen
+        launches = read_counts()
+        fit = [ln for ln in out.getvalue().splitlines() if ln.startswith("fit: ")]
+        assert rc == 0 and len(fit) == 1, out.getvalue()
+        assert launches["subm_conv_rows"] > 0 and launches["subm_conv_rows_wgrad"] > 0
+        print(f"main --validate: OPs3ns_SCNet.json passes and trains 1 epoch over in-memory "
+              f"blocks (no h5py here) ({fit[0]}; launches {launches}); the "
+              f"copy with a 1231-wide head is refused before anything is built: {message!r}",
+              flush=True)
 
 
 def run_cli(config_path, train, val, fit_keys, test_keys, kernels, hdf5_dirs=True) -> None:
@@ -2631,11 +2896,11 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
     """The export phase. For SubMPSD.json (through ``evaluate.run`` with
     ``--script``, what ``python -m waveformml_tpu_torch.evaluate --script``
     runs, over in-memory test chunks), SubMPSD_w128.json (half precision;
-    a 1-epoch fit from seeded weights), SegQuantifier.json and
-    SingleEndedZCNN.json (``Trainer.export_model``), each from the
-    checkpoint its evaluation or fit wrote, on its first test chunk: the
-    program's custom-op nodes (K1 in the three row-path configs, K2 in the
-    two SubMPSD ones, none in Z); the program reloaded in one fresh
+    a 1-epoch fit from seeded weights), SegQuantifier.json,
+    SingleEndedZCNN.json and OPs3ns_SCNet.json (``Trainer.export_model``),
+    each from the checkpoint its evaluation or fit wrote, on its first test
+    chunk: the program's custom-op nodes (K1 in the four row-path configs,
+    K2 in the two SubMPSD ones, none in Z); the program reloaded in one fresh
     process that imports torch and the port only (``RELOAD_SCRIPT``) and
     run on the card, its output within EXPORT_TOL of a fresh Trainer's
     eager forward over the same batch and its K1 and K2 launches equal to
@@ -2654,7 +2919,8 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
     checkpoints[CONFIG_W128] = (fit.best_ckpt_path, half_blocks(checkpoints[CONFIG][1][:1]))
     expected = {CONFIG: ("subm_conv_rows", "site_grouped_matmul"),
                 CONFIG_W128: ("subm_conv_rows", "site_grouped_matmul"),
-                CONFIG_SEGQ: ("subm_conv_rows",), CONFIG_Z: ()}
+                CONFIG_SEGQ: ("subm_conv_rows",), CONFIG_Z: (),
+                CONFIG_OPS: ("subm_conv_rows",)}
     cases = []
     for cfg_path, kernels in expected.items():
         ckpt, test = checkpoints[cfg_path]
@@ -2770,8 +3036,8 @@ def main() -> int:
         return 1
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
-    from waveformml_tpu_torch.datasets.synthetic import (labelled_block, make_events,
-                                                         synth_waveform_pair)
+    from waveformml_tpu_torch.datasets.synthetic import (BlockDataModule, labelled_block,
+                                                         make_events, synth_waveform_pair)
     from waveformml_tpu_torch.detector import MAX_RANGE
     from waveformml_tpu_torch.engineering.base import pack_db
     from waveformml_tpu_torch.inference.model import InferenceModel
@@ -2785,6 +3051,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = [time.perf_counter()] * 2
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {what} took {now - started[1]:.1f} s ({now - started[0]:.1f} s since "
+              f"the start)", flush=True)
+        started[1] = now
+
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3005,6 +3279,8 @@ def main() -> int:
           f"psd={float(psd.mean()):.4f} total={float(total.mean()):.1f} "
           f"peak={float(peak.mean()):.1f}", flush=True)
 
+    lap("build, kernel checks, serving and K3 (phases 2-5)")
+
     # -- 6. training path -----------------------------------------------------
     train_rng = np.random.default_rng(SEED + 4)
     train = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples)
@@ -3018,8 +3294,11 @@ def main() -> int:
     # it runs there; K3's are replaced by those of its user path below
     launches = {name: train_launches[name] or launches.get(name, 0) for name in train_launches}
 
+    lap("training (phase 6)")
+
     # -- 7. SubMPSD_w128.json in half precision -------------------------------
     run_w128(chunks, train, val)
+    lap("SubMPSD_w128.json (phase 7)")
 
     # -- 8. the CLI -----------------------------------------------------------
     run_cli(CONFIG, train, val, ("train_loss", "train_accuracy", "val_loss", "val_accuracy"),
@@ -3027,26 +3306,45 @@ def main() -> int:
             ("subm_conv_rows", "site_grouped_matmul", "subm_conv_rows_wgrad",
              "site_grouped_matmul_bwd"))
 
+    lap("the CLI (phase 8)")
+
     # -- 9. the per-segment regressors -----------------------------------------
     z_train, z_val = run_z()
     segq, segq_launches = run_segq()
     run_cli(CONFIG_Z, z_train, z_val, ("train_loss", "val_loss"), ("test_loss",), (),
             hdf5_dirs=False)
 
-    # -- 10. the prediction writers --------------------------------------------
+    lap("the per-segment regressors and their CLI (phase 9)")
+
+    # -- 10. the sparse event classifiers ----------------------------------------
+    ops, ops_launches, ops_state, ops_train, ops_val = run_sparse_nets()
+    run_validate_cli(ops_train, ops_val)
+    lap("the sparse event classifiers and main --validate (phase 10)")
+
+    # -- 11. the prediction writers --------------------------------------------
     run_writers()
+    lap("the prediction writers (phase 11)")
 
     with tempfile.TemporaryDirectory() as work_dir:
-        # -- 11. the evaluation ------------------------------------------------
+        # -- 12. the evaluation ------------------------------------------------
         _, checkpoints = run_evaluation(state, train, val, work_dir)
+        ops_fit = make_trainer(load_config(CONFIG_OPS), ops_state, plain=False, max_epochs=1,
+                               checkpoint_dir=os.path.join(work_dir, "OPs3ns_SCNet.json",
+                                                           "version_0"))
+        ops_fit.fit(BlockDataModule(ops_train[:2], ops_val))
+        checkpoints[CONFIG_OPS] = (ops_fit.best_ckpt_path, ops_val)
 
-        # -- 12. the export ----------------------------------------------------
+        lap("the evaluation (phase 12)")
+
+        # -- 13. the export ----------------------------------------------------
         run_export(checkpoints, state, train, val, work_dir, card)
+        lap("the export (phase 13)")
 
-    # -- 13. the waveform analysis, K3's user path ------------------------------
+    # -- 14. the waveform analysis, K3's user path ------------------------------
     launches["waveform_features"] = run_analyze(chunks, n_samples)
+    lap("the waveform analysis (phase 14)")
 
-    # -- 14. report -----------------------------------------------------------
+    # -- 15. report -----------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),
@@ -3067,15 +3365,19 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # K1 and K4 again at SegQuantifier.json's widths, launched by its path
-    for name in ("subm_conv_rows", "subm_conv_rows_wgrad"):
-        route, source, replaces = sources[name]
-        r = segq[name]
-        kernels.append({"name": f"{name} (SegQuantifier.json)", "route": route,
-                        "source": source, "replaces": replaces,
-                        "launches": segq_launches[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K1 and K4 again at SegQuantifier.json's and OPs3ns_SCNet.json's widths,
+    # each launched by its own path
+    for config, numbers, counts in (("SegQuantifier.json", segq, segq_launches),
+                                    ("OPs3ns_SCNet.json", ops, ops_launches)):
+        for name in ("subm_conv_rows", "subm_conv_rows_wgrad"):
+            route, source, replaces = sources[name]
+            r = numbers[name]
+            kernels.append({"name": f"{name} ({config})", "route": route,
+                            "source": source, "replaces": replaces,
+                            "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                            "ms": r["ms"], "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -144,7 +144,7 @@ def test_load_best_without_checkpoint_raises(workdir):
         cli.main([path, "-lb", "--max_epochs", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["-oc", "optuna.json"], ["--distributed"], ["--validate"],
+@pytest.mark.parametrize("flags", [["-oc", "optuna.json"], ["--distributed"],
                                    ["--profiler"]], ids=lambda f: f[0].lstrip("-"))
 def test_flags_not_ported_raise(workdir, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):

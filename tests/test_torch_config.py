@@ -87,3 +87,29 @@ def test_custom_requirements_alike():
     jax_result, port_result = _both({"run_config": {}}, req)
     assert port_result == jax_result == ("ValueError",
                                          "required config key missing: run_config/tags")
+
+
+@pytest.mark.parametrize("name", ["GEP", "IoniClassifierCNN", "DensePSD", "OPs3ns_SCNet"])
+def test_sparse_net_configs_validate_and_resolve(name):
+    """The configs of the sparse nets validate as the JAX package's do, and
+    each class they name (task, net, criterion, optimizer, scheduler,
+    dataset, the DSL's layers) resolves in the port's registry."""
+    from waveformml_tpu_torch.models.algorithm import split_algorithm
+    from waveformml_tpu_torch.registry import retrieve_class
+
+    path = os.path.join(os.path.dirname(EXAMPLES[0]), f"{name}.json")
+    with open(path) as f:
+        raw = json.load(f)
+    jax_result, port_result = _both(raw)
+    assert isinstance(port_result, dict) and port_result == jax_result
+    cfg = load_config(path)
+    names = [cfg.run_config.run_class, cfg.net_config.net_class,
+             cfg.net_config.criterion_class, cfg.optimize_config.optimizer_class,
+             cfg.optimize_config.scheduler_class, cfg.dataset_config.dataset_class]
+    algorithm = raw["net_config"].get("algorithm")
+    if algorithm:
+        names += [item for section in split_algorithm(algorithm) for item in section
+                  if isinstance(item, str) and item != "spconv.ToDense"]
+        names.append("spconv.ToDense")
+    for n in names:
+        assert retrieve_class(n) is not None, n

@@ -56,7 +56,9 @@ def test_import_loads_no_jax():
                  "scripts.gen_wf_param_config", "scripts.compare_calibration_curves",
                  "scripts.run_occlusion_study", "scripts.eval_occlusion_study",
                  "scripts.compare_pmt_wf", "scripts.add_attr", "scripts.plot_model_weights",
-                 "scripts.peak_finder"):
+                 "scripts.peak_finder", "nn.layers", "models.algorithm", "models.nets",
+                 "models.blocks", "models.sparse_blocks", "utils.model_validation",
+                 "convert"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

@@ -300,8 +300,10 @@ def test_criterion_refuses_unsupported_params():
 
     with pytest.raises(ValueError, match="unsupported criterion params"):
         build_criterion("nn.CrossEntropyLoss", [[1.0, 2.0], "extra"])
+    with pytest.raises(ValueError, match="unsupported criterion params"):
+        build_criterion("NLLLoss", [[1.0, 2.0], "extra"])
     with pytest.raises(KeyError):
-        build_criterion("NLLLoss")
+        build_criterion("NoSuchLoss")
 
 
 @pytest.mark.parametrize("weights", [None, [0.2, 1.0, 3.0]], ids=["plain", "class_weights"])

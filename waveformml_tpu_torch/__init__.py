@@ -16,8 +16,13 @@ or ``half_precision`` (``SubMPSD_w128.json``), and the per-waveform DSP
 feature op; and the per-segment regressors (``LitZ``, ``LitEZ``,
 ``LitSegQuantifier``, ``LitSegClassifier``: ``SingleEndedZCNN.json`` on
 the dense-grid sparse ops of ``ops.sparse_conv``, whose convs are cuDNN's
-in float32, ``SegQuantifier.json`` on the row path); through five kernels
-written by hand in CUDA C++:
+in float32, ``SegQuantifier.json`` on the row path); and the sparse event
+classifiers without waveform models (``SPConvNet``, ``DenseConvNet``,
+``ExtractedFeatureConvNet`` and 2D ``SCNet`` over the config ``algorithm``
+DSL of ``models.algorithm`` and ``nn.layers``, checked by
+``utils.model_validation``: ``GEP.json``, ``IoniClassifierCNN.json``,
+``DensePSD.json``, ``OPs3ns_SCNet.json`` on the row path); through five
+kernels written by hand in CUDA C++:
 
 * ``ops.row_conv.subm_conv_rows``           -- K1, gather-fused TF32 GEMM (forward,
   and the feature gradient with the reversed, transposed kernel)

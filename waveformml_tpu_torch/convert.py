@@ -4,32 +4,49 @@
 The flax side is a flat dict of numpy arrays keyed by collection and module
 path, ``"params/stack/l0/kernel"``, ``"batch_stats/stack/l1/mean"`` (what
 ``flax.traverse_util.flatten_dict(variables, sep="/")`` or an ``.npz``
-holds). The mapping, leaf by leaf:
+holds). The mapping, leaf by leaf, the layout keyed on the name of the
+module that holds the leaf (the last component of its path):
 
-======================  ===================  ==================================
-flax                    torch                layout
-======================  ===================  ==================================
-``params/…/kernel``     ``….weight``         row conv ``[K², Cin, Cout]`` and
-                                             site head ``[C·S, F]`` as they are
-``params/…/dense_i/kernel``  ``….dense_i.weight``  ``[in, out]`` → ``[out, in]``
-``params/…/conv/kernel``     ``….conv.weight``  grid conv ``[kh, kw, Cin, Cout]``
-                                             → ``[Cout, Cin, kh, kw]``
-``params/…/kernel`` (4D)     ``….weight``  inverse conv ``[kh, kw, Cin, Cout]``
-                                             → ``[Cin, Cout, kh, kw]``
-``params/…/scale``      ``….weight``         BatchNorm scale
-``params/…/bias``       ``….bias``
-``batch_stats/…/mean``  ``….running_mean``
-``batch_stats/…/var``   ``….running_var``
-======================  ===================  ==================================
+==============================  ============================  ===========================
+flax                            torch                         layout
+==============================  ============================  ===========================
+``…/l<i>/kernel`` (3D)          ``….l<i>.weight``             row conv ``[K², Cin, Cout]``
+                                                              as it is
+``…/head0/kernel``              ``….head0.weight``            site head ``[C·S, F]`` as it is
+``…/dense_<i>/kernel``,         ``….weight``                  ``[in, out]`` → ``[out, in]``
+``…/dense/kernel``
+``…/conv/kernel``,              ``….weight``                  ``[*k, Cin, Cout]`` →
+``…/conv_<i>/kernel``,                                        ``[Cout, Cin, *k]`` (1D and
+``…/conv1``, ``conv2``,                                       2D convs)
+``…/downsample/kernel``
+other 4D ``…/kernel``           ``….weight``                  inverse conv ``[kh, kw, Cin,
+                                                              Cout]`` → ``[Cin, Cout, kh, kw]``
+``…/WeightNorm_<j>/<conv>/``    ``….<conv>.parametrizations   ``[Cout]`` → ``[Cout, 1, 1]``
+``kernel/scale``                .weight.original0``
+``…/<conv>/kernel`` of a        ``….<conv>.parametrizations   as a conv kernel
+weight-normed conv              .weight.original1``
+``…/scale``                     ``….weight``                  BatchNorm, LayerNorm scale
+``…/bias``                      ``….bias``
+``batch_stats/…/mean``          ``….running_mean``
+``batch_stats/…/var``           ``….running_var``
+==============================  ============================  ===========================
 
 Module paths are carried as they are (``/`` ↔ ``.``): the port names its
 modules as flax names the JAX package's (``stack/l0``,
-``SparseConv2DForZ_0/l0/conv``). The inverse conv's kernel keeps its
-orientation: the JAX forward flips it, ``conv_transpose2d`` takes it
-unflipped.
+``SparseConv2DForZ_0/l0/conv``, ``sparse_model/layers_0/conv``), a list
+attribute's items included: flax names them ``<attribute>_<i>``
+(``linear_layers_0``, ``waveform_layers_0``), and so does the port. flax's
+``nn.WeightNorm`` keeps each scale in a module of its own,
+``WeightNorm_<j>`` beside the conv in the block that wraps it, numbered
+in the order the block calls its convs; torch's weight-norm
+parametrisation keeps it in the conv, and the port's TCN block registers
+its convs in that order, so the j-th parametrised conv of a module is
+``WeightNorm_<j>``. The inverse conv's kernel keeps its orientation: the
+JAX forward flips it, ``conv_transpose2d`` takes it unflipped.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -37,41 +54,63 @@ import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_INV = {v: k for k, v in _STATS.items()}
+#: a weight-norm parametrisation's leaves in a torch state_dict
+_WN = ".parametrizations.weight.original"
+_CONV = re.compile(r"^(conv(_\d+)?|conv1|conv2|downsample)$")
+_DENSE = re.compile(r"^dense(_\d+)?$")
+_WN_SCALE = re.compile(r"^(?P<parent>.*?)/?WeightNorm_\d+/(?P<conv>[^/]+)/kernel/scale$")
 
 
-def _is_dense(module_path: str) -> bool:
-    return module_path.rsplit("/", 1)[-1].startswith("dense_")
+def _leaf_module(module_path: str) -> str:
+    return module_path.rsplit("/", 1)[-1]
 
 
 def _kernel_to_torch(module_path: str, arr: np.ndarray) -> np.ndarray:
+    name = _leaf_module(module_path)
+    if _CONV.match(name) and arr.ndim >= 3:
+        # flax [*k, Cin, Cout] → [Cout, Cin, *k]
+        return np.ascontiguousarray(np.moveaxis(arr, (-1, -2), (0, 1)))
     if arr.ndim == 4:
-        # flax [kh, kw, Cin, Cout]: a grid conv's F.conv2d [Cout, Cin, kh, kw]
-        # or an inverse conv's conv_transpose2d [Cin, Cout, kh, kw]
-        axes = (3, 2, 0, 1) if module_path.rsplit("/", 1)[-1] == "conv" else (2, 3, 0, 1)
-        return np.ascontiguousarray(arr.transpose(axes))
-    return arr.T if _is_dense(module_path) else arr
+        # an inverse conv's conv_transpose2d [Cin, Cout, kh, kw]
+        return np.ascontiguousarray(arr.transpose(2, 3, 0, 1))
+    return arr.T if _DENSE.match(name) else arr
 
 
 def _kernel_to_flax(module_path: str, arr: np.ndarray) -> np.ndarray:
+    name = _leaf_module(module_path)
+    if _CONV.match(name) and arr.ndim >= 3:
+        return np.ascontiguousarray(np.moveaxis(arr, (0, 1), (-1, -2)))
     if arr.ndim == 4:
-        axes = (2, 3, 1, 0) if module_path.rsplit("/", 1)[-1] == "conv" else (2, 3, 0, 1)
-        return np.ascontiguousarray(arr.transpose(axes))
-    return arr.T if _is_dense(module_path) else arr
+        return np.ascontiguousarray(arr.transpose(2, 3, 0, 1))
+    return arr.T if _DENSE.match(name) else arr
 
 
 def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat flax variables → the port's ``state_dict`` (float32 tensors)."""
     out: Dict[str, torch.Tensor] = {}
+    normed = set()
+    for key in flat:
+        m = _WN_SCALE.match(key.split("/", 1)[1]) if key.startswith("params/") else None
+        if m:
+            normed.add(f"{m['parent']}/{m['conv']}".lstrip("/"))
     for key, value in flat.items():
         collection, path = key.split("/", 1)
-        module, _, leaf = path.rpartition("/")
         arr = np.asarray(value, dtype=np.float32)
+        m = _WN_SCALE.match(path) if collection == "params" else None
+        if m:
+            module = f"{m['parent']}/{m['conv']}".lstrip("/")
+            out[module.replace("/", ".") + _WN + "0"] = torch.tensor(
+                arr.reshape((-1,) + (1,) * 2))
+            continue
+        module, _, leaf = path.rpartition("/")
         if collection == "batch_stats":
             name = _STATS[leaf]
         elif collection == "params":
             name = {"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]
             if leaf == "kernel":
                 arr = _kernel_to_torch(module, arr)
+                if module in normed:
+                    name = _WN[1:] + "1"
         else:
             raise KeyError(f"unknown flax collection in '{key}'")
         out[f"{module.replace('/', '.')}.{name}".lstrip(".")] = torch.tensor(arr)
@@ -81,16 +120,30 @@ def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of ``flax_to_state_dict``."""
     out: Dict[str, np.ndarray] = {}
+    weight_norms: Dict[str, int] = {}
     for key, value in state.items():
+        arr = value.detach().cpu().numpy()
+        if _WN in key:
+            conv_path, _, which = key.partition(_WN)
+            path = conv_path.replace(".", "/")
+            if which == "1":
+                out[f"params/{path}/kernel"] = _kernel_to_flax(path, arr)
+            else:
+                parent, _, conv = path.rpartition("/")
+                j = weight_norms.setdefault(parent, 0)
+                weight_norms[parent] = j + 1
+                prefix = f"{parent}/" if parent else ""
+                out[f"params/{prefix}WeightNorm_{j}/{conv}/kernel/scale"] = arr.reshape(-1)
+            continue
         module, _, leaf = key.rpartition(".")
         path = module.replace(".", "/")
         prefix = f"{path}/" if path else ""
-        arr = value.detach().cpu().numpy()
         if leaf in _STATS_INV:
             out[f"batch_stats/{prefix}{_STATS_INV[leaf]}"] = arr
         elif leaf == "bias":
             out[f"params/{prefix}bias"] = arr
-        elif leaf == "weight" and key[:-len("weight")] + "running_mean" in state:
+        elif leaf == "weight" and (key[:-len("weight")] + "running_mean" in state
+                                   or _leaf_module(path).startswith("LayerNorm_")):
             out[f"params/{prefix}scale"] = arr
         elif leaf == "weight":
             out[f"params/{prefix}kernel"] = _kernel_to_flax(path, arr)

@@ -12,7 +12,9 @@ installed) and the best checkpoint. ``-lc`` starts from a checkpoint,
 optimizer, scheduler and epoch; ``--auto_lr_find`` sets the lr from
 ``Trainer.lr_find``; the Trainer's arguments are flags. Then fit, printing
 ``fit: {...}``, and with ``-t`` a test pass, printing ``test: {...}``, with
-the JAX CLI's keys.
+the JAX CLI's keys. ``--validate`` checks the ``algorithm`` DSL's shapes
+(``utils.model_validation``) before anything is built, and raises
+``IOError`` on a mismatch.
 
 ``--device`` (default ``cuda``) picks the device: the card, or ``cpu`` for
 the plain PyTorch versions of the kernels. HDF5 input needs h5py.
@@ -30,7 +32,6 @@ from typing import Any, Dict, Optional
 #: ROADMAP.md item that ports each
 NOT_PORTED = {"optuna_config": ("-oc/--optuna_config (HPO)", "queue 1 item 10"),
               "distributed": ("--distributed (multi-GPU)", "queue 1 item 12"),
-              "validate": ("--validate (algorithm DSL validation)", "queue 1 item 9"),
               "profiler": ("--profiler", "queue 1 item 2")}
 
 
@@ -61,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable trial pruning during HPO")
     p.add_argument("--auto_lr_find", action="store_true")
     p.add_argument("--validate", action="store_true",
-                   help="statically validate the algorithm DSL (not ported yet)")
+                   help="statically validate the algorithm DSL before training")
     p.add_argument("--profiler", action="store_true", help="(not ported yet)")
     p.add_argument("--max_epochs", type=int, default=None)
     p.add_argument("--overfit_batches", type=int_or_float, default=None)
@@ -180,7 +181,12 @@ def main(argv: Optional[list] = None) -> int:
             validate_config(config, json.load(f))
     if args.name:
         config.run_config.exp_name = args.name
-    setup_logger(args.verbosity, args.logfile)
+    log = setup_logger(args.verbosity, args.logfile)
+    if args.validate:
+        from waveformml_tpu_torch.utils.model_validation import ModelValidation
+
+        ModelValidation.validate(config)
+        log.info("model validation passed")
     run(config, args, choose_data_module(config))
     return 0
 

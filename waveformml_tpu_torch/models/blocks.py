@@ -1,15 +1,23 @@
-"""Building blocks of the sparse PSD head (counterpart of
-waveformml_tpu/models/blocks.py): masked BatchNorm, the site-folded first
-Linear layer and the geometric Linear stack."""
+"""Dense building blocks (counterpart of waveformml_tpu/models/blocks.py):
+masked BatchNorm, the site-folded first Linear layer, the geometric Linear
+stack, the weight-normed causal TCN and the dense 2D conv stack.
+
+The convs run in PyTorch's channels-first layout (``[N, C, L]``, ``[B, C,
+H, W]``) through ``ops.sparse_conv.conv`` (float32 without TF32, as the
+JAX package's XLA convs); their channel schedules are copied from the JAX
+package as they are, so that a config gives the same layers.
+"""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from math import ceil, floor
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from waveformml_tpu_torch.detector import NX, NY
+from waveformml_tpu_torch.models.schedules import get_frame_contraction, get_frame_expansion
 from waveformml_tpu_torch.ops.site_head import SiteGroupedMatmul
 from waveformml_tpu_torch.ops.sparse import SparseBatch
 
@@ -46,6 +54,16 @@ class MaskedArrayBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x`` is ``[N, C]``, or ``[N, C, *S]`` (channels first) whose
+        every position of a row is a real element where the row is real
+        (``mask [N]``)."""
+        if x.dim() > 2:
+            rows = x.movedim(1, -1)
+            shape = rows.shape
+            if mask is not None:
+                mask = mask.reshape((-1,) + (1,) * (x.dim() - 2)).expand(shape[:-1])
+                mask = mask.reshape(-1)
+            return self.forward(rows.reshape(-1, shape[-1]), mask).view(shape).movedim(-1, 1)
         if not self.training:
             scale = torch.rsqrt(self.running_var + self.eps)
             return (x - self.running_mean) * scale * self.weight + self.bias
@@ -85,7 +103,7 @@ class LinearBlock(nn.Module):
             self.add_module(f"dense_{i}", layer)
             width = out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x)
         return x
@@ -122,3 +140,155 @@ class FoldedSiteLinear(nn.Module):
         return SiteGroupedMatmul.apply(rows, k3, self.bias, plans["site_take"],
                                        plans["site_ev"], plans["site_s"], batch.n_events,
                                        self.plain)
+
+
+class TemporalBlock(nn.Module):
+    """TCN residual block: two weight-normed causal dilated convs (each
+    input left-padded by ``(k - 1)·dilation``), each followed by ReLU and
+    dropout, a 1×1 ``downsample`` of the input where the widths differ,
+    and a ReLU over the sum. Input ``[N, C, L]``.
+
+    ``conv1`` and ``conv2`` carry torch's weight-norm parametrisation over
+    ``dim=0`` (``original0`` the scale ``g [Cout, 1, 1]``, ``original1``
+    the direction ``v [Cout, Cin, k]``), the counterpart of flax's
+    ``nn.WeightNorm`` (``WeightNorm_i/conv<j>/kernel/scale`` beside
+    ``conv<j>/kernel``, normalised over every axis but the output one);
+    as flax initialises them, ``v`` is drawn from N(0, 0.01) and ``g`` is
+    one."""
+
+    def __init__(self, n_inputs: int, n_outputs: int, kernel_size: int, dilation: int,
+                 dropout: float = 0.2, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        from torch.nn.utils.parametrizations import weight_norm
+
+        # ops.sparse_conv imports this module: import it when a block is built
+        from waveformml_tpu_torch.ops.sparse_conv import _ConvParams
+
+        self.pad = (kernel_size - 1) * dilation
+        self.dilation = dilation
+        self.dropout = float(dropout or 0.0)
+        for name, cin in (("conv1", n_inputs), ("conv2", n_outputs)):
+            layer = _ConvParams(cin, n_outputs, (kernel_size,), True, generator, device)
+            with torch.no_grad():
+                layer.weight.normal_(0.0, 0.01, generator=generator)
+            layer = weight_norm(layer, dim=0)
+            with torch.no_grad():
+                layer.parametrizations.weight.original0.fill_(1.0)
+            self.add_module(name, layer)
+        self.downsample = None
+        if n_inputs != n_outputs:
+            self.downsample = _ConvParams(n_inputs, n_outputs, (1,), True, generator, device)
+            with torch.no_grad():
+                self.downsample.weight.normal_(0.0, 0.01, generator=generator)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        from waveformml_tpu_torch.ops.sparse_conv import conv, dropout
+
+        out = x
+        for layer in (self.conv1, self.conv2):
+            out = nn.functional.pad(out, (self.pad, 0))
+            out = torch.relu(conv(out, layer.weight, layer.bias, (1,), (0,), (self.dilation,)))
+            out = dropout(out, self.dropout, self.training, generator)
+        res = x
+        if self.downsample is not None:
+            res = conv(x, self.downsample.weight, self.downsample.bias, (1,), (0,), (1,))
+        return torch.relu(out + res)
+
+
+class TemporalConvNet(nn.Module):
+    """Dilated TCN, ``tblock_i`` of dilation 2^i. Input ``[N, C, L]``."""
+
+    def __init__(self, num_inputs: int, num_channels: Sequence[int], kernel_size: int = 3,
+                 dropout: float = 0.2, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.n = len(num_channels)
+        for i, ch in enumerate(num_channels):
+            nin = num_inputs if i == 0 else num_channels[i - 1]
+            self.add_module(f"tblock_{i}", TemporalBlock(nin, ch, kernel_size, 2 ** i,
+                                                         dropout, generator, device))
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"tblock_{i}")(x, generator)
+        return x
+
+
+class Conv2DBlock(nn.Module):
+    """Dense 2D conv stack, the dense analog of ``SparseConv2DBlock``:
+    ``conv_i`` (weight ``[Cout, Cin, k, k]``), masked BatchNorm ``bn_i``
+    (statistics over the sites of the real events, ``mask [B]``), ReLU and
+    dropout per layer. Input ``[B, C, H, W]``."""
+
+    def __init__(self, nin: int, nout: int, n: int, size: Sequence[int],
+                 size_factor: int = 3, pad_factor: float = 0.0, stride_factor: float = 1.0,
+                 dil_factor: float = 1.0, expansion_factor: float = 1.0,
+                 n_expansion: int = 0, pointwise_factor: float = 0.0,
+                 dropout: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        from waveformml_tpu_torch.ops.sparse_conv import _ConvParams
+
+        self.size = list(size)
+        self.dropout = float(dropout or 0.0)
+        self.layers = self.schedule(nin, nout, n, size_factor, pad_factor, stride_factor,
+                                    dil_factor, expansion_factor, n_expansion,
+                                    pointwise_factor)
+        for i, (cin, cout, fs, _, _, _) in enumerate(self.layers):
+            self.add_module(f"conv_{i}", _ConvParams(cin, cout, (fs, fs), True, generator,
+                                                     device))
+            self.add_module(f"bn_{i}", MaskedArrayBatchNorm(cout, device=device))
+
+    @staticmethod
+    def schedule(nin, nout, n, size_factor=3, pad_factor=0.0, stride_factor=1.0,
+                 dil_factor=1.0, expansion_factor=1.0, n_expansion=0,
+                 pointwise_factor=0.0) -> List[Tuple[int, int, int, int, int, int]]:
+        if pointwise_factor > 0:
+            n_contraction = n - 1 - n_expansion
+            if n_contraction < 1:
+                raise ValueError("n_contraction too large, must be < n - 1")
+        else:
+            n_contraction = n - n_expansion
+            if n_contraction < 1:
+                raise ValueError("n_contraction too large, must be < n")
+        nframes = [nin]
+        if pointwise_factor > 0:
+            nframes.append(nin - int(floor((nin - nout) * pointwise_factor)))
+        if n_expansion > 0:
+            nframes += get_frame_expansion(nframes[-1], expansion_factor, n_expansion)
+        if n_contraction > 0:
+            nframes += get_frame_contraction(nframes[-1], nout, n_contraction)
+        layers = []
+        for i in range(n):
+            if pointwise_factor > 0:
+                decay = 1.0 - (i - 1) / (n - 1) if n > 1 else 1.0
+            else:
+                decay = 1.0 - i / (n - 1) if n > 1 else 1.0
+            fs = max(2, int(ceil(size_factor * decay)))
+            st = max(1, int(round(stride_factor * i / (n - 1))) if n > 1 else 1)
+            dil = int(round(dil_factor ** i))
+            pd = int(round(pad_factor * ((fs - 1) / 2.0) * dil_factor * decay))
+            if i == 0 and pointwise_factor > 0:
+                pd, fs, dil, st = 0, 1, 1, 1
+            layers.append((nframes[i], nframes[i + 1], fs, st, pd, dil))
+        return layers
+
+    def out_size(self) -> List[int]:
+        size = list(self.size)
+        for (cin, cout, fs, st, pd, dil) in self.layers:
+            size = [int((size[0] + 2 * pd - fs - (fs - 1) * (dil - 1)) / st + 1),
+                    int((size[1] + 2 * pd - fs - (fs - 1) * (dil - 1)) / st + 1),
+                    cout]
+        return size
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator=None) -> torch.Tensor:
+        from waveformml_tpu_torch.ops.sparse_conv import conv, dropout
+
+        for i, (_, _, _, st, pd, dil) in enumerate(self.layers):
+            layer = getattr(self, f"conv_{i}")
+            x = conv(x, layer.weight, layer.bias, (st, st), (pd, pd), (dil, dil))
+            x = torch.relu(getattr(self, f"bn_{i}")(x, mask))
+            x = dropout(x, self.dropout, self.training, generator)
+        return x

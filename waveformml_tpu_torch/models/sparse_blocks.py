@@ -66,7 +66,9 @@ class _SpecNet(nn.Module):
     """A stack built from layer specs, each parametric layer named
     ``l<i>`` as in the JAX package: on the row path ``RowSubMConv2d`` and
     ``MaskedArrayBatchNorm``, on the grid path the grid convs (their
-    weights under ``l<i>.conv``) and ``MaskedBatchNorm``.
+    weights under ``l<i>.conv``) and ``MaskedBatchNorm``. A ``("bn",
+    None)`` spec (a DSL BatchNorm without arguments) takes the width of
+    the conv before it.
 
     ``in_width`` is the width of the features the stack is given where it
     differs from the schedule's (``UseFFT``'s spectrum): the first grid
@@ -79,6 +81,7 @@ class _SpecNet(nn.Module):
         self.specs = specs
         self.row_path = _row_compatible(specs)
         first = True
+        width = in_width
         for i, spec in enumerate(specs):
             op = spec[0]
             if op in ("conv", "conv_keyed", "subm", "inv"):
@@ -86,6 +89,7 @@ class _SpecNet(nn.Module):
                 if first and in_width is not None and not self.row_path:
                     cin = in_width
                 first = False
+                width = spec[2]
             if op == "subm" and self.row_path:
                 layer = RowSubMConv2d(cin, spec[2], spec[3], generator, device)
             elif op == "subm":
@@ -103,7 +107,7 @@ class _SpecNet(nn.Module):
                                             generator=generator, device=device)
             elif op == "bn":
                 layer = (MaskedArrayBatchNorm if self.row_path else MaskedBatchNorm)(
-                    spec[1], device=device)
+                    spec[1] if spec[1] is not None else width, device=device)
             elif op in ("relu", "dropout", "todense"):
                 continue
             else:
@@ -470,3 +474,166 @@ class SparseConv2DPreserve(_SpecNet):
             if dropout:
                 specs.append(("dropout", float(dropout)))
         return specs
+
+
+class ExtractedFeatureConv(_SpecNet):
+    """Regular sparse convs over per-segment extracted feature vectors."""
+
+    def __init__(self, nin: int, nout: int, n: int, size: Sequence[int] = (14, 11),
+                 expansion_factor: float = 10.0, size_factor: int = 3,
+                 pad_factor: float = 0.0, stride_factor: float = 1, dil_factor: float = 1,
+                 dropout: float = 0, generator: Optional[torch.Generator] = None,
+                 device=None, in_width: Optional[int] = None):
+        super().__init__(self.schedule(nin, nout, n, expansion_factor, size_factor,
+                                       pad_factor, stride_factor, dil_factor, dropout),
+                         generator, device, in_width)
+
+    @staticmethod
+    def schedule(nin, nout, n, expansion_factor=10.0, size_factor=3,
+                 pad_factor=0.0, stride_factor=1, dil_factor=1, dropout=0) -> List[Tuple]:
+        assert n > 1
+        nframes = [nin, int(round(nin * expansion_factor))]
+        diff = float(nframes[1] - nout) / (n - 1)
+        nframes += [int(floor(nframes[1] - diff * i)) for i in range(n - 1)]
+        specs: List[Tuple] = []
+        for i in range(n):
+            decay = 1.0 - (i - 1) / (n - 1)
+            fs = max(2, int(floor(size_factor / (i + 1.0))))
+            st = max(1, int(round(stride_factor * i / (n - 1))))
+            dil = int(round(dil_factor ** i))
+            pd = int(round(pad_factor * (fs - 1) * dil_factor * decay))
+            specs.append(("conv", nframes[i], nframes[i + 1], fs, st, pd, dil))
+            specs.append(("bn", nframes[i + 1]))
+            specs.append(("relu",))
+            if dropout:
+                specs.append(("dropout", float(dropout)))
+        specs.append(("todense",))
+        return specs
+
+
+def _block_frames(nin, nout, n, pointwise_factor, depth_factor) -> List[int]:
+    """The version-0/1 channel schedule of ``SparseConv2DBlock``."""
+    if nin == nout:
+        return [nin] * (n + 1)
+    if pointwise_factor > 0:
+        nframes = [nin, nin - int(floor((nin - nout) * pointwise_factor))]
+        if n > 1:
+            diff = float(nin - nout) / n
+            for _ in range(n - 1):
+                val = int(floor(nframes[-1] - diff))
+                nframes.append(val if val > nout else nout)
+        return nframes
+    if depth_factor > 0:
+        nframes = [nin, int(nin * depth_factor)]
+        if n > 1:
+            diff = float(nframes[-1] - nout) / (n - 1)
+            for _ in range(n - 1):
+                val = int(floor(nframes[-1] - diff))
+                nframes.append(val if val > nout else nout)
+        return nframes
+    diff = float(nin - nout) / n
+    return [int(floor(nin - diff * i)) for i in range(n + 1)]
+
+
+class SparseConv2DBlock(_SpecNet):
+    """General stack of regular sparse convs, versions 0-3 of the
+    kernel-decay and channel-path rules; ``size`` is the input's (NX, NY,
+    C), which ``out_size`` propagates."""
+
+    def __init__(self, nin: int, nout: int, n: int, size: Sequence[int] = (14, 11, 0),
+                 to_dense: bool = True, size_factor: int = 3, pad_factor: float = 0.0,
+                 stride_factor: float = 1, dil_factor: float = 1,
+                 pointwise_factor: float = 0, depth_factor: float = 0, dropout: float = 0,
+                 version: int = 0, expansion_factor: float = 0, n_expansion: int = 0,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 in_width: Optional[int] = None):
+        super().__init__(self.schedule(nin, nout, n, to_dense, size_factor, pad_factor,
+                                       stride_factor, dil_factor, pointwise_factor,
+                                       depth_factor, dropout, version, expansion_factor,
+                                       n_expansion), generator, device, in_width)
+
+    @staticmethod
+    def schedule(nin, nout, n, to_dense=True, size_factor=3, pad_factor=0.0,
+                 stride_factor=1, dil_factor=1, pointwise_factor=0,
+                 depth_factor=0, dropout=0, version=0, expansion_factor=0,
+                 n_expansion=0) -> List[Tuple]:
+        assert n > 0
+        if version in (0, 1):
+            nframes = _block_frames(nin, nout, n, pointwise_factor, depth_factor)
+        else:  # versions 2, 3: the expansion/contraction path
+            if pointwise_factor > 0:
+                n_contraction = n - 1 - n_expansion
+                if n_contraction < 1:
+                    raise ValueError("n_contraction too large, must be < n - 1")
+            else:
+                n_contraction = n - n_expansion
+                if n_contraction < 1:
+                    raise ValueError("n_contraction too large, must be < n")
+            nframes = [nin]
+            if pointwise_factor > 0:
+                nframes.append(nin - int(floor((nin - nout) * pointwise_factor)))
+            if n_expansion > 0:
+                nframes += get_frame_expansion(nframes[-1], expansion_factor, n_expansion)
+            if n_contraction > 0:
+                nframes += get_frame_contraction(nframes[-1], nout, n_contraction)
+        specs: List[Tuple] = []
+        for i in range(n):
+            if pointwise_factor > 0:
+                decay = 1.0 - (i - 1) / (n - 1) if n > 1 else 1.0
+            else:
+                decay = 1.0 - i / (n - 1) if n > 1 else 1.0
+            if version == 3:
+                fs = max(2, int(ceil(size_factor * decay)))
+            else:
+                fs = max(2 if version in (1, 2) else 3,
+                         int(floor(size_factor / (i + 1.0))))
+            if version == 0:
+                fs = max(3, int(floor(size_factor / (i + 1.0))))
+                st = max(1, stride_factor - int(floor((stride_factor - 1) / (i + 1.0))))
+                dil = int(round(dil_factor ** i))
+                pd = int(round(pad_factor * (fs - 1) * dil_factor) * (i / (n + 1)))
+                pd = int(pd)
+            else:
+                st = max(1, int(round(stride_factor * i / (n - 1))) if n > 1 else 1)
+                dil = int(round(dil_factor ** i))
+                pd = int(round(pad_factor * ((fs - 1) / 2.0) * dil_factor * decay))
+            if i == 0 and pointwise_factor > 0:
+                pd, fs, dil, st = 0, 1, 1, 1
+            specs.append(("conv", nframes[i], nframes[i + 1], fs, st, pd, dil))
+            specs.append(("bn", nframes[i + 1]))
+            specs.append(("relu",))
+            if dropout:
+                specs.append(("dropout", float(dropout)))
+        if to_dense:
+            specs.append(("todense",))
+        return specs
+
+    @staticmethod
+    def out_size(specs: Sequence[Tuple], size: Sequence[int]) -> List[int]:
+        """The spatial size and width after the specs' convs:
+        o = ⌊(i + 2p − k − (k − 1)(d − 1))/s⌋ + 1."""
+        w, h = int(size[0]), int(size[1])
+        c = int(size[2]) if len(size) > 2 else 0
+        for spec in specs:
+            if spec[0] == "conv":
+                _, cin, cout, k, s, p, d = spec
+                w = (w + 2 * p - k - (k - 1) * (d - 1)) // s + 1
+                h = (h + 2 * p - k - (k - 1) * (d - 1)) // s + 1
+                c = cout
+            elif spec[0] == "subm":
+                c = spec[2]
+        return [w, h, c]
+
+
+class DSLSpecNet(_SpecNet):
+    """A ``_SpecNet`` over spec tuples translated from the config
+    ``algorithm`` DSL (``models.algorithm.dsl_to_row_specs``): a pure-SubM
+    2D stack runs in row space (K1, K4). ``n_t``, the time axis of a 3D
+    stack, is not ported."""
+
+    def __init__(self, spec_list: Sequence[Tuple], n_t: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        if n_t is not None:
+            raise NotImplementedError("3D row stacks (DSLSpecNet n_t) are not ported yet "
+                                      "(ROADMAP.md queue 1 item 9.3)")
+        super().__init__(list(spec_list), generator, device)

@@ -93,10 +93,11 @@ class HuberLoss(_Criterion):
         return torch.where(d < self.delta, 0.5 * d * d, self.delta * (d - 0.5 * self.delta))
 
 
-@registry.register("CrossEntropyLoss", aliases=("nn.CrossEntropyLoss",))
-class CrossEntropyLoss:
-    """Softmax cross entropy on logits [N, C] with integer targets [N];
-    optional per-class ``weight``, torch's first positional argument."""
+class _WeightedNLLBase:
+    """A negative log-likelihood over per-class log-probabilities [N, C]
+    with integer targets [N]; optional per-class ``weight``, torch's first
+    positional argument. Subclasses give the log-probabilities of their
+    input (``_logp``)."""
 
     def __init__(self, weight=None, *args, **kwargs):
         if args or kwargs:
@@ -107,9 +108,12 @@ class CrossEntropyLoss:
                 f"args={args!r} kwargs={kwargs!r}")
         self.weight = None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
 
+    def _logp(self, pred: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
     def elementwise(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         weight = None if self.weight is None else self.weight.to(pred.device, pred.dtype)
-        return F.cross_entropy(pred, target.long(), weight=weight, reduction="none")
+        return F.nll_loss(self._logp(pred), target.long(), weight=weight, reduction="none")
 
     def mean_denominator(self, target: torch.Tensor) -> Optional[torch.Tensor]:
         """Per-sample term of the 'mean' denominator, or None for the sample
@@ -118,6 +122,22 @@ class CrossEntropyLoss:
         if self.weight is None:
             return None
         return self.weight.to(target.device)[target.long()]
+
+
+@registry.register("CrossEntropyLoss", aliases=("nn.CrossEntropyLoss",))
+class CrossEntropyLoss(_WeightedNLLBase):
+    """Softmax cross entropy on logits [N, C] with integer targets [N]."""
+
+    def _logp(self, pred):
+        return torch.log_softmax(pred, dim=-1)
+
+
+@registry.register("NLLLoss", aliases=("nn.NLLLoss",))
+class NLLLoss(_WeightedNLLBase):
+    """Negative log likelihood on log-probabilities [N, C]."""
+
+    def _logp(self, pred):
+        return pred
 
 
 def build_criterion(name: str, params=None):

@@ -1,0 +1,278 @@
+"""Layers under the torch class names of the config ``algorithm`` DSL
+(counterpart of waveformml_tpu/nn/layers.py): the names and aliases the
+JAX package registers ("nn.Linear", "nn.Conv1d", "nn.ReLU", ...), built
+from the same positional or keyword arguments.
+
+The layers run in PyTorch's channels-first layout (``[B, C, L]``, ``[B,
+C, H, W]``), where the JAX package's run channels-last; a torch ``dim``
+(``Softmax``, ``LogSoftmax``) and a ``LayerNorm``'s ``normalized_shape``
+mean what torch means by them in both. Each parametric layer holds its parameters under the name its
+flax module gives them (``dense``, ``conv``, ``bn``, ``LayerNorm_0``), so
+that ``convert.py`` carries them path for path. Each layer is called as
+``layer(x, generator)``: dropout in train mode draws from ``generator``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from waveformml_tpu_torch.models.blocks import lecun_normal_
+from waveformml_tpu_torch.ops.sparse_conv import _ConvParams, conv, dropout
+from waveformml_tpu_torch.registry import registry
+
+IntOrPair = Union[int, Sequence[int]]
+
+
+def _pair(v: IntOrPair) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)  # type: ignore[return-value]
+    return int(v), int(v)
+
+
+@registry.register("Linear", aliases=("nn.Linear",))
+class Linear(nn.Module):
+    """torch ``nn.Linear(in_features, out_features, bias=True)``, its
+    parameters under ``dense``; lecun-normal weight, zero bias (flax's
+    ``nn.Dense``)."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
+        super().__init__()
+        self.dense = nn.Linear(in_features, out_features, bias=use_bias)
+        lecun_normal_(self.dense.weight, in_features)
+        if use_bias:
+            nn.init.zeros_(self.dense.bias)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return self.dense(x)
+
+
+@registry.register("Conv1d", aliases=("nn.Conv1d",))
+class Conv1d(nn.Module):
+    """torch ``nn.Conv1d(nin, nout, k, stride, padding, dilation, groups)``
+    on ``[B, C, L]``, its parameters under ``conv``, in float32 without
+    TF32."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,
+                 use_bias: bool = True):
+        super().__init__()
+        self.geometry = ((int(stride),), (int(padding),), (int(dilation),))
+        self.groups = groups
+        self.conv = _ConvParams(in_channels // groups, out_channels, (int(kernel_size),),
+                                use_bias, None, None)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return conv(x, self.conv.weight, self.conv.bias, *self.geometry, groups=self.groups)
+
+
+@registry.register("Conv2d", aliases=("nn.Conv2d",))
+class Conv2d(nn.Module):
+    """torch ``nn.Conv2d`` on ``[B, C, H, W]``, its parameters under
+    ``conv``, in float32 without TF32."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntOrPair,
+                 stride: IntOrPair = 1, padding: IntOrPair = 0, dilation: IntOrPair = 1,
+                 groups: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.geometry = (_pair(stride), _pair(padding), _pair(dilation))
+        self.groups = groups
+        self.conv = _ConvParams(in_channels // groups, out_channels, _pair(kernel_size),
+                                use_bias, None, None)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return conv(x, self.conv.weight, self.conv.bias, *self.geometry, groups=self.groups)
+
+
+# -- activations -------------------------------------------------------------------
+
+def _activation(name: str, fn: Callable[[torch.Tensor], torch.Tensor]):
+    @registry.register(name, aliases=(f"nn.{name}",))
+    class _Act(nn.Module):
+        __doc__ = f"torch ``nn.{name}``: no parameters."
+
+        def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+            return fn(x)
+
+    _Act.__name__ = _Act.__qualname__ = name
+    return _Act
+
+
+ReLU = _activation("ReLU", torch.relu)
+SELU = _activation("SELU", torch.selu)
+# jax.nn.gelu's default is the tanh approximation
+GELU = _activation("GELU", lambda x: F.gelu(x, approximate="tanh"))
+Tanh = _activation("Tanh", torch.tanh)
+Sigmoid = _activation("Sigmoid", torch.sigmoid)
+Identity = _activation("Identity", lambda x: x)
+
+
+@registry.register("LeakyReLU", aliases=("nn.LeakyReLU",))
+class LeakyReLU(nn.Module):
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return F.leaky_relu(x, self.negative_slope)
+
+
+@registry.register("Softmax", aliases=("nn.Softmax",))
+class Softmax(nn.Module):
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return torch.softmax(x, dim=self.dim)
+
+
+@registry.register("LogSoftmax", aliases=("nn.LogSoftmax",))
+class LogSoftmax(nn.Module):
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return torch.log_softmax(x, dim=self.dim)
+
+
+@registry.register("Dropout", aliases=("nn.Dropout",))
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout`` (``ops.sparse_conv.dropout``) in train mode."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator)
+
+
+@registry.register("Flatten", aliases=("nn.Flatten",))
+class Flatten(nn.Module):
+    """Flattens from ``start_dim`` as the array lies: after ``ToDense``,
+    where a DSL flattens, both packages hold ``[B, C, H, W]``."""
+
+    def __init__(self, start_dim: int = 1):
+        super().__init__()
+        self.start_dim = start_dim
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return x.reshape(tuple(x.shape[:self.start_dim]) + (-1,))
+
+
+# -- norms -------------------------------------------------------------------------
+
+class _FlaxBatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over every axis but the channel axis (dim 1):
+    in train mode the batch's mean and biased variance (E[x²] − E[x]²,
+    float32) normalise it and move the running statistics by
+    ``momentum``, the running variance with the biased one too; in eval
+    mode the running statistics normalise it. Every element counts,
+    padding included, as in the JAX package."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            axes = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = (xf.square().mean(axes) - mean.square()).clamp(min=0.0)
+            with torch.no_grad():
+                mom = self.momentum
+                self.running_mean.copy_((1 - mom) * self.running_mean + mom * mean)
+                self.running_var.copy_((1 - mom) * self.running_var + mom * var)
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
+        else:
+            mean, var = self.running_mean.to(x.dtype), self.running_var.to(x.dtype)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+@registry.register("BatchNorm1d", aliases=("nn.BatchNorm1d",))
+class BatchNorm1d(nn.Module):
+    """torch ``nn.BatchNorm1d(num_features)`` with flax's statistics
+    (``_FlaxBatchNorm``), its parameters under ``bn``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.bn = _FlaxBatchNorm(num_features, eps, momentum)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return self.bn(x)
+
+
+@registry.register("BatchNorm2d", aliases=("nn.BatchNorm2d",))
+class BatchNorm2d(BatchNorm1d):
+    pass
+
+
+@registry.register("LayerNorm", aliases=("nn.LayerNorm",))
+class LayerNorm(nn.Module):
+    """torch ``nn.LayerNorm(normalized_shape)``: normalises over the
+    trailing ``len(normalized_shape)`` axes, with a scale and bias of that
+    shape under ``LayerNorm_0``. torch makes parameters before the first
+    input, so the port needs ``normalized_shape`` where flax infers it."""
+
+    def __init__(self, normalized_shape: Any = None, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        shape = ((normalized_shape,) if isinstance(normalized_shape, int)
+                 else tuple(normalized_shape or ()))
+        self.normalized_shape = shape
+        self.LayerNorm_0 = nn.Module()
+        if shape:
+            self.LayerNorm_0.weight = nn.Parameter(torch.ones(shape))
+            self.LayerNorm_0.bias = nn.Parameter(torch.zeros(shape))
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.normalized_shape:
+            raise ValueError("LayerNorm needs normalized_shape in the port (torch's "
+                             "parameters are made before the first input)")
+        return F.layer_norm(x, self.normalized_shape, self.LayerNorm_0.weight,
+                            self.LayerNorm_0.bias, self.eps)
+
+
+# -- pooling -----------------------------------------------------------------------
+
+class _Pool(nn.Module):
+    def __init__(self, kernel_size: IntOrPair, stride: Optional[IntOrPair] = None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride or kernel_size
+
+
+@registry.register("MaxPool1d", aliases=("nn.MaxPool1d",))
+class MaxPool1d(_Pool):
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return F.max_pool1d(x, self.kernel_size, self.stride)
+
+
+@registry.register("AvgPool1d", aliases=("nn.AvgPool1d",))
+class AvgPool1d(_Pool):
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return F.avg_pool1d(x, self.kernel_size, self.stride)
+
+
+@registry.register("MaxPool2d", aliases=("nn.MaxPool2d",))
+class MaxPool2d(_Pool):
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return F.max_pool2d(x, _pair(self.kernel_size), _pair(self.stride))
+
+
+@registry.register("AvgPool2d", aliases=("nn.AvgPool2d",))
+class AvgPool2d(_Pool):
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return F.avg_pool2d(x, _pair(self.kernel_size), _pair(self.stride))

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -78,38 +79,41 @@ class _Conv(torch.autograd.Function):
     itself."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, dilation, transposed):
+    def forward(ctx, x, weight, bias, stride, padding, dilation, transposed, groups):
         ctx.save_for_backward(x, weight)
-        ctx.geometry = (stride, padding, dilation, transposed)
+        ctx.geometry = (stride, padding, dilation, transposed, groups)
         ctx.has_bias = bias is not None
         with ieee_fp32_convs():
             return torch.ops.aten.convolution(x, weight, bias, stride, padding, dilation,
-                                              transposed, [0, 0], 1)
+                                              transposed, [0] * len(stride), groups)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        stride, padding, dilation, transposed = ctx.geometry
-        cout = weight.shape[1] if transposed else weight.shape[0]
+        stride, padding, dilation, transposed, groups = ctx.geometry
+        cout = weight.shape[1] * groups if transposed else weight.shape[0]
         need = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
                 ctx.has_bias and ctx.needs_input_grad[2]]
         with ieee_fp32_convs():
             dx, dw, db = torch.ops.aten.convolution_backward(
                 g, x, weight, [cout] if ctx.has_bias else None, stride, padding, dilation,
-                transposed, [0, 0], 1, need)
-        return dx, dw, db, None, None, None, None
+                transposed, [0] * len(stride), groups, need)
+        return dx, dw, db, None, None, None, None, None
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-         stride=(1, 1), padding=(0, 0), dilation=(1, 1), transposed: bool = False
-         ) -> torch.Tensor:
-    """A 2D convolution of ``x [B, Cin, H, W]`` in float32 without TF32,
-    forward and backward: weight ``[Cout, Cin, kh, kw]``, or ``[Cin, Cout,
-    kh, kw]`` where ``transposed``; the weight and bias are cast to x's
-    dtype, as the JAX package's convs compute in their input's dtype."""
+         stride=(1, 1), padding=(0, 0), dilation=(1, 1), transposed: bool = False,
+         groups: int = 1) -> torch.Tensor:
+    """A convolution of ``x [B, Cin, *S]`` (one spatial axis a value of
+    ``stride``, ``padding`` and ``dilation``) in float32 without TF32,
+    forward and backward: weight ``[Cout, Cin / groups, *k]``, or ``[Cin,
+    Cout / groups, *k]`` where ``transposed``; the weight and bias are cast
+    to x's dtype, as the JAX package's convs compute in their input's
+    dtype."""
     w = weight.to(x.dtype)
     b = bias.to(x.dtype) if bias is not None else None
-    return _Conv.apply(x, w, b, list(stride), list(padding), list(dilation), transposed)
+    return _Conv.apply(x, w, b, list(stride), list(padding), list(dilation), transposed,
+                       groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,17 +182,16 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 class _ConvParams(nn.Module):
-    """The parameters of one grid conv, as the JAX package's inner
-    ``nn.Conv`` named "conv" holds them: weight ``[Cout, Cin, kh, kw]``
-    (flax's ``[kh, kw, Cin, Cout]`` transposed, ``convert.py``), bias
-    ``[Cout]``; lecun-normal weight, zero bias."""
+    """The parameters of one conv, as a flax ``nn.Conv`` holds them: weight
+    ``[Cout, Cin, *k]`` (flax's ``[*k, Cin, Cout]`` transposed,
+    ``convert.py``), bias ``[Cout]``; lecun-normal weight, zero bias."""
 
-    def __init__(self, cin: int, cout: int, k: Tuple[int, int], use_bias: bool,
+    def __init__(self, cin: int, cout: int, k: Tuple[int, ...], use_bias: bool,
                  generator: Optional[torch.Generator], device):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty((cout, cin) + k, device=device))
+        self.weight = nn.Parameter(torch.empty((cout, cin) + tuple(k), device=device))
         self.bias = nn.Parameter(torch.zeros(cout, device=device)) if use_bias else None
-        lecun_normal_(self.weight, cin * k[0] * k[1], generator)
+        lecun_normal_(self.weight, cin * math.prod(k), generator)
 
 
 @registry.register("spconv.SubMConv2d", aliases=("SubMConv2d",))

@@ -7,7 +7,7 @@ resolve as there: the exact key, then its trailing dotted components
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 
 class Registry:
@@ -44,6 +44,38 @@ class Registry:
                            f"(known: {sorted(self._by_name)})")
         return obj
 
+    def create_class_instances(self, spec: List[Any],
+                               translations: Optional[Dict[str, Callable]] = None
+                               ) -> List[Any]:
+        """A layer list from the config ``algorithm`` DSL: class-name
+        strings, each followed by its positional arguments (a list), its
+        keyword arguments (a dict or a ``Config``) or nothing (a class
+        built with no arguments). ``translations`` maps a class name to the
+        factory used in its place, before the registry is asked."""
+        instances: List[Any] = []
+        current: Optional[Callable] = None
+        for item in spec:
+            if isinstance(item, str):
+                if current is not None:
+                    instances.append(current())
+                current = (translations or {}).get(item) or self.retrieve_class(item)
+            elif isinstance(item, (list, tuple)):
+                if current is None:
+                    raise ValueError(f"algorithm DSL: args {item} with no preceding class")
+                instances.append(current(*item))
+                current = None
+            elif isinstance(item, dict) or hasattr(item, "to_dict"):
+                if current is None:
+                    raise ValueError("algorithm DSL: kwargs with no preceding class")
+                instances.append(current(**(item.to_dict() if hasattr(item, "to_dict")
+                                            else item)))
+                current = None
+            else:
+                raise ValueError(f"algorithm DSL: unexpected entry {item!r}")
+        if current is not None:
+            instances.append(current())
+        return instances
+
 
 registry = Registry()
 
@@ -51,8 +83,11 @@ registry = Registry()
 def retrieve_class(name: str) -> Any:
     """Resolve a config class name after importing the modules whose import
     registers the port's classes (models, the grid ops' spconv names,
-    tasks, criteria, optimizers, schedulers, datasets and data modules)."""
+    tasks, criteria, optimizers, schedulers, datasets and data modules, the
+    algorithm DSL's layers)."""
     for mod in ("waveformml_tpu_torch.models.nets",
+                "waveformml_tpu_torch.models.algorithm",
+                "waveformml_tpu_torch.nn.layers",
                 "waveformml_tpu_torch.ops.sparse_conv",
                 "waveformml_tpu_torch.engineering.tasks",
                 "waveformml_tpu_torch.nn.functional",
