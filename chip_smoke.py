@@ -98,7 +98,24 @@ order, it:
    kernel launched; then ``main --validate`` on
    OPs3ns_SCNet.json (1 epoch over in-memory blocks) and on a copy whose
    head reads 1231 features, which it refuses;
-11. runs the prediction writers on the card, each through its own pipeline
+11. runs the waveform nets and the 3D net as shipped, from seeded random
+   weights and biases: SingleWaveformTCN.json and SingleWaveformRNN.json
+   (``LitWaveform``: the TCN, the 2-layer ReLU RNN, float32 without TF32:
+   served on cuDNN, trained through PyTorch's own recurrence),
+   4 chunks of 16384 single waveforms served through ``InferenceModel``
+   with per-waveform detector ids as coords (waveforms/s, the device
+   forward, the host share, the peak memory; the first chunk against a CPU
+   run) and 2 epochs × 4 steps with two blocks' steps held to CPU steps, no
+   kernel launched; SCNet3D.json (``SCNet``: SubMConv3d 2→8 on the [B, 2,
+   14, 11, 16] grid, Linear 19712→32→2) served and trained as the grid
+   nets, its forward by kernel; then its sparse section in row space
+   (``DSLSpecNet(n_t=16)``, the SubM weights carried over) against the
+   grid's at every occupied site, a forward and backward against the plain
+   versions with the launches asserted, K1 (2→8, and as d_feats 8→8) and
+   K4 (Cin + 1 = 3, bitwise over two runs) at 27 taps against their plain
+   versions with their times, bounds and library times beside cuDNN's
+   conv3d of the same layer over the dense grid;
+12. runs the prediction writers on the card, each through its own pipeline
    (prefetch reader, dispatch, three fetch workers, table writer; the HDF5
    reader and table writer replaced by the in-memory stand-ins of
    ``datasets/synthetic.py``, saying so), over 32 read chunks of seeded
@@ -114,27 +131,29 @@ order, it:
    events/s, stage seconds, dispatch phases, graphs and replays printed;
    IRNIM's scores of card and CPU each against float64, both distances
    printed;
-12. evaluates checkpoints on the card through ``evaluate.run``, the
+13. evaluates checkpoints on the card through ``evaluate.run``, the
    function ``python -m waveformml_tpu_torch.evaluate`` calls, over
    in-memory test chunks (no h5py there), each checkpoint written by a
    1-epoch fit: SubMPSD.json (the serving weights; ``PSDEvaluator``; K1
    and K2, their launches asserted) over 4 chunks of 4096 events,
    SegQuantifier.json (``SegEvaluator``; K1) and SingleEndedZCNN.json with
    a synthetic calibration group (``ZEvaluatorWF``: ``Calibrator``,
-   ``CalCurve``, ``calc_calib_z_E``) over 2; each again with ``--device
-   cpu``: the outputs, and every array each evaluator accumulated, held to
+   ``CalCurve``, ``calc_calib_z_E``) over 2, SingleWaveformTCN.json
+   (``TensorEvaluator``) over 2 chunks of 16384 waveforms; each again with
+   ``--device cpu``: the outputs, and every array each evaluator accumulated, held to
    the CPU run's (argmax flips only at ties, counted); prints the test
    metrics, events/s, the per-chunk split of the test pass (host prep, copy
    in, device forward, copy back, ``add_batch`` on the host) and
    ``dump()``'s time, and the figures where matplotlib renders them (else
    that it does not);
-13. exports the eval forward of five configs that serve on the card
+14. exports the eval forward of eight configs that serve on the card
    and reloads it: SubMPSD.json through ``evaluate.run`` with ``--script``
    (what ``python -m waveformml_tpu_torch.evaluate --script`` runs), from
-   the evaluation's checkpoint, SubMPSD_w128.json and OPs3ns_SCNet.json
-   (1-epoch fits), SegQuantifier.json and SingleEndedZCNN.json through
-   ``Trainer.export_model``; prints each program's custom-op nodes (K1 in
-   the row-path ones, K2 in the SubMPSD ones); reloads all five in one
+   the evaluation's checkpoint, SubMPSD_w128.json, OPs3ns_SCNet.json,
+   SingleWaveformRNN.json and SCNet3D.json (1-epoch fits),
+   SegQuantifier.json, SingleEndedZCNN.json and SingleWaveformTCN.json
+   through ``Trainer.export_model``; prints each program's custom-op nodes
+   (K1 in the row-path ones, K2 in the SubMPSD ones); reloads all eight in one
    fresh process that imports torch and the port only and runs each on
    the card, its output within 1e-5 of the eager forward and its K1 and K2
    launches equal to one eager forward's; runs ``torch.library.opcheck``
@@ -142,13 +161,14 @@ order, it:
    the op dispatch (a K1 call, a K2 call and an eager SubMPSD.json training
    step through the ops, with the raw ctypes calls and through
    ``torch.library.custom_op`` twins of the ops);
-14. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
+15. runs ``analyze_records`` (scripts/analyze_waveforms.py) over the
    serving chunks' waveform pairs: K3 once a chunk, the feature means
    against the CPU run within K3's tolerance;
-15. prints one JSON line describing every kernel (launches: those of the
+16. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the analysis path; K1 and K4 also at
    SegQuantifier.json's and OPs3ns_SCNet.json's widths, each with its
-   training run's launches), the
+   training run's launches, and at 27 taps, with those of SCNet3D.json's
+   row stack's forward and backward), the
    card line again, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero without the last line.
@@ -188,6 +208,15 @@ CONFIG_SEGQ = os.path.join(os.path.dirname(CONFIG), "SegQuantifier.json")
 CONFIG_OPS = os.path.join(os.path.dirname(CONFIG), "OPs3ns_SCNet.json")
 CONFIGS_GRID_NETS = tuple(os.path.join(os.path.dirname(CONFIG), f"{name}.json")
                           for name in ("GEP", "IoniClassifierCNN", "DensePSD"))
+# the waveform nets as shipped (59 samples a waveform): the TCN and the
+# 2-layer ReLU RNN, served in chunks of 16384 single waveforms (about what
+# 4096 events hold); SCNet3D.json: SubMConv3d 2→8 on the [B, 2, 14, 11, 16]
+# grid, and the same section in row space (DSLSpecNet(n_t=16): K1, K4 at 27
+# taps)
+CONFIGS_WAVEFORM = tuple(os.path.join(os.path.dirname(CONFIG), f"{name}.json")
+                         for name in ("SingleWaveformTCN", "SingleWaveformRNN"))
+CONFIG_3D = os.path.join(os.path.dirname(CONFIG), "SCNet3D.json")
+WAVEFORMS_PER_CHUNK = 16384
 # training blocks of a grid net whose steps are each held to a CPU step
 GRID_STEP_CHECKS = 2
 # events of a serving chunk that the per-segment phases also run on the CPU
@@ -287,13 +316,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def graph_time_ms(fn, calls: int = 1) -> float:
+def graph_time_ms(fn, calls: int = 1, samples: int = TIMING_SAMPLES) -> float:
     """Median device time of one ``fn()`` call: ``calls`` calls of fn are
-    captured in one CUDA graph, and each sample times REPLAYS_PER_SAMPLE
-    back-to-back replays between two CUDA events. A replay costs the card
-    a few µs of its own (the timing floor line), so with calls = 1 a call
-    of a few µs is timed with that cost and with more calls mostly
-    without."""
+    captured in one CUDA graph, and each of ``samples`` samples times
+    REPLAYS_PER_SAMPLE back-to-back replays between two CUDA events. A
+    replay costs the card a few µs of its own (the timing floor line), so
+    with calls = 1 a call of a few µs is timed with that cost and with more
+    calls mostly without."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -306,8 +335,8 @@ def graph_time_ms(fn, calls: int = 1) -> float:
             fn()
     for _ in range(3):
         graph.replay()
-    samples = []
-    for _ in range(TIMING_SAMPLES):
+    times = []
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -315,8 +344,8 @@ def graph_time_ms(fn, calls: int = 1) -> float:
             graph.replay()
         end.record()
         end.synchronize()
-        samples.append(start.elapsed_time(end) / (REPLAYS_PER_SAMPLE * calls))
-    return statistics.median(samples)
+        times.append(start.elapsed_time(end) / (REPLAYS_PER_SAMPLE * calls))
+    return statistics.median(times)
 
 
 def replay_time_ms(graph) -> float:
@@ -446,7 +475,7 @@ def check_subm_conv_rows(model, db, feats0, tag=""):
                   bytes=0.0, flops=0.0, max_abs_err=0.0)
     for layer, conv in enumerate(convs):
         kk, cin, cout = conv.weight.shape
-        plan = db[f"plan_k{conv.kernel_size}"]
+        plan = db[f"plan_{conv.plan_key}"]
         if layer == 0:
             feats = feats0
         else:
@@ -643,7 +672,7 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
     d_feats_ms = d_feats_bound = 0.0
     for layer, conv in enumerate(convs):
         kk, cin, cout = conv.weight.shape
-        plan = db[f"plan_k{conv.kernel_size}"]
+        plan = db[f"plan_{conv.plan_key}"]
         if layer == 0:
             feats = feats0
         else:
@@ -1332,9 +1361,6 @@ def run_segment_serving(cfg, state, chunks, tag, cpu_events=CPU_EVENTS):
     assert sum(g.replays for g in server.graphs.values()) == N_CHUNKS
     assert replayed == {k: v * N_CHUNKS for k, v in per_chunk.items()}, replayed
     assert eager == {k: v * new_graphs for k, v in per_chunk.items()}, eager
-    block0 = FileBlock(chunks[0][0], chunks[0][1], np.zeros(chunks[0][0].shape[0], np.float32))
-    db = prepared(task, block0)
-    forward_ms = graph_time_ms(lambda: task.apply_model(db))
     served_ms = [replay_time_ms(g.graph) for g in server.graphs.values()]
     n_events = N_CHUNKS * EVENTS_PER_CHUNK
     names = {"host_prep_s": "host prep (pad, plans, pack)", "h2d_s": "copy in",
@@ -1350,8 +1376,8 @@ def run_segment_serving(cfg, state, chunks, tag, cpu_events=CPU_EVENTS):
     # serving graph, captured into its memory pool, as the grid nets show)
     busy = sum(ms * g.replays for ms, g in zip(served_ms, server.graphs.values()))
     print(f"{tag} serving breakdown (ms/chunk, share of wall): {phases}; device forward "
-          f"{forward_ms:.4f} (a graph of the eager forward), a replay of each serving graph "
-          f"{[round(ms, 4) for ms in served_ms]}; wall {wall * 1e3 / N_CHUNKS:.3f}; device "
+          f"(a replay of each serving graph) {[round(ms, 4) for ms in served_ms]}; wall "
+          f"{wall * 1e3 / N_CHUNKS:.3f}; device "
           f"busy share {busy / (wall * 1e3):.4f} (the serving replays' time over the wall); "
           f"packed chunk bytes {packed}", flush=True)
 
@@ -1476,12 +1502,14 @@ def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
 
 def biases_before_batchnorm(model):
     """The parameter names of the conv biases that a BatchNorm follows:
-    their gradient is rounding. Returns those of the sparse stacks, whose
-    BatchNorm sums the occupied sites, and those of ``Conv2DBlock``, whose
-    BatchNorm sums every site of every real event (~6·10^5 terms a channel
-    at 4096 events, most of them the bias alone)."""
+    their gradient is rounding. Returns those of the sparse stacks (a
+    ``_SpecNet``'s or a DSL's ``SparseSequential``), whose BatchNorm sums
+    the occupied sites, and those of ``Conv2DBlock``, whose BatchNorm sums
+    every site of every real event (~6·10^5 terms a channel at 4096
+    events, most of them the bias alone)."""
     from waveformml_tpu_torch.models.blocks import Conv2DBlock
     from waveformml_tpu_torch.models.sparse_blocks import _SpecNet
+    from waveformml_tpu_torch.ops.sparse_conv import MaskedBatchNorm, SparseSequential
 
     params = dict(model.named_parameters())
     sparse, dense = set(), set()
@@ -1493,6 +1521,10 @@ def biases_before_batchnorm(model):
                 if specs[i + 1][0] == "bn":
                     sparse |= {k for k in (f"{prefix}l{i}.conv.bias", f"{prefix}l{i}.bias")
                                if k in params}
+        elif isinstance(module, SparseSequential):
+            for i in range(module.n - 1):
+                if isinstance(getattr(module, f"layers_{i + 1}"), MaskedBatchNorm):
+                    sparse |= {f"{prefix}layers_{i}.conv.bias"} & set(params)
         elif isinstance(module, Conv2DBlock):
             dense |= {f"{prefix}conv_{i}.bias" for i in range(len(module.layers))}
     return sparse, dense
@@ -1580,7 +1612,7 @@ def gradients_against_float64(cfg, state, block, tag) -> None:
         db = {k: v.to(dtype) if v.is_floating_point() else v
               for k, v in prepared(task, block).items()}
         task.model.train(True)
-        loss_sum, weight, _ = task.loss_and_metrics(task.model(task.sparse_batch(db)), db)
+        loss_sum, weight, _ = task.loss_and_metrics(task.forward_model(db), db)
         (loss_sum / weight).backward()
         return {k: p.grad.double().cpu() for k, p in task.model.named_parameters()}
 
@@ -1829,23 +1861,26 @@ def run_sparse_nets(tag="OPs3ns_SCNet"):
     return results, training, state, train, val
 
 
-def run_grid_net(path: str, seed: int) -> None:
+def run_grid_net(path: str, seed: int, make_block=None):
     """A grid event classifier as shipped (no hand-written kernel on its
-    path), from seeded random weights: 4 serving chunks of 4096 events,
+    path), from seeded random weights: 4 serving chunks of 4096 events
+    (``make_block(rng, events, samples)``, ``labelled_block`` by default),
     the first held to a CPU run over every event, its device forward by
     kernel, and 2 epochs × 4 steps of
     ``Trainer.fit``, the first GRID_STEP_CHECKS blocks' steps each held to
-    a CPU step from the card's state; no kernel launched in either."""
+    a CPU step from the card's state; no kernel launched in either.
+    Returns the state, the training and the validation blocks."""
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import labelled_block
     from waveformml_tpu_torch.engineering.tasks import LitPSD
 
+    make_block = make_block or labelled_block
     tag = os.path.basename(path)[:-5]
     t_start = time.perf_counter()
     cfg = load_config(path)
     n_samples = cfg.system_config.n_samples
     rng = np.random.default_rng(seed)
-    chunks = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(N_CHUNKS)]
+    chunks = [make_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(N_CHUNKS)]
     state = seeded_state(cfg, seed + 1, chunks[0])
     net = cfg.net_config.net_class
     print(f"{tag}: {net} at {n_samples} samples, "
@@ -1862,12 +1897,321 @@ def run_grid_net(path: str, seed: int) -> None:
           f"the largest 8 of {len(kernels)}): "
           + "; ".join(f"{k} {v:.4f}" for k, v in kernels[:8])
           + f"; all {sum(v for _, v in kernels):.4f}", flush=True)
-    train = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(TRAIN_CHUNKS)]
-    val = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+    train = [make_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(TRAIN_CHUNKS)]
+    val = [make_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
     training = run_segment_training(cfg, state, train, val, tag, reference="steps")
     assert not any(serving.values()) and not any(training.values()), (serving, training)
     print(f"{tag}: no kernel launched in serving or training ({serving}, {training}); "
           f"the config's phase took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return state, train, val
+
+
+def waveform_chunk(rng, n: int, n_samples: int):
+    """A chunk of exactly ``n`` single waveforms (``waveform_block``'s rows:
+    coords ``[n]`` detector channel ids, z labels), as
+    ``PulseDatasetWaveformNorm`` gives them."""
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+    from waveformml_tpu_torch.datasets.synthetic import waveform_block
+
+    block = waveform_block(rng, n + n // 4, n_samples)
+    assert block.coords.shape[0] >= n, block.coords.shape
+    return FileBlock(block.coords[:n], block.feats[:n], block.labels[:n])
+
+
+def run_waveform_serving(cfg, state, chunks, tag) -> dict:
+    """A waveform net served through ``InferenceModel`` on the card, its
+    chunks' coords the per-waveform detector ids ``[N]`` (N events): each
+    chunk one packed copy in, one replay of its layout's CUDA graph and a
+    copy out; no kernel launched; waveforms/s, where the wall goes, the
+    serving graph's replay (the device forward), the device's busy share
+    and the peak device memory; the outputs held to the eager forward and
+    the first chunk's to a CPU run of the port from the same state. Returns
+    the launches."""
+    from waveformml_tpu_torch.inference.model import InferenceModel
+
+    server = InferenceModel(cfg, state)
+    task = server.task
+    t0 = time.perf_counter()
+    server(chunks[0].coords, chunks[0].feats)
+    torch.cuda.synchronize()
+    print(f"{tag} first chunk (capture of its layout): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    server.dispatch_phases = dict.fromkeys(server.dispatch_phases, 0.0)
+    for g in server.graphs.values():
+        g.replays = 0
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handles = [server.dispatch(b.coords, b.feats) for b in chunks]
+    outs = [server.fetch(h) for h in handles]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eager, replayed = read_counts(), server.replay_launches()
+    launches = {k: eager[k] + replayed[k] for k in eager}
+    assert not any(launches.values()), launches
+    assert sum(g.replays for g in server.graphs.values()) == N_CHUNKS
+    served_ms = [replay_time_ms(g.graph) for g in server.graphs.values()]
+    busy = sum(ms * g.replays for ms, g in zip(served_ms, server.graphs.values()))
+    n_rows = sum(b.coords.shape[0] for b in chunks)
+    names = {"host_prep_s": "host prep (pad, pack)", "h2d_s": "copy in",
+             "launch_s": "replay + copy out", "fetch_s": "fetch"}
+    phases = "; ".join(f"{names[k]} {v * 1e3 / N_CHUNKS:.3f} ({v / wall:.1%})"
+                       for k, v in server.dispatch_phases.items())
+    host = server.dispatch_phases["host_prep_s"] / wall
+    print(f"{tag} serving: {N_CHUNKS} chunks, {n_rows} waveforms in {wall:.4f} s = "
+          f"{n_rows / wall:.1f} waveforms/s; graphs {len(server.graphs)}, launches {launches}",
+          flush=True)
+    print(f"{tag} serving breakdown (ms/chunk, share of wall): {phases}; host share of the "
+          f"wall (host prep) {host:.4f}; device forward (a replay of each serving graph) "
+          f"{[round(ms, 4) for ms in served_ms]} ms; wall {wall * 1e3 / N_CHUNKS:.3f}; "
+          f"device busy share {busy / (wall * 1e3):.4f}; peak device memory "
+          f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    err_eager = 0.0
+    for b, out in zip(chunks, outs):
+        n = b.coords.shape[0]
+        assert out.shape == (n, 1) and np.isfinite(out).all(), out.shape
+        direct = task.apply_model(prepared(task, b))[:n].cpu().numpy()
+        np.testing.assert_allclose(out, direct, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        err_eager = max(err_eager, float(np.abs(out - direct).max()))
+    spread = float(np.std(np.concatenate(outs)))
+    assert spread > 0, spread
+    t0 = time.perf_counter()
+    cpu = InferenceModel(cfg, state, device="cpu")(chunks[0].coords, chunks[0].feats)
+    cpu_s = time.perf_counter() - t0
+    np.testing.assert_allclose(outs[0], cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    print(f"{tag} outputs {outs[0].shape} a chunk (std {spread:.4g}): the graph path matches "
+          f"the eager forward (largest |difference| {err_eager:.3g}) and the first chunk's "
+          f"{cpu.shape[0]} waveforms a CPU run of the port ({cpu_s:.2f} s; largest |difference| "
+          f"{float(np.abs(outs[0] - cpu).max()):.3g}) (rtol={LOGIT_RTOL}, atol={LOGIT_ATOL})",
+          flush=True)
+    return launches
+
+
+def run_waveform_nets() -> dict:
+    """SingleWaveformTCN.json and SingleWaveformRNN.json as shipped (59
+    samples; the TCN's planes 2, 4, 2, 1 and a 4-layer LinearBlock; two
+    ReLU RNN layers of 32 and a 2-layer LinearBlock; L1 on z), from seeded
+    random weights and biases: 4 chunks of 16384 waveforms served
+    (``run_waveform_serving``) and 2 epochs × 4 steps of ``Trainer.fit``
+    of ``LitWaveform`` (SGD nesterov, ExponentialLR), the first
+    GRID_STEP_CHECKS blocks' steps each held to a CPU step from the card's
+    state; no kernel launched in either. Returns, by config path, its
+    state and its training and validation blocks."""
+    from waveformml_tpu_torch.config import load_config
+
+    out = {}
+    for i, path in enumerate(CONFIGS_WAVEFORM):
+        tag = os.path.basename(path)[:-5]
+        t_start = time.perf_counter()
+        cfg = load_config(path)
+        n_samples = cfg.system_config.n_samples
+        rng = np.random.default_rng(SEED + 110 + 10 * i)
+        chunks = [waveform_chunk(rng, WAVEFORMS_PER_CHUNK, n_samples) for _ in range(N_CHUNKS)]
+        state = seeded_state(cfg, SEED + 111 + 10 * i, chunks[0])
+        print(f"{tag}: {cfg.net_config.net_class} at {n_samples} samples, "
+              f"{sum(v.numel() for v in state.values())} parameters", flush=True)
+        serving = run_waveform_serving(cfg, state, chunks, tag)
+        train = [waveform_chunk(rng, WAVEFORMS_PER_CHUNK, n_samples)
+                 for _ in range(TRAIN_CHUNKS)]
+        val = [waveform_chunk(rng, WAVEFORMS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+        training = run_segment_training(cfg, state, train, val, tag, reference="steps")
+        assert not any(serving.values()) and not any(training.values()), (serving, training)
+        print(f"{tag}: no kernel launched in serving or training; the config's phase took "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        out[path] = (state, train, val)
+    return out
+
+
+def conv3d_times(stack, grid, tag) -> dict:
+    """cuDNN's conv3d of the grid stack's first SubM conv over the dense
+    [B, Cin, NX, NY, T] grid (float32 without TF32), its forward and its
+    weight gradient, timed as graph replays beside their bounds (float32
+    operations outside the tensor cores, every site of the grid); the
+    weight gradient, ~0.1 s a call, over 3 samples."""
+    from waveformml_tpu_torch.ops import sparse_conv as sc
+
+    x = grid.masked()
+    w, b = stack.layers_0.conv.weight.detach(), stack.layers_0.conv.bias.detach()
+    cout, cin = w.shape[:2]
+    sites = x.shape[0] * int(np.prod(x.shape[2:]))
+    one, pad = (1, 1, 1), (1, 1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 124)
+    gy = torch.randn((x.shape[0], cout) + tuple(x.shape[2:]), device="cuda", generator=gen)
+
+    def wgrad():
+        with sc.ieee_fp32():
+            return torch.ops.aten.convolution_backward(gy, x, w, [cout], list(one), list(pad),
+                                                       list(one), False, [0, 0, 0], 1,
+                                                       [False, True, True])
+
+    out = {}
+    for name, fn, n_bytes, samples in (
+            ("forward", lambda: sc.conv(x, w, b, one, pad, one),
+             4 * (x.numel() + w.numel() + cout + sites * cout), TIMING_SAMPLES),
+            ("weight gradient", wgrad, 4 * (x.numel() + gy.numel() + w.numel() + cout), 3)):
+        ms = graph_time_ms(fn, samples=samples)
+        b_ms, by = bound_ms(n_bytes, 2.0 * sites * cout * cin * 27)
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
+        print(f"{tag} cuDNN conv3d {cin}->{cout} 3x3x3 {name} over the dense grid "
+              f"{tuple(x.shape)}: ms={ms:.5f} bound_ms={b_ms:.5f} ({by}, float32 at "
+              f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s over every site)", flush=True)
+    return out
+
+
+def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
+    """SCNet3D.json's sparse section (SubM 2→8, BatchNorm, ReLU, ToDense)
+    in row space, ``DSLSpecNet(n_t=16)`` (K1 forward, K4 in the backward,
+    at 27 taps), its SubM weights and BatchNorm carried over from the grid
+    net's ``state``, on one 4096-event chunk: its eval grid held to the
+    grid stack's (cuDNN's conv3d) at every occupied site; a train-mode
+    forward and backward, every kernel's count set to 0 just before and
+    read just after (asserted against the count the code derives), held to
+    the plain versions on the card; K1 (2→8) and K4 (Cin + 1 = 3) against
+    their plain versions with their times, bounds and library times, K1
+    also as the d_feats of a second conv, 8→8, beside cuDNN's conv3d of
+    the same layer over the dense grid. Returns K1's and K4's numbers and
+    the launches of the forward and backward."""
+    from types import SimpleNamespace
+
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+    from waveformml_tpu_torch.models.algorithm import dsl_to_row_specs, split_algorithm
+    from waveformml_tpu_torch.models.sparse_blocks import DSLSpecNet
+    from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows,
+                                                   subm_conv_rows_bwd_plain, transposed_kernel)
+    from waveformml_tpu_torch.ops.sparse import SparseBatch, occupancy_mask_3d
+    from waveformml_tpu_torch.ops.sparse_conv import batch_to_grid_3d
+
+    n_t = cfg.system_config.n_samples
+    task = LitPSD(cfg)
+    task.model.load_state_dict(state)
+    task.model.eval()
+    db = prepared(task, block)
+    n_events = db["labels"].shape[0]
+    specs = dsl_to_row_specs(split_algorithm(cfg.net_config.algorithm)[1])
+    net = DSLSpecNet(specs, n_t=n_t,
+                     generator=torch.Generator().manual_seed(SEED + 121)).to("cuda")
+    stack = task.model.sparse_model
+    conv, bn = stack.layers_0.conv, stack.layers_1
+    cout, cin = conv.weight.shape[:2]
+    with torch.no_grad():
+        # [Cout, Cin, kx, ky, kt] → taps (dx, dy, dt) row-major, [27, Cin, Cout]
+        net.l0.weight.copy_(conv.weight.permute(2, 3, 4, 1, 0).reshape(27, cin, cout))
+        net.l0.bias.copy_(conv.bias)
+    net.l1.load_state_dict(bn.state_dict())
+    coords, mask = db["coords"].cpu().numpy(), db["mask"].cpu().numpy()
+    plan = torch.from_numpy(host_neighbor_plan(coords, mask, n_events, 3, n_t)).cuda()
+    batch = SparseBatch(db["coords"], db["feats"], db["mask"], n_events,
+                        plans={net.l0.plan_key: plan})
+    grid = batch_to_grid_3d(batch, n_t)
+    print(f"{tag}: specs {net.specs}, plan {tuple(plan.shape)} ({net.l0.plan_key}); rows "
+          f"{int(db['mask'].sum())} in a bucket of {db['mask'].shape[0]}, occupied sites "
+          f"{int(grid.occupancy.sum())} of {grid.occupancy.numel()} "
+          f"({float(grid.occupancy.float().mean()):.4%})", flush=True)
+
+    net.eval()
+    with torch.no_grad():
+        rows = net(batch)
+        dense = stack(grid)
+    occ = occupancy_mask_3d(batch, n_t)[:, None].expand_as(rows)
+    torch.testing.assert_close(rows[occ], dense[occ], rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    assert float(rows[~occ].abs().max()) == 0.0
+    print(f"{tag}: the row stack's grid matches the dense SubMConv3d stack's at all "
+          f"{int(occ.sum())} occupied (site, channel) entries (largest |difference| "
+          f"{float((rows[occ] - dense[occ]).abs().max()):.3g}; rtol={LOGIT_RTOL}, "
+          f"atol={LOGIT_ATOL}), zero elsewhere", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 122)
+    g = torch.randn(rows.shape, device="cuda", generator=gen) / rows.numel() ** 0.5
+
+    def forward_backward(model):
+        model = copy.deepcopy(model).train()
+        out = model(batch)
+        (out * g).sum().backward()
+        return out.detach(), {k: p.grad for k, p in model.named_parameters()}
+
+    zero_counts()
+    got_out, got_grads = forward_backward(net)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want_launches = training_launches(net, 1, 0)
+    assert launches == want_launches, (launches, want_launches)
+    plain = copy.deepcopy(net)
+    set_plain(plain, True)
+    want_out, want_grads = forward_backward(plain)
+    torch.testing.assert_close(got_out, want_out, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    largest = max(float(v.abs().max()) for v in want_grads.values())
+    ratios = []
+    for name, want in want_grads.items():
+        if name == "l0.bias":
+            # before the BatchNorm its gradient is zero but for rounding (a
+            # cancelling sum over ~10^5 rows): each run's far below a
+            # trained gradient, the two roundings not compared
+            moved = max(float(got_grads[name].abs().max()), float(want.abs().max()))
+            assert moved <= GRAD_ATOL * largest, (name, moved, largest)
+            ratios.append(f"{name} (rounding) {moved / largest:.3g} of the largest")
+            continue
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got_grads[name], want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL * scale,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        ratios.append(f"{name} {float((got_grads[name] - want).abs().max()) / scale:.3g}")
+    print(f"{tag}: a train-mode forward and backward with the kernels (launches {launches}, "
+          f"as derived from the code) match the plain versions' on the card: outputs "
+          f"(rtol={LOGIT_RTOL}, atol={LOGIT_ATOL}), every gradient (rtol={GRAD_RTOL}, "
+          f"atol={GRAD_ATOL}·its largest |value|; l0.bias, before the BatchNorm, each run's "
+          f"within {GRAD_ATOL}·{largest:.4g}); largest |difference| / scale: "
+          f"{'; '.join(ratios)}", flush=True)
+
+    feats0 = db["feats"].float().contiguous()
+    kdb = {"mask": db["mask"], f"plan_{net.l0.plan_key}": plan}
+    results = {"subm_conv_rows": check_subm_conv_rows(SimpleNamespace(stack=net), kdb, feats0,
+                                                      tag=f"{tag} ")}
+    results["subm_conv_rows_wgrad"], _ = check_subm_conv_rows_wgrad(
+        SimpleNamespace(stack=net), kdb, feats0, tag=f"{tag} ")
+    # K1 as the feature gradient of a second conv, 8→8 (the reversed,
+    # transposed kernel) against the plain _subm_bwd d_feats
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 123)
+    mask = db["mask"]
+    weight = torch.randn(27, cout, cout, device="cuda", generator=gen) / (27 * cout) ** 0.5
+    x8 = torch.where(mask[:, None], torch.relu(torch.randn(mask.shape[0], cout, device="cuda",
+                                                           generator=gen)), 0.0).contiguous()
+    g8 = torch.where(mask[:, None], torch.randn(mask.shape[0], cout, device="cuda",
+                                                generator=gen), 0.0).contiguous()
+    w_t = transposed_kernel(weight)
+    d_feats = subm_conv_rows(g8, plan, w_t, None, mask)
+    d_want = subm_conv_rows_bwd_plain(x8, plan, weight, mask, g8)[0]
+    torch.cuda.synchronize()
+    d_err = max_abs_err([d_feats], [d_want], TOL["subm_conv_rows"])
+    d_ms = graph_time_ms(lambda: subm_conv_rows(g8, plan, w_t, None, mask))
+    print(f"{tag} K1 as d_feats of a second conv {cout}->{cout} at 27 taps: ms={d_ms:.5f} "
+          f"max_abs_err={d_err:.3g} against the plain d_feats", flush=True)
+    results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
+                                                   d_err)
+    dense_ms = conv3d_times(stack, grid, tag)
+    for name, r in results.items():
+        print(f"{tag} {name} at 27 taps: ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} "
+              f"({r['bound_by']}) plain_ms={r['plain_ms']:.5f} library_ms="
+              f"{r['library_ms']:.5f} max_abs_err={r['max_abs_err']:.3g}; launches of the "
+              f"forward and backward {launches[name]}; beside it cuDNN's conv3d over the dense "
+              f"grid: {dense_ms['forward' if name == 'subm_conv_rows' else 'weight gradient']}",
+              flush=True)
+    return results, launches
+
+
+def run_scnet3d():
+    """SCNet3D.json as shipped (T = 16 samples: SubMConv3d 2→8, BatchNorm,
+    ReLU, ToDense, Linear 19712→32→2) on the dense grid, from seeded random
+    weights and biases: ``run_grid_net`` over chunks of 4096 events of both
+    kinds as ``PulseDataset3D`` gives them (the (x, y, t) rows where a PMT
+    clears the threshold), then its sparse section in row space
+    (``run_scnet3d_rows``). Returns the row path's kernel numbers and
+    launches, the state and the training and validation blocks."""
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block_3d
+
+    state, train, val = run_grid_net(CONFIG_3D, SEED + 120, make_block=labelled_block_3d)
+    results, launches = run_scnet3d_rows(load_config(CONFIG_3D), state, val[0])
+    return results, launches, state, train, val
 
 
 def run_validate_cli(train, val) -> None:
@@ -2646,14 +2990,17 @@ def run_evaluate(tag, cfg_path, state, train, val, test, output_key, calgroup=No
     return card["launches"], fit.best_ckpt_path
 
 
-def run_evaluation(state, train, val, work_dir) -> tuple:
+def run_evaluation(state, train, val, work_dir, waveform) -> tuple:
     """The evaluate phase: SubMPSD.json (fp32, its shipped widths, the
     serving run's weights; K1 and K2) over EVAL_CHUNKS test chunks of 4096
     events, SegQuantifier.json (K1) and SingleEndedZCNN.json with a
     calibration group (``Calibrator``, ``CalCurve``, ``calc_calib_z_E``)
-    over EVAL_SEGMENT_CHUNKS, each from seeded weights, each checkpoint
-    kept under ``work_dir``. Returns the SubMPSD run's launches and, for
-    each config, (config path, checkpoint, test chunks)."""
+    over EVAL_SEGMENT_CHUNKS, each from seeded weights, and
+    SingleWaveformTCN.json (``TensorEvaluator``) over EVAL_SEGMENT_CHUNKS
+    chunks of 16384 waveforms from ``waveform``'s state and blocks
+    (``run_waveform_nets``), each checkpoint kept under ``work_dir``.
+    Returns the SubMPSD run's launches and, for each config, (config path,
+    checkpoint, test chunks)."""
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import labelled_block, segment_block
 
@@ -2676,6 +3023,14 @@ def run_evaluation(state, train, val, work_dir) -> tuple:
         _, ckpt = run_evaluate(os.path.basename(path), path, seg_state, blocks[:2],
                                blocks[2:3], blocks[3:], key, calgroup, work_dir=work_dir)
         checkpoints[path] = (ckpt, blocks[3:])
+    path = CONFIGS_WAVEFORM[0]
+    tcn_state, tcn_train, tcn_val = waveform[path]
+    rng = np.random.default_rng(SEED + 64)
+    test = [waveform_chunk(rng, WAVEFORMS_PER_CHUNK, load_config(path).system_config.n_samples)
+            for _ in range(EVAL_SEGMENT_CHUNKS)]
+    _, ckpt = run_evaluate(os.path.basename(path), path, tcn_state, tcn_train[:2], tcn_val,
+                           test, "predictions", work_dir=work_dir)
+    checkpoints[path] = (ckpt, test)
     return launches, checkpoints
 
 
@@ -2749,7 +3104,7 @@ def check_ops_on_card(trainer, db) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
     mask, feats = db["mask"], db["feats"].float().contiguous()
     n, n_events = mask.shape[0], db["labels"].shape[0]
-    plan = db[f"plan_k{conv.kernel_size}"]
+    plan = db[f"plan_{conv.plan_key}"]
     weight, bias = conv.weight.detach(), conv.bias.detach()
     g = torch.randn(n, weight.shape[2], device="cuda", generator=gen)
     rows = torch.relu(torch.randn(n, head.cin, device="cuda", generator=gen))
@@ -2866,7 +3221,7 @@ def run_dispatch_timing(cfg_path: str, state, train, card: str) -> dict:
     db = trainer.device_batch(train[0])[0]
     model = trainer.task.model
     conv, head = model.stack.l0, model.head0
-    k1 = (db["feats"].float().contiguous(), db[f"plan_k{conv.kernel_size}"],
+    k1 = (db["feats"].float().contiguous(), db[f"plan_{conv.plan_key}"],
           conv.weight.detach(), conv.bias.detach(), db["mask"])
     rows = torch.relu(torch.randn(db["mask"].shape[0], head.cin, device="cuda"))
     k2 = (rows, head.weight.detach().view(head.cin, NX * NY, head.features),
@@ -2897,10 +3252,12 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
     ``--script``, what ``python -m waveformml_tpu_torch.evaluate --script``
     runs, over in-memory test chunks), SubMPSD_w128.json (half precision;
     a 1-epoch fit from seeded weights), SegQuantifier.json,
-    SingleEndedZCNN.json and OPs3ns_SCNet.json (``Trainer.export_model``),
-    each from the checkpoint its evaluation or fit wrote, on its first test
-    chunk: the program's custom-op nodes (K1 in the four row-path configs,
-    K2 in the two SubMPSD ones, none in Z); the program reloaded in one fresh
+    SingleEndedZCNN.json, OPs3ns_SCNet.json, SingleWaveformTCN.json,
+    SingleWaveformRNN.json (cuDNN's RNN in the program) and SCNet3D.json
+    (``Trainer.export_model``), each from the checkpoint its evaluation or
+    fit wrote, on its first test chunk: the program's custom-op nodes (K1
+    in the four row-path configs, K2 in the two SubMPSD ones, none in the
+    others); the program reloaded in one fresh
     process that imports torch and the port only (``RELOAD_SCRIPT``) and
     run on the card, its output within EXPORT_TOL of a fresh Trainer's
     eager forward over the same batch and its K1 and K2 launches equal to
@@ -2920,7 +3277,8 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
     expected = {CONFIG: ("subm_conv_rows", "site_grouped_matmul"),
                 CONFIG_W128: ("subm_conv_rows", "site_grouped_matmul"),
                 CONFIG_SEGQ: ("subm_conv_rows",), CONFIG_Z: (),
-                CONFIG_OPS: ("subm_conv_rows",)}
+                CONFIG_OPS: ("subm_conv_rows",), CONFIGS_WAVEFORM[0]: (),
+                CONFIGS_WAVEFORM[1]: (), CONFIG_3D: ()}
     cases = []
     for cfg_path, kernels in expected.items():
         ckpt, test = checkpoints[cfg_path]
@@ -3321,30 +3679,38 @@ def main() -> int:
     run_validate_cli(ops_train, ops_val)
     lap("the sparse event classifiers and main --validate (phase 10)")
 
-    # -- 11. the prediction writers --------------------------------------------
+    # -- 11. the waveform nets and the 3D net -------------------------------------
+    waveform = run_waveform_nets()
+    rows3d, rows3d_launches, d3_state, d3_train, d3_val = run_scnet3d()
+    lap("the waveform nets and SCNet3D.json (phase 11)")
+
+    # -- 12. the prediction writers --------------------------------------------
     run_writers()
-    lap("the prediction writers (phase 11)")
+    lap("the prediction writers (phase 12)")
 
     with tempfile.TemporaryDirectory() as work_dir:
-        # -- 12. the evaluation ------------------------------------------------
-        _, checkpoints = run_evaluation(state, train, val, work_dir)
-        ops_fit = make_trainer(load_config(CONFIG_OPS), ops_state, plain=False, max_epochs=1,
-                               checkpoint_dir=os.path.join(work_dir, "OPs3ns_SCNet.json",
+        # -- 13. the evaluation ------------------------------------------------
+        _, checkpoints = run_evaluation(state, train, val, work_dir, waveform)
+        for path, (st, tr, va) in ((CONFIG_OPS, (ops_state, ops_train, ops_val)),
+                                   (CONFIGS_WAVEFORM[1], waveform[CONFIGS_WAVEFORM[1]]),
+                                   (CONFIG_3D, (d3_state, d3_train, d3_val))):
+            fit = make_trainer(load_config(path), st, plain=False, max_epochs=1,
+                               checkpoint_dir=os.path.join(work_dir, os.path.basename(path),
                                                            "version_0"))
-        ops_fit.fit(BlockDataModule(ops_train[:2], ops_val))
-        checkpoints[CONFIG_OPS] = (ops_fit.best_ckpt_path, ops_val)
+            fit.fit(BlockDataModule(tr[:2], va))
+            checkpoints[path] = (fit.best_ckpt_path, va)
 
-        lap("the evaluation (phase 12)")
+        lap("the evaluation (phase 13)")
 
-        # -- 13. the export ----------------------------------------------------
+        # -- 14. the export ----------------------------------------------------
         run_export(checkpoints, state, train, val, work_dir, card)
-        lap("the export (phase 13)")
+        lap("the export (phase 14)")
 
-    # -- 14. the waveform analysis, K3's user path ------------------------------
+    # -- 15. the waveform analysis, K3's user path ------------------------------
     launches["waveform_features"] = run_analyze(chunks, n_samples)
-    lap("the waveform analysis (phase 14)")
+    lap("the waveform analysis (phase 15)")
 
-    # -- 15. report -----------------------------------------------------------
+    # -- 16. report -----------------------------------------------------------
     sources = {
         "subm_conv_rows": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
                            "waveformml_tpu/ops/row_conv.py:226"),
@@ -3365,10 +3731,12 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # K1 and K4 again at SegQuantifier.json's and OPs3ns_SCNet.json's widths,
-    # each launched by its own path
+    # K1 and K4 again at SegQuantifier.json's and OPs3ns_SCNet.json's widths
+    # and at 27 taps (SCNet3D.json's section in row space), each launched by
+    # its own path
     for config, numbers, counts in (("SegQuantifier.json", segq, segq_launches),
-                                    ("OPs3ns_SCNet.json", ops, ops_launches)):
+                                    ("OPs3ns_SCNet.json", ops, ops_launches),
+                                    ("SCNet3D.json rows, 27 taps", rows3d, rows3d_launches)):
         for name in ("subm_conv_rows", "subm_conv_rows_wgrad"):
             route, source, replaces = sources[name]
             r = numbers[name]

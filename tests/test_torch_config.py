@@ -89,9 +89,11 @@ def test_custom_requirements_alike():
                                          "required config key missing: run_config/tags")
 
 
-@pytest.mark.parametrize("name", ["GEP", "IoniClassifierCNN", "DensePSD", "OPs3ns_SCNet"])
+@pytest.mark.parametrize("name", ["GEP", "IoniClassifierCNN", "DensePSD", "OPs3ns_SCNet",
+                                  "SingleWaveformTCN", "SingleWaveformRNN", "SCNet3D"])
 def test_sparse_net_configs_validate_and_resolve(name):
-    """The configs of the sparse nets validate as the JAX package's do, and
+    """The configs of the sparse nets, the waveform nets and the 3D net
+    validate as the JAX package's do, and
     each class they name (task, net, criterion, optimizer, scheduler,
     dataset, the DSL's layers) resolves in the port's registry."""
     from waveformml_tpu_torch.models.algorithm import split_algorithm

@@ -5,7 +5,7 @@ the shipped configs; ``ModelValidation`` on good and bad lists (the same
 outcome, the same message); each DSL layer of ``nn/layers.py`` from the
 same weights, in train and eval mode; ``SCNet`` on the grid (strided and
 SparseConvNet convs) and in row space behind a ``nn.Conv1d`` waveform
-section; the 3D paths that raise; and ``main --validate``."""
+section; the 3D paths, which build and run; and ``main --validate``."""
 import copy
 import glob
 import json
@@ -458,11 +458,23 @@ def test_scnet_matches_jax(name):
 
 
 def test_3d_paths_raise():
+    """The 3D paths that raised until they were ported now build and run:
+    SCNet over SCNet3D.json (its sparse section on the [B, 8, 14, 11, 16]
+    grid, the flatten 19712 wide) and a 3D row stack ``DSLSpecNet(n_t=16)``
+    (its plan ``k3t16``, the K×K×K window's 27 taps)."""
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block_3d
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
     from waveformml_tpu_torch.models.nets import SCNet
     from waveformml_tpu_torch.models.sparse_blocks import DSLSpecNet
 
     cfg = load_config(os.path.join(EXAMPLES, "SCNet3D.json"))
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        SCNet(cfg)
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        DSLSpecNet([("subm", 2, 8, 3, 1, "subm3")], n_t=16)
+    task = LitPSD(cfg, device="cpu")
+    assert isinstance(task.model, SCNet) and task.model.ndim == 3 and not task.model.row_path
+    assert task.model.n_linear == 19712 and task.model.plan_requirements() == set()
+    block = labelled_block_3d(np.random.default_rng(2), 6, 16)
+    db = task.to_device(task.prepare_block(block, task.row_bucket(block),
+                                           task.event_bucket(block)))
+    out = task.apply_model(db)
+    assert out.shape == (16, 2) and bool(torch.isfinite(out).all())
+    net = DSLSpecNet([("subm", 2, 8, 3, 1, "subm3")], n_t=16)
+    assert net.plan_requirements() == {"k3t16"} and net.l0.weight.shape == (27, 2, 8)

@@ -58,7 +58,8 @@ def test_import_loads_no_jax():
                  "scripts.compare_pmt_wf", "scripts.add_attr", "scripts.plot_model_weights",
                  "scripts.peak_finder", "nn.layers", "models.algorithm", "models.nets",
                  "models.blocks", "models.sparse_blocks", "utils.model_validation",
-                 "convert"):
+                 "convert", "models.waveform_models", "models.recurrent_blocks",
+                 "engineering.tasks", "evaluation.tensor_eval", "evaluation.waveform_eval"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

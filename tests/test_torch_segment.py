@@ -239,9 +239,8 @@ def test_criterion_params_are_refused():
 
 def test_evaluators_are_not_ported_yet():
     """Each segment task's ``make_evaluator`` builds the JAX task's
-    evaluator class with its settings; where the port has no evaluator
-    (the base, which ``LitWaveform`` would reach), it raises, naming the
-    ROADMAP.md item that ports it."""
+    evaluator class with its settings; the base, which every task
+    overrides (``LitWaveform``'s since it was ported), raises."""
     from waveformml_tpu_torch.engineering.base import TaskBase
 
     classifier = copy.deepcopy(SEG_NET)
@@ -260,5 +259,5 @@ def test_evaluators_are_not_ported_yet():
             "waveformml_tpu.", "waveformml_tpu_torch."), name
         for attr in ("SE_only", "target_index", "E_scale", "hascal"):
             assert getattr(got, attr, None) == getattr(want, attr, None), (name, attr)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="has no evaluator"):
         TaskBase.make_evaluator(ptask)

@@ -14,13 +14,16 @@ flax                            torch                         layout
                                                               as it is
 ``…/head0/kernel``              ``….head0.weight``            site head ``[C·S, F]`` as it is
 ``…/dense_<i>/kernel``,         ``….weight``                  ``[in, out]`` → ``[out, in]``
-``…/dense/kernel``
+``…/dense/kernel``,
+``…/pw_<i>/kernel``
 ``…/conv/kernel``,              ``….weight``                  ``[*k, Cin, Cout]`` →
-``…/conv_<i>/kernel``,                                        ``[Cout, Cin, *k]`` (1D and
-``…/conv1``, ``conv2``,                                       2D convs)
+``…/conv_<i>/kernel``,                                        ``[Cout, Cin, *k]`` (1D, 2D
+``…/conv1``, ``conv2``,                                       and 3D convs)
 ``…/downsample/kernel``
-other 4D ``…/kernel``           ``….weight``                  inverse conv ``[kh, kw, Cin,
-                                                              Cout]`` → ``[Cin, Cout, kh, kw]``
+other 4D, 5D ``…/kernel``       ``….weight``                  inverse conv ``[*k, Cin,
+                                                              Cout]`` → ``[Cin, Cout, *k]``
+``…/cell_<l>/<gate>/…``         ``….cell_<l>.{weight,bias}_   a recurrent layer's gates
+                                {ih,hh}_l0``                  (below)
 ``…/WeightNorm_<j>/<conv>/``    ``….<conv>.parametrizations   ``[Cout]`` → ``[Cout, 1, 1]``
 ``kernel/scale``                .weight.original0``
 ``…/<conv>/kernel`` of a        ``….<conv>.parametrizations   as a conv kernel
@@ -43,6 +46,17 @@ parametrisation keeps it in the conv, and the port's TCN block registers
 its convs in that order, so the j-th parametrised conv of a module is
 ``WeightNorm_<j>``. The inverse conv's kernel keeps its orientation: the
 JAX forward flips it, ``conv_transpose2d`` takes it unflipped.
+
+A recurrent layer ``cell_<l>`` (flax's ``SimpleCell``, ``GRUCell`` or
+``LSTMCell``; the port's one-layer torch ``RNN``, ``GRU`` or ``LSTM``)
+carries one Dense a gate: the input gates' kernels, in torch's gate order
+(GRU r, z, n; LSTM i, f, g, o), are ``weight_ih_l0`` transposed, the
+recurrent ones ``weight_hh_l0``. flax has one bias a gate where torch has two: a
+simple cell's ``i`` bias, a GRU's ``ir``, ``iz`` and an LSTM's ``h*``
+biases are torch's two summed; on the way in they go to ``bias_ih_l0``,
+and ``bias_hh_l0`` is zero, but for a GRU's n gate, whose two biases flax
+keeps apart too (``in``; ``hn``, inside the reset gate's product as
+torch's).
 """
 from __future__ import annotations
 
@@ -57,7 +71,7 @@ _STATS_INV = {v: k for k, v in _STATS.items()}
 #: a weight-norm parametrisation's leaves in a torch state_dict
 _WN = ".parametrizations.weight.original"
 _CONV = re.compile(r"^(conv(_\d+)?|conv1|conv2|downsample)$")
-_DENSE = re.compile(r"^dense(_\d+)?$")
+_DENSE = re.compile(r"^(dense(_\d+)?|pw_\d+)$")
 _WN_SCALE = re.compile(r"^(?P<parent>.*?)/?WeightNorm_\d+/(?P<conv>[^/]+)/kernel/scale$")
 
 
@@ -65,14 +79,23 @@ def _leaf_module(module_path: str) -> str:
     return module_path.rsplit("/", 1)[-1]
 
 
+#: a recurrent cell's gates in flax: (input gates, recurrent gates) in
+#: torch's gate order, by torch's gates a layer
+_GATES = {1: (("i",), ("h",)), 3: (("ir", "iz", "in"), ("hr", "hz", "hn")),
+          4: (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho"))}
+_CELL_FLAX = re.compile(r"^params/(?P<cell>(.*/)?cell_\d+)/(?P<gate>[ih][a-z]?)/"
+                        r"(?P<leaf>kernel|bias)$")
+_CELL_TORCH = re.compile(r"^(?P<cell>(.*\.)?cell_\d+)\.(weight|bias)_(ih|hh)_l0$")
+
+
 def _kernel_to_torch(module_path: str, arr: np.ndarray) -> np.ndarray:
     name = _leaf_module(module_path)
     if _CONV.match(name) and arr.ndim >= 3:
         # flax [*k, Cin, Cout] → [Cout, Cin, *k]
         return np.ascontiguousarray(np.moveaxis(arr, (-1, -2), (0, 1)))
-    if arr.ndim == 4:
-        # an inverse conv's conv_transpose2d [Cin, Cout, kh, kw]
-        return np.ascontiguousarray(arr.transpose(2, 3, 0, 1))
+    if arr.ndim >= 4:
+        # an inverse conv's conv_transpose [Cin, Cout, *k]
+        return np.ascontiguousarray(np.moveaxis(arr, (-2, -1), (0, 1)))
     return arr.T if _DENSE.match(name) else arr
 
 
@@ -80,14 +103,78 @@ def _kernel_to_flax(module_path: str, arr: np.ndarray) -> np.ndarray:
     name = _leaf_module(module_path)
     if _CONV.match(name) and arr.ndim >= 3:
         return np.ascontiguousarray(np.moveaxis(arr, (0, 1), (-1, -2)))
-    if arr.ndim == 4:
-        return np.ascontiguousarray(arr.transpose(2, 3, 0, 1))
+    if arr.ndim >= 4:
+        return np.ascontiguousarray(np.moveaxis(arr, (0, 1), (-2, -1)))
     return arr.T if _DENSE.match(name) else arr
+
+
+def _cells_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The recurrent cells' leaves of flat flax variables as torch's
+    ``weight_{ih,hh}_l0``, ``bias_{ih,hh}_l0``."""
+    cells: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in flat.items():
+        m = _CELL_FLAX.match(key)
+        if m:
+            cells.setdefault(m["cell"], {})[f"{m['gate']}/{m['leaf']}"] = np.asarray(
+                value, dtype=np.float32)
+    out: Dict[str, torch.Tensor] = {}
+    for cell, leaves in cells.items():
+        n_gates = next(n for n, (gi, _) in _GATES.items() if f"{gi[0]}/kernel" in leaves)
+        gi, gh = _GATES[n_gates]
+        hidden = leaves[f"{gh[0]}/kernel"].shape[0]
+        zero = np.zeros(hidden, np.float32)
+        # the LSTM's gate biases (flax's on the recurrent Dense) in torch's
+        # input bias: the recurrent bias is zero but for a GRU's n gate
+        b_ih = np.concatenate([leaves.get(f"{g}/bias", leaves.get(f"{h}/bias", zero))
+                               for g, h in zip(gi, gh)])
+        b_hh = np.concatenate([leaves[f"{g}/bias"] if g == "hn" else zero for g in gh])
+        prefix = cell.replace("/", ".")
+        for name, arr in (("weight_ih_l0", np.concatenate([leaves[f"{g}/kernel"] for g in gi],
+                                                          axis=1).T),
+                          ("weight_hh_l0", np.concatenate([leaves[f"{g}/kernel"] for g in gh],
+                                                          axis=1).T),
+                          ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+            out[f"{prefix}.{name}"] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def _cells_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``_cells_to_torch``: each torch bias pair summed into
+    flax's one bias a gate, but for a GRU's n gate, whose two stay apart
+    (``in``, ``hn``)."""
+    cells: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state.items():
+        m = _CELL_TORCH.match(key)
+        if m:
+            cells.setdefault(m["cell"], {})[key[len(m["cell"]) + 1:]] = \
+                value.detach().cpu().numpy()
+    out: Dict[str, np.ndarray] = {}
+    for cell, t in cells.items():
+        w_hh = t["weight_hh_l0"]
+        n_gates = w_hh.shape[0] // w_hh.shape[1]
+        gi, gh = _GATES[n_gates]
+        w_i = np.split(t["weight_ih_l0"], n_gates)
+        w_h = np.split(w_hh, n_gates)
+        b_i = np.split(t["bias_ih_l0"], n_gates)
+        b_h = np.split(t["bias_hh_l0"], n_gates)
+        path = "params/" + cell.replace(".", "/")
+        for j in range(n_gates):
+            out[f"{path}/{gi[j]}/kernel"] = np.ascontiguousarray(w_i[j].T)
+            out[f"{path}/{gh[j]}/kernel"] = np.ascontiguousarray(w_h[j].T)
+            if n_gates == 4:        # LSTM: the recurrent gates carry the bias
+                out[f"{path}/{gh[j]}/bias"] = b_i[j] + b_h[j]
+            elif n_gates == 3 and j == 2:
+                out[f"{path}/{gi[j]}/bias"] = b_i[j]
+                out[f"{path}/{gh[j]}/bias"] = b_h[j]
+            else:
+                out[f"{path}/{gi[j]}/bias"] = b_i[j] + b_h[j]
+    return out
 
 
 def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat flax variables → the port's ``state_dict`` (float32 tensors)."""
-    out: Dict[str, torch.Tensor] = {}
+    out: Dict[str, torch.Tensor] = _cells_to_torch(flat)
+    flat = {k: v for k, v in flat.items() if not _CELL_FLAX.match(k)}
     normed = set()
     for key in flat:
         m = _WN_SCALE.match(key.split("/", 1)[1]) if key.startswith("params/") else None
@@ -119,9 +206,11 @@ def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of ``flax_to_state_dict``."""
-    out: Dict[str, np.ndarray] = {}
+    out: Dict[str, np.ndarray] = _cells_to_flax(state)
     weight_norms: Dict[str, int] = {}
     for key, value in state.items():
+        if _CELL_TORCH.match(key):
+            continue
         arr = value.detach().cpu().numpy()
         if _WN in key:
             conv_path, _, which = key.partition(_WN)

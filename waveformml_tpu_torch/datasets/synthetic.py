@@ -1,7 +1,8 @@
 """Synthetic detector events for tests and the chip smoke run (numpy;
 counterpart of the generators in waveformml_tpu/datasets/synthetic.py):
-unlabelled events, labelled chunks of both particle kinds, chunks with
-per-row (E, z) labels and an in-memory
+unlabelled events, labelled chunks of both particle kinds (also as the
+3D nets' (x, y, t) rows), chunks with per-row (E, z) labels, chunks of
+single waveforms with their detector channels, and an in-memory
 data module for the trainer, the inputs that stress the kernels, and
 directories of HDF5 files of each particle kind (``write_classification_dirs``,
 which needs h5py), the prediction writers' input records (``WaveformPairCal``,
@@ -138,6 +139,64 @@ def segment_block(rng: np.random.Generator, n_events: int, n_samples: int,
     labels = z if label == "z" else np.stack([ev["E"] / E_SCALE, z], 1).astype(np.float32)
     return FileBlock(coords=ev["coords"],
                      feats=(ev["waveforms"] / MAX_RANGE).astype(np.float32), labels=labels)
+
+
+def waveform_block(rng: np.random.Generator, n_waveforms: int, n_samples: int,
+                   max_mult: int = 4) -> FileBlock:
+    """A chunk of about ``n_waveforms`` single waveforms, the rows of
+    ``PulseDatasetWaveformNorm``: each pulse's two PMTs' waveforms as two
+    rows, coords ``[N]`` their detector channel ids (2·(x + NX·y) + side),
+    features scaled to [0, 1], labels ``[N]`` the pulse's z scaled to
+    [0, 1] (the left/right amplitude ratio encodes it)."""
+    n_events = max(1, int(round(n_waveforms / (max_mult + 1))))
+    ev = make_events(rng, n_events, n_samples, max_mult=max_mult)
+    c = ev["coords"].astype(np.int64)
+    seg = c[:, 0] + NX * c[:, 1]
+    det = np.stack([2 * seg, 2 * seg + 1], 1).reshape(-1).astype(np.int32)
+    wfs = ev["waveforms"].reshape(-1, 2, n_samples).reshape(-1, n_samples)
+    z = np.repeat((ev["z"] / Z_SCALE + 0.5).astype(np.float32), 2)
+    return FileBlock(coords=det, feats=(wfs / MAX_RANGE).astype(np.float32), labels=z)
+
+
+def rows_3d(coords: np.ndarray, waveforms: np.ndarray, n_samples: int,
+            threshold: float = 30.0):
+    """Pulses (coords ``[P, 3]``, waveform pairs ``[P, 2·S]`` on the ADC
+    scale) as the rows of a ``*Waveform3DPairSim.h5`` file: one row per
+    pulse and time sample where either PMT clears ``threshold`` (the
+    largest sample where none does), coords ``[N, 4]`` (x, y, t, event),
+    the two PMTs' samples ``[N, 2]``, sorted by (event, x, y, t). The port's
+    copy of the JAX package's ``write_waveform_3d_pair_sim`` rows."""
+    wf = waveforms.reshape(-1, 2, n_samples)
+    rows_c, rows_w = [], []
+    for p in range(coords.shape[0]):
+        keep = np.flatnonzero(wf[p].max(axis=0) > threshold)
+        if keep.size == 0:
+            keep = np.array([int(wf[p].max(axis=0).argmax())])
+        x, y, e = coords[p]
+        c = np.empty((keep.size, 4), np.int32)
+        c[:, 0], c[:, 1], c[:, 2], c[:, 3] = x, y, keep, e
+        rows_c.append(c)
+        rows_w.append(wf[p, :, keep])
+    out_c = np.concatenate(rows_c)
+    out_w = np.concatenate(rows_w).astype(np.float32)
+    order = np.lexsort((out_c[:, 2], out_c[:, 1], out_c[:, 0], out_c[:, 3]))
+    return out_c[order], out_w[order]
+
+
+def labelled_block_3d(rng: np.random.Generator, n_events: int, n_samples: int,
+                      max_mult: int = 4) -> FileBlock:
+    """``labelled_block``'s events as ``PulseDataset3D`` gives them: the
+    (x, y, t) rows of ``rows_3d``, their samples scaled to [0, 1], labels
+    ``[n_events]`` the particle kinds."""
+    kinds = rng.integers(0, 2, n_events)
+    coords, wfs = [], []
+    for e, kind in enumerate(kinds):
+        ev = make_events(rng, 1, n_samples, kind=int(kind), max_mult=max_mult, start_event=e)
+        coords.append(ev["coords"])
+        wfs.append(ev["waveforms"])
+    c, w = rows_3d(np.concatenate(coords), np.concatenate(wfs), n_samples)
+    return FileBlock(coords=c, feats=(w / MAX_RANGE).astype(np.float32),
+                     labels=kinds.astype(np.int64))
 
 
 class BlockDataModule:

@@ -141,10 +141,8 @@ class TaskBase:
         return z_model
 
     def make_evaluator(self, logger=None):
-        """The task's test-pass evaluator (each task has its own; that of
-        ``LitWaveform`` comes with the task)."""
-        raise NotImplementedError(f"{type(self).__name__} has no evaluator in the port "
-                                  "(LitWaveform's: ROADMAP.md queue 1 item 9)")
+        """The task's test-pass evaluator (each task has its own)."""
+        raise NotImplementedError(f"{type(self).__name__} has no evaluator")
 
     def _eval_params(self) -> Dict:
         """The config's ``evaluation_config`` as a dict ({} without one)."""
@@ -201,7 +199,8 @@ class TaskBase:
 
     def add_row_plans(self, out: Dict[str, np.ndarray], n_events: int) -> None:
         """Host-build the plans the model requires (they depend on coords
-        only): ``plan_k<K>`` per conv window and ``plan_site_*``."""
+        only): ``plan_k<K>`` per conv window (``plan_k<K>t<T>`` per 3D one)
+        and ``plan_site_*``."""
         for req in sorted(self.model.plan_requirements()):
             if req == "site":
                 lay = host_site_layout(out["coords"], out["mask"],
@@ -210,8 +209,10 @@ class TaskBase:
                 for k, v in lay.items():
                     out[f"plan_{k}"] = v
             else:
+                # "k<K>", or "k<K>t<T>" for a 3D window over T samples
+                k, _, n_t = req[1:].partition("t")
                 out[f"plan_{req}"] = host_neighbor_plan(
-                    out["coords"], out["mask"], n_events, int(req[1:]))
+                    out["coords"], out["mask"], n_events, int(k), int(n_t) if n_t else None)
 
     # -- device-side ----------------------------------------------------------
     def to_device(self, db: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -240,18 +241,25 @@ class TaskBase:
             f = f.to(torch.bfloat16)
         return f
 
+    def forward_model(self, db: Dict[str, torch.Tensor],
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The model over a device batch, in the mode it is in: the sparse
+        nets take the batch's ``SparseBatch`` (``generator`` in it, for
+        dropout in train mode)."""
+        return self.model(self.sparse_batch(db, generator))
+
     @torch.no_grad()
     def apply_model(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Eval forward of the model over a device batch, in float32."""
         self.model.eval()
-        return self.model(self.sparse_batch(db)).float()
+        return self.forward_model(db).float()
 
     def model_outputs(self, db: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
         """Forward of the model over a device batch in train mode (batch
         statistics, running statistics updated) or eval mode, in float32,
         under autograd as the caller has it."""
         self.model.train(train)
-        return self.model(self.sparse_batch(db, self.generator if train else None)).float()
+        return self.forward_model(db, self.generator if train else None).float()
 
     # -- segment loss ---------------------------------------------------------
     def segment_loss(self, outputs_dense: torch.Tensor, db: Dict[str, torch.Tensor],

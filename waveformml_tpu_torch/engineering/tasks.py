@@ -1,6 +1,7 @@
 """Tasks (counterpart of waveformml_tpu/engineering/tasks.py): their
 masked loss and metric sums for training and validation, and their
-test-time outputs. ``LitPSD`` classifies events; ``LitZ`` and ``LitEZ``
+test-time outputs. ``LitPSD`` classifies events; ``LitWaveform``
+regresses or classifies single waveforms; ``LitZ`` and ``LitEZ``
 regress z, and E and z, per segment through the dense-grid segment loss;
 ``LitSegClassifier`` and ``LitSegQuantifier`` classify and regress per
 row, optionally over the single-ended segments only. ``make_evaluator``
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+from waveformml_tpu_torch.detector import NX, NY
 from waveformml_tpu_torch.engineering.base import TaskBase
 from waveformml_tpu_torch.engineering.se_mask import seg_status_maps
 from waveformml_tpu_torch.ops.sparse import bucket_size, pad_sparse
@@ -75,6 +77,137 @@ class LitPSD(TaskBase):
             else PSDEvaluator)
         return cls(list(self.config.system_config.type_names), logger,
                    calgroup=getattr(dc, "calgroup", None), **self._eval_params())
+
+
+@registry.register("LitWaveform", aliases=("src.engineering.LitWaveform.LitWaveform",
+                                           "LitWaveform.LitWaveform"))
+class LitWaveform(TaskBase):
+    """Single-waveform regression or classification: each row is a
+    waveform and its own event (coords ``[N]``, its detector channel id),
+    its label per row; the model takes the rows' features alone
+    (``forward_model``), one output a row.
+
+    Under ``net_config.use_detector_number`` the config's ``n_samples``
+    grows by 3, once per config, and ``prepare_block`` appends each row's
+    normalised (x, y, side) detector coordinates to its features. Labels
+    of more than one column are read at ``dataset_params.label_index``."""
+
+    labels_per_row = True
+    output_unit = "row"
+
+    def __init__(self, config, device=None):
+        nc = config.net_config
+        self.use_detector_number = bool(getattr(nc, "use_detector_number", False))
+        if self.use_detector_number:
+            if not hasattr(nc, "num_detectors"):
+                raise IOError("net config must contain 'num_detectors' if "
+                              "'use_detector_number' set to true")
+            # the reference grows n_samples on every task built from the
+            # config; grown once here, as the JAX package does, so that a
+            # second task of one config keeps the model's geometry
+            if not getattr(config.system_config, "_det_coords_applied", False):
+                config.system_config.n_samples = config.system_config.n_samples + 3
+                config.system_config["_det_coords_applied"] = True
+            if nc.num_detectors != 308:
+                raise IOError(f"num detectors {nc.num_detectors} not supported")
+        super().__init__(config, device)
+        dc = config.dataset_config
+        self.target_index = (getattr(dc.dataset_params, "label_index", None)
+                             if hasattr(dc, "dataset_params") else None)
+        cc = nc.criterion_class
+        self.use_accuracy = cc.startswith("BCE") or cc.startswith("CrossEntropy")
+
+    def n_events(self, block: FileBlock) -> int:
+        return max(1, block.coords.shape[0])
+
+    def event_bucket(self, block: FileBlock) -> int:
+        # the labels are per row
+        return self.row_bucket(block)
+
+    def prepare_block(self, block: FileBlock, row_bucket: int,
+                      event_bucket: int) -> Dict[str, np.ndarray]:
+        """The rows padded to the row bucket: ``det`` (each row's detector
+        channel id), ``feats`` (with the detector coordinates under
+        ``use_detector_number``), ``mask``, ``labels`` and ``label_mask``
+        (the mask)."""
+        n = block.coords.shape[0]
+        dets = block.coords.reshape(n, -1)[:, 0].astype(np.int32)
+        feats = block.feats
+        if self.use_detector_number:
+            seg = dets // 2
+            coords = np.stack([(seg % NX) * (1.0 / (NX - 1)), (seg // NX) * (1.0 / (NY - 1)),
+                               (dets % 2).astype(np.float32)], axis=1).astype(feats.dtype)
+            feats = np.concatenate([feats, coords], axis=1)
+        out_feats = np.zeros((row_bucket, feats.shape[1]), dtype=feats.dtype)
+        out_feats[:n] = feats
+        out_det = np.zeros((row_bucket,), dtype=np.int32)
+        out_det[:n] = dets
+        mask = np.zeros((row_bucket,), dtype=bool)
+        mask[:n] = True
+        labels = block.labels
+        y = np.zeros((row_bucket,) + labels.shape[1:], dtype=labels.dtype)
+        y[:n] = labels
+        return {"det": out_det, "feats": out_feats, "mask": mask, "labels": y,
+                "label_mask": mask}
+
+    def forward_model(self, db: Dict[str, torch.Tensor],
+                      generator=None) -> torch.Tensor:
+        return self.model(self._features(db), generator)
+
+    def _targets(self, db: Dict[str, torch.Tensor], outputs: torch.Tensor):
+        """(predictions, targets): the label column ``target_index`` of
+        labels with columns, a single output column squeezed against
+        per-row targets."""
+        labels = db["labels"]
+        if self.target_index is not None and labels.dim() == 2:
+            labels = labels[:, self.target_index]
+        p = outputs
+        if p.dim() == 2 and labels.dim() == 1 and p.shape[1] == 1:
+            p = p[:, 0]
+        return p, labels
+
+    def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:
+        """Over the real rows: the criterion's sum and its 'mean'
+        denominator times the outputs a row (torch's 'mean' averages every
+        element); under a classification criterion the accuracy sums."""
+        p, labels = self._targets(db, outputs)
+        mask = db["mask"]
+        elem = self.criterion.elementwise(p, labels)
+        loss_sum = _masked_sum(elem, mask)
+        n_out = int(np.prod(elem.shape[mask.dim():], dtype=np.int64))
+        den = self.criterion.mean_denominator(labels)
+        count = mask.sum().float()
+        weight = (count if den is None else den.masked_fill(~mask, 0).sum()) * n_out
+        metrics = {}
+        if self.use_accuracy and p.dim() == 2:
+            pred = torch.argmax(torch.softmax(p, dim=1), dim=1)
+            metrics["accuracy_sum"] = _masked_sum((pred == labels).float(), mask)
+            metrics["accuracy_count"] = count
+        return loss_sum, weight, metrics
+
+    def test_outputs(self, outputs: torch.Tensor,
+                     db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        p, labels = self._targets(db, outputs)
+        return {"predictions": p, "loss_no_reduce": self.criterion.elementwise(p, labels)}
+
+    def make_evaluator(self, logger=None):
+        """``TensorEvaluator``, its metric named after the criterion; the
+        targets carry the phys record where the test set's labels are the
+        whole phys vector (ref: LitWaveform.py:39-66)."""
+        from waveformml_tpu_torch.evaluation.tensor_eval import TensorEvaluator
+
+        cc = self.config.net_config.criterion_class
+        metric_name = {"L1Loss": "mean absolute error", "MSELoss": "mean squared error"}.get(
+            cc, "Accuracy" if self.use_accuracy else "?")
+        dc = self.config.dataset_config
+        tp = getattr(dc, "test_dataset_params", None)
+        test_has_phys = (tp is not None and getattr(tp, "label_name", None) == "phys"
+                         and not hasattr(tp, "label_index"))
+        params = self._eval_params()
+        params.pop("additional_field_names", None)
+        return TensorEvaluator(logger, calgroup=getattr(dc, "calgroup", None),
+                               target_has_phys=test_has_phys, target_index=self.target_index,
+                               metric_name=metric_name, **params)
 
 
 @registry.register("LitZ", aliases=("src.engineering.LitZ.LitZ", "LitZ.LitZ"))

@@ -550,7 +550,7 @@ class EvalForward(torch.nn.Module):
         self.task = task
 
     def forward(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.model(self.task.sparse_batch(db)).float()
+        return self.task.forward_model(db).float()
 
 
 def load_exported(path: str, device: Optional[Union[str, torch.device]] = None
@@ -561,11 +561,12 @@ def load_exported(path: str, device: Optional[Union[str, torch.device]] = None
     was exported on, which must be ``device`` (None: the card); the custom
     ops of the kernels are registered first. A batch of other shapes (another
     row or event bucket) raises through the program's own shape guard. The
-    program runs with cuDNN's float32 convolutions in full float32, as the
-    eager forward runs them (``ops.sparse_conv.ieee_fp32_convs``): the flag
-    that the eager convs set is the process's, not the graph's."""
+    program runs with cuDNN's float32 convolutions and recurrences in full
+    float32, as the eager forward runs them
+    (``ops.sparse_conv.ieee_fp32``): the flag that the eager layers
+    set is the process's, not the graph's."""
     from waveformml_tpu_torch.ops import row_conv, site_head, waveform_features  # noqa: F401
-    from waveformml_tpu_torch.ops.sparse_conv import ieee_fp32_convs
+    from waveformml_tpu_torch.ops.sparse_conv import ieee_fp32
 
     dev = resolve_device(device)
     program = torch.export.load(path)
@@ -575,7 +576,7 @@ def load_exported(path: str, device: Optional[Union[str, torch.device]] = None
     module = program.module()
 
     def forward(db: Dict[str, torch.Tensor]) -> torch.Tensor:
-        with torch.no_grad(), ieee_fp32_convs():
+        with torch.no_grad(), ieee_fp32():
             return module({k: v.to(dev) for k, v in db.items()})
 
     return forward

@@ -5,10 +5,9 @@ matplotlib only when it draws).
 ``Trainer.test`` builds the task's evaluator (``make_evaluator``) and hands
 it each test batch (``add_batch(block, db, test_out)``: the host arrays of
 ``prepare_block`` and the outputs copied off the device); the
-``LoggingCallback`` renders it (``dump()``) through the run's logger. The
-evaluators of ``LitWaveform`` (``tensor_eval``, ``waveform_eval``) come
-with that task (ROADMAP.md queue 1 item 9). ``accumulated_arrays`` lists
-what an evaluator has accumulated, to compare two evaluators' states.
+``LoggingCallback`` renders it (``dump()``) through the run's logger.
+``accumulated_arrays`` lists what an evaluator has accumulated, to compare
+two evaluators' states.
 """
 import numpy as np
 
@@ -27,6 +26,8 @@ from waveformml_tpu_torch.evaluation.roc import ROCCurve
 from waveformml_tpu_torch.evaluation.seg_eval import RealDataEvaluator, SegEvaluator
 from waveformml_tpu_torch.evaluation.stats import (
     ErrorAggregator, StatsAggregator, calc_photon_moments, calc_time_moments)
+from waveformml_tpu_torch.evaluation.tensor_eval import TensorEvaluator
+from waveformml_tpu_torch.evaluation.waveform_eval import WaveformEvaluator
 from waveformml_tpu_torch.evaluation.z_eval import (
     ZEvaluatorBase, ZEvaluatorPhys, ZEvaluatorRealWFNorm, ZEvaluatorWF)
 
@@ -67,6 +68,7 @@ __all__ = [
     "PID_MAP", "PID_MAPPED_NAMES", "PIDEvaluator", "map_pid",
     "retrieve_class_names_PIDS", "PhysEvaluator", "PSDEvaluator", "ROCCurve",
     "RealDataEvaluator", "SegEvaluator", "ErrorAggregator", "StatsAggregator",
-    "calc_photon_moments", "calc_time_moments", "ZEvaluatorBase", "ZEvaluatorPhys",
-    "ZEvaluatorRealWFNorm", "ZEvaluatorWF", "accumulated_arrays",
+    "calc_photon_moments", "calc_time_moments", "TensorEvaluator", "WaveformEvaluator",
+    "ZEvaluatorBase", "ZEvaluatorPhys", "ZEvaluatorRealWFNorm", "ZEvaluatorWF",
+    "accumulated_arrays",
 ]

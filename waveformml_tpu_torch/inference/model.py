@@ -174,11 +174,15 @@ class InferenceModel:
     # -- serving ------------------------------------------------------------------------
     def dispatch(self, coords: np.ndarray, vals: np.ndarray) -> Handle:
         """Pad, build plans, copy and launch the forward of one chunk
-        (coords [N, 3] with event ids 0..B-1, vals [N, F]) without waiting
-        for the device; returns a handle for ``fetch``. Its outputs are its
-        own: later dispatches do not overwrite them."""
+        (coords [N, 3] with event ids 0..B-1, or [N] per-waveform detector
+        ids, each row its own event; vals [N, F]) without waiting for the
+        device; returns a handle for ``fetch``. Its outputs are its own:
+        later dispatches do not overwrite them."""
         n = coords.shape[0]
-        n_events = int(coords[:, -1].max()) + 1 if n else 0
+        if coords.ndim == 1:
+            n_events = n
+        else:
+            n_events = int(coords[:, -1].max()) + 1 if n else 0
         vals = np.asarray(vals)
         keep = (np.float32, np.float16) if self.task.half_precision else (np.float32,)
         if self.preprocess is None and vals.dtype not in keep:

@@ -8,8 +8,9 @@ with "nn.Conv1d" is the per-waveform section, everything up to the first
 section the dense names "nn.BatchNorm1d", "nn.ReLU", "nn.Dropout", ...
 become their grid forms (``_SPARSE_TRANSLATIONS``: masked BatchNorm over
 the active sites, re-masked activations). ``dsl_to_row_specs`` turns a
-pure-SubM 2D section into ``_SpecNet`` specs, so that it runs in row
-space. The SparseConvNet names take that library's positional arguments
+pure-SubM section into ``_SpecNet`` specs, so that it runs in row space
+(``SCNet`` does so in 2D; a 3D section's specs build
+``DSLSpecNet(n_t=…)``). The SparseConvNet names take that library's positional arguments
 ``(dimension, nin, nout, filter_size[, stride], bias)``: adapters map them
 onto the grid convs.
 """
@@ -23,21 +24,23 @@ from torch import nn
 
 import waveformml_tpu_torch.nn.layers  # noqa: F401  (registers the DSL's dense layers)
 from waveformml_tpu_torch.ops.sparse_conv import (MaskedBatchNorm, SparseActivation,
-                                                  SparseConv2d, SparseDropout, SparseGrid,
-                                                  SparseReLU, SubMConv2d)
+                                                  SparseConv2d, SparseConv3d, SparseDropout,
+                                                  SparseGrid, SparseReLU, SubMConv2d,
+                                                  SubMConv3d)
 from waveformml_tpu_torch.registry import registry
 
 
 @registry.register("sparseconvnet.Convolution", aliases=("scn.Convolution",))
 class SCNConvolution(nn.Module):
     """``sparseconvnet.Convolution(dim, nin, nout, fs, stride, bias)``: a
-    regular sparse conv without padding, under ``conv``."""
+    regular sparse conv without padding (over 3 axes where ``dim`` is 3),
+    under ``conv``."""
 
     def __init__(self, dimension: int, nin: int, nout: int, filter_size: int,
                  filter_stride: int = 1, use_bias: bool = True):
         super().__init__()
-        self.conv = SparseConv2d(nin, nout, filter_size, filter_stride, 0, 1,
-                                 use_bias=use_bias)
+        cls = SparseConv3d if int(dimension) == 3 else SparseConv2d
+        self.conv = cls(nin, nout, filter_size, filter_stride, 0, 1, use_bias=use_bias)
 
     def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
         return self.conv(g)
@@ -47,12 +50,13 @@ class SCNConvolution(nn.Module):
                    aliases=("scn.SubmanifoldConvolution",))
 class SCNSubmanifoldConvolution(nn.Module):
     """``sparseconvnet.SubmanifoldConvolution(dim, nin, nout, fs, bias)``:
-    a SubM conv, under ``conv``."""
+    a SubM conv (over 3 axes where ``dim`` is 3), under ``conv``."""
 
     def __init__(self, dimension: int, nin: int, nout: int, filter_size: int,
                  use_bias: bool = True):
         super().__init__()
-        self.conv = SubMConv2d(nin, nout, filter_size, use_bias=use_bias)
+        cls = SubMConv3d if int(dimension) == 3 else SubMConv2d
+        self.conv = cls(nin, nout, filter_size, use_bias=use_bias)
 
     def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
         return self.conv(g)

@@ -1,6 +1,8 @@
 """Dense building blocks (counterpart of waveformml_tpu/models/blocks.py):
-masked BatchNorm, the site-folded first Linear layer, the geometric Linear
-stack, the weight-normed causal TCN and the dense 2D conv stack.
+masked BatchNorm, the site-folded first Linear layer, the geometric and the
+explicit-plane Linear stacks, the pointwise reducer, the weight-normed
+causal TCN, the dilated and the expand/contract 1D conv stacks and the
+dense 2D conv stack.
 
 The convs run in PyTorch's channels-first layout (``[N, C, L]``, ``[B, C,
 H, W]``) through ``ops.sparse_conv.conv`` (float32 without TF32, as the
@@ -109,6 +111,55 @@ class LinearBlock(nn.Module):
         return x
 
 
+class LinearPlanes(nn.Module):
+    """Linear layers ``dense_i`` through an explicit plane list, the
+    activation (where given) after every layer, the last one included."""
+
+    def __init__(self, planes: Sequence[float], activation=None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.n = len(planes) - 1
+        self.activation = activation
+        width = int(round(planes[0]))
+        for i in range(self.n):
+            out = int(round(planes[i + 1]))
+            layer = nn.Linear(width, out, device=device)
+            lecun_normal_(layer.weight, width, generator)
+            nn.init.zeros_(layer.bias)
+            self.add_module(f"dense_{i}", layer)
+            width = out
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"dense_{i}")(x)
+            if self.activation is not None:
+                x = self.activation(x)
+        return x
+
+
+class PointwiseReducer(nn.Module):
+    """1×1 plane reduction: ``pw_i`` (a Linear without bias over the
+    channels) and ReLU per plane. Input ``[N, C, L]``."""
+
+    def __init__(self, planes: Sequence[float], generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.n = len(planes) - 1
+        width = int(round(planes[0]))
+        for i in range(self.n):
+            out = int(round(planes[i + 1]))
+            layer = nn.Linear(width, out, bias=False, device=device)
+            lecun_normal_(layer.weight, width, generator)
+            self.add_module(f"pw_{i}", layer)
+            width = out
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        x = x.movedim(1, -1)
+        for i in range(self.n):
+            x = torch.relu(getattr(self, f"pw_{i}")(x))
+        return x.movedim(-1, 1)
+
+
 class FoldedSiteLinear(nn.Module):
     """``Linear(flatten([B, C, NX, NY]))`` computed over the active rows only.
 
@@ -213,6 +264,121 @@ class TemporalConvNet(nn.Module):
         for i in range(self.n):
             x = getattr(self, f"tblock_{i}")(x, generator)
         return x
+
+
+class _Conv1DStack(nn.Module):
+    """``conv_i`` (weight ``[Cout, Cin, k]``), ``MaskedArrayBatchNorm``
+    ``bn_i`` and ReLU per layer of ``self.layers`` ((cin, cout, k, stride,
+    pad, dilation) each). Input ``[N, C, L]``. Without a mask the BatchNorm
+    takes its statistics over every row, the bucket's padding rows
+    included, as the JAX package's does when its net passes none
+    (``ConvWaveformNet``). The first conv takes ``in_width`` channels where
+    given (flax infers a conv's input width from its input)."""
+
+    def _build(self, in_width: Optional[int], generator, device) -> None:
+        from waveformml_tpu_torch.ops.sparse_conv import _ConvParams
+
+        for i, (cin, cout, fs, _, _, _) in enumerate(self.layers):
+            if i == 0 and in_width is not None:
+                cin = in_width
+            self.add_module(f"conv_{i}", _ConvParams(cin, cout, (fs,), True, generator,
+                                                     device))
+            self.add_module(f"bn_{i}", MaskedArrayBatchNorm(cout, device=device))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator=None) -> torch.Tensor:
+        from waveformml_tpu_torch.ops.sparse_conv import conv
+
+        if mask is None:
+            mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        for i, (_, _, _, st, pd, dil) in enumerate(self.layers):
+            layer = getattr(self, f"conv_{i}")
+            x = conv(x, layer.weight, layer.bias, (st,), (pd,), (dil,))
+            x = torch.relu(getattr(self, f"bn_{i}")(x, mask))
+        return x
+
+
+class DilationBlock(_Conv1DStack):
+    """Dilated 1D conv stack with linear channel interpolation."""
+
+    def __init__(self, nin: int, nout: int, n: int, length: int, size_factor: int = 3,
+                 pad_factor: float = 0, stride_factor: int = 1, dil_factor: float = 2.0,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 in_width: Optional[int] = None):
+        super().__init__()
+        self.length = length
+        self.layers = self.schedule(nin, nout, n, size_factor, pad_factor, stride_factor,
+                                    dil_factor)
+        self._build(in_width, generator, device)
+
+    @staticmethod
+    def schedule(nin, nout, n, size_factor=3, pad_factor=0, stride_factor=1,
+                 dil_factor=2.0) -> List[Tuple[int, int, int, int, int, int]]:
+        if nin != nout:
+            diff = float(nin - nout) / n
+            nframes = [int(floor(nin - diff * i)) for i in range(n + 1)]
+        else:
+            nframes = [nin] * (n + 1)
+        out = []
+        for i in range(n):
+            fs = max(3, int(floor(size_factor / (i + 1.0))))
+            st = max(1, stride_factor - int(floor((stride_factor - 1) / (i + 1.0))))
+            dil = int(round(dil_factor ** i))
+            pd = int(floor(pad_factor * (fs - 1) * dil_factor))
+            out.append((nframes[i], nframes[i + 1], fs, st, pd, dil))
+        return out
+
+    def out_length(self) -> int:
+        length = self.length
+        for (_, _, fs, st, pd, dil) in self.layers:
+            length = (length + 2 * pd - fs - (fs - 1) * (dil - 1)) // st + 1
+        return int(length)
+
+
+class Conv1DNet(_Conv1DStack):
+    """Expand/contract 1D CNN."""
+
+    def __init__(self, length: int, num_channels: int, out_size: int, num_expand: int,
+                 num_contract: int, expand_factor: float, size_factor: int = 3,
+                 pad_factor: float = 1, stride_factor: float = 0, min_kernel: int = 2,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 in_width: Optional[int] = None):
+        super().__init__()
+        layers, self.out_len = self.schedule(length, num_channels, out_size, num_expand,
+                                             num_contract, expand_factor, size_factor,
+                                             pad_factor, stride_factor, min_kernel)
+        self.layers = [(cin, cout, fs, st, pd, 1) for cin, cout, fs, st, pd in layers]
+        self._build(in_width, generator, device)
+
+    @staticmethod
+    def schedule(length, num_channels, out_size, num_expand, num_contract,
+                 expand_factor, size_factor=3, pad_factor=1, stride_factor=0,
+                 min_kernel=2):
+        planes = [num_channels]
+        if num_expand > 0:
+            expand = float((planes[0] * expand_factor - planes[0]) / num_expand)
+            planes += [int(round(planes[0] + expand * (i + 1))) for i in range(num_expand)]
+        contract_factor = float((planes[-1] - out_size) / num_contract)
+        start_n = planes[-1]
+        planes += [int(round(start_n - contract_factor * (i + 1))) for i in range(num_contract)]
+        planes[-1] = out_size
+        n = num_expand + num_contract
+        layers, out_len = [], length
+        for i in range(n):
+            if n > 1:
+                decay = 1.0 - i / (n - 1)
+                st = int(round(stride_factor * i / (n - 1)))
+            else:
+                decay, st = 1.0, int(stride_factor)
+            st = max(1, st)
+            fs = max(min_kernel, int(ceil(size_factor * decay)))
+            pd = int(round(pad_factor * ((fs - 1) / 2.0) * decay))
+            layers.append((planes[i], planes[i + 1], fs, st, pd))
+            out_len = int((out_len + 2 * pd - fs) / st + 1)
+        return layers, out_len
+
+    def out_shape(self) -> Tuple[int, int]:
+        return self.out_len, self.layers[-1][1]
 
 
 class Conv2DBlock(nn.Module):

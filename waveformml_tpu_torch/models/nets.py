@@ -32,7 +32,8 @@ from waveformml_tpu_torch.models.sparse_blocks import (DSLSpecNet, ExtractedFeat
                                                        SparseConv2DPreserve, _SpecNet)
 from waveformml_tpu_torch.ops.sparse import (SparseBatch, gather_from_dense, occupancy_mask,
                                              scatter_to_dense)
-from waveformml_tpu_torch.ops.sparse_conv import SparseGrid, SparseSequential, batch_to_grid
+from waveformml_tpu_torch.ops.sparse_conv import (SparseGrid, SparseSequential, batch_to_grid,
+                                                  batch_to_grid_3d)
 from waveformml_tpu_torch.registry import registry
 
 log = logging.getLogger(__name__)
@@ -354,7 +355,10 @@ class SCNet(_LayerListNet):
     section, the flatten (channels first) and the linear section. A
     pure-SubM 2D sparse section runs in row space (``DSLSpecNet``: K1 in
     the forward, K1 and K4 in the backward); any other on the grid
-    (``SparseSequential``). ``net_type: "3DConvolution"`` is not ported."""
+    (``SparseSequential``). ``net_type: "3DConvolution"`` (coords ``[N,
+    4]``: x, y, t, event) runs its sparse section on the ``[B, C, NX, NY,
+    T]`` grid of T = ``n_samples``, as the JAX package does (its 3D row
+    path is ``DSLSpecNet(n_t=…)``)."""
 
     def __init__(self, config: Any, generator: Optional[torch.Generator] = None,
                  device=None):
@@ -362,14 +366,12 @@ class SCNet(_LayerListNet):
         nc = config.net_config
         self.n_samples = config.system_config.n_samples
         net_type = getattr(nc, "net_type", "2DConvolution")
-        if net_type == "3DConvolution":
-            raise NotImplementedError("SCNet with net_type 3DConvolution (SCNet3D.json) "
-                                      "is not ported yet (ROADMAP.md queue 1 item 9.3)")
-        if net_type != "2DConvolution":
+        if net_type not in ("2DConvolution", "3DConvolution"):
             log.warning("unknown net_type in net_config: %s", net_type)
+        self.ndim = 3 if net_type == "3DConvolution" else 2
         with _seeded_init(generator):
             sparse, self.n_linear = self._dsl_sections(nc.algorithm)
-            row_specs = dsl_to_row_specs(sparse)
+            row_specs = dsl_to_row_specs(sparse) if self.ndim == 2 else None
             self.row_path = row_specs is not None
             self.sparse_model = (DSLSpecNet(row_specs) if self.row_path
                                  else SparseSequential(build_sparse_instances(sparse)))
@@ -388,10 +390,13 @@ class SCNet(_LayerListNet):
             batch = dataclasses.replace(batch, feats=self._waveform_dsl(batch.feats, batch))
         if self.row_path:
             x = self.sparse_model(batch)
+        elif self.ndim == 3:
+            x = self.sparse_model(batch_to_grid_3d(batch, self.n_samples), batch.generator)
         else:
             x = self.sparse_model(batch_to_grid(batch), batch.generator)
         if isinstance(x, SparseGrid):
             x = x.masked()
+        # channels first, whatever the rank
         return self._linear(x.reshape(batch.n_events, -1), batch.generator)
 
 

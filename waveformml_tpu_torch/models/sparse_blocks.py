@@ -9,7 +9,9 @@ leaves row space, so every conv is one ``subm_conv_rows`` (kernel K1) over
 a host-built neighbour plan; any other stack (regular, strided or inverse
 convs) densifies the batch to a ``SparseGrid`` and runs the grid ops of
 ``ops.sparse_conv``. Which plans a row stack needs follows from its specs
-(``plan_requirements``); a batch without one of them is an error.
+(``plan_requirements``); a batch without one of them is an error. A 3D
+row stack (``DSLSpecNet(n_t=…)``, coords ``[N, 4]``) convolves over the
+K×K×K window of (x, y, t) through the same kernels, its plan ``[N, K³]``.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from torch import nn
 from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_normal_
 from waveformml_tpu_torch.models.schedules import (get_frame_contraction,
                                                    get_frame_expansion)
-from waveformml_tpu_torch.ops.row_conv import SubMConvRows, rows_to_dense
-from waveformml_tpu_torch.ops.sparse import SparseBatch, gather_from_dense, occupancy_mask
+from waveformml_tpu_torch.ops.row_conv import SubMConvRows, rows_to_dense, rows_to_dense_3d
+from waveformml_tpu_torch.ops.sparse import (SparseBatch, gather_from_dense, occupancy_mask,
+                                             occupancy_mask_3d)
 from waveformml_tpu_torch.ops.sparse_conv import (MaskedBatchNorm, SparseConv2d,
                                                   SparseGrid, SparseInverseConv2d,
                                                   SubMConv2d, batch_to_grid, dropout)
@@ -39,18 +42,28 @@ def _row_compatible(specs: Sequence[Tuple]) -> bool:
     return all(s[0] in _ROW_OPS for s in specs)
 
 
+def plan_key(kernel_size: int, n_t: Optional[int] = None) -> str:
+    """The key of a neighbour plan in ``batch.plans`` (and of its
+    requirement): "k<K>" for the K×K window, "k<K>t<T>" for the K×K×K
+    window over T samples."""
+    return f"k{kernel_size}" if n_t is None else f"k{kernel_size}t{n_t}"
+
+
 class RowSubMConv2d(nn.Module):
     """Row-space SubM conv: weight ``[K², Cin, Cout]`` (the JAX package's
-    layout), bias ``[Cout]``; forward K1, backward K1 and K4
-    (``SubMConvRows``). ``plain = True`` runs the plain PyTorch versions of
-    the forward and the backward whatever the device, as a reference on the
-    card."""
+    layout; ``[K³, Cin, Cout]`` with ``n_t``, the K×K×K window over T =
+    n_t samples), bias ``[Cout]``; forward K1, backward K1 and K4
+    (``SubMConvRows``), over the plan ``batch.plans[self.plan_key]``.
+    ``plain = True`` runs the plain PyTorch versions of the forward and the
+    backward whatever the device, as a reference on the card."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 n_t: Optional[int] = None):
         super().__init__()
-        kk = kernel_size ** 2
+        kk = kernel_size ** (2 if n_t is None else 3)
         self.kernel_size = kernel_size
+        self.plan_key = plan_key(kernel_size, n_t)
         self.plain = False
         self.weight = nn.Parameter(torch.empty(kk, in_channels, out_channels,
                                                device=device))
@@ -73,12 +86,14 @@ class _SpecNet(nn.Module):
     ``in_width`` is the width of the features the stack is given where it
     differs from the schedule's (``UseFFT``'s spectrum): the first grid
     conv takes it, as flax's ``nn.Conv`` infers its input width; a row conv
-    declares its width, as the JAX package's does."""
+    declares its width, as the JAX package's does. ``n_t`` makes a row
+    stack 3D (T = n_t samples)."""
 
     def __init__(self, specs: List[Tuple], generator: Optional[torch.Generator] = None,
-                 device=None, in_width: Optional[int] = None):
+                 device=None, in_width: Optional[int] = None, n_t: Optional[int] = None):
         super().__init__()
         self.specs = specs
+        self.n_t = n_t
         self.row_path = _row_compatible(specs)
         first = True
         width = in_width
@@ -91,7 +106,7 @@ class _SpecNet(nn.Module):
                 first = False
                 width = spec[2]
             if op == "subm" and self.row_path:
-                layer = RowSubMConv2d(cin, spec[2], spec[3], generator, device)
+                layer = RowSubMConv2d(cin, spec[2], spec[3], generator, device, n_t=n_t)
             elif op == "subm":
                 _, _, cout, k, p, key = spec
                 layer = SubMConv2d(cin, cout, k, 1, p, indice_key=key,
@@ -115,11 +130,11 @@ class _SpecNet(nn.Module):
             self.add_module(f"l{i}", layer)
 
     def plan_requirements(self) -> Set[str]:
-        """Neighbour plans the stack reads from ``batch.plans``: "k<K>"
-        per row conv window (none on the grid path)."""
+        """Neighbour plans the stack reads from ``batch.plans``: one per row
+        conv window (``plan_key``; none on the grid path)."""
         if not self.row_path:
             return set()
-        return {f"k{s[3]}" for s in self.specs if s[0] == "subm"}
+        return {plan_key(s[3], self.n_t) for s in self.specs if s[0] == "subm"}
 
     def forward(self, g, return_rows: bool = False):
         """A ``SparseBatch`` (or, on the grid path, a ``SparseGrid``)
@@ -159,7 +174,7 @@ class _SpecNet(nn.Module):
         for i, spec in enumerate(self.specs):
             op = spec[0]
             if op == "subm":
-                key = f"k{spec[3]}"
+                key = plan_key(spec[3], self.n_t)
                 if key not in batch.plans:
                     raise KeyError(f"batch.plans lacks the '{key}' neighbour plan; "
                                    f"build batches with TaskBase.prepare_block")
@@ -175,6 +190,9 @@ class _SpecNet(nn.Module):
                 to_dense = True
         if return_rows:
             return torch.where(mask[:, None], x, zero)
+        if self.n_t is not None:
+            dense = rows_to_dense_3d(x, batch, self.n_t)
+            return dense if to_dense else SparseGrid(dense, occupancy_mask_3d(batch, self.n_t))
         if to_dense:
             return rows_to_dense(x, batch)
         # a site-preserving stack gives the grid of its rows
@@ -628,12 +646,10 @@ class SparseConv2DBlock(_SpecNet):
 class DSLSpecNet(_SpecNet):
     """A ``_SpecNet`` over spec tuples translated from the config
     ``algorithm`` DSL (``models.algorithm.dsl_to_row_specs``): a pure-SubM
-    2D stack runs in row space (K1, K4). ``n_t``, the time axis of a 3D
-    stack, is not ported."""
+    stack runs in row space (K1, K4), in 2D, or with ``n_t`` in 3D over the
+    (x, y, t) sites of T = n_t samples (each conv's kernel ``[K³, Cin,
+    Cout]``, its output on the ``[B, C, NX, NY, T]`` grid)."""
 
     def __init__(self, spec_list: Sequence[Tuple], n_t: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, device=None):
-        if n_t is not None:
-            raise NotImplementedError("3D row stacks (DSLSpecNet n_t) are not ported yet "
-                                      "(ROADMAP.md queue 1 item 9.3)")
-        super().__init__(list(spec_list), generator, device)
+        super().__init__(list(spec_list), generator, device, n_t=n_t)

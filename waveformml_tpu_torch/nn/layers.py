@@ -10,9 +10,13 @@ mean what torch means by them in both. Each parametric layer holds its parameter
 flax module gives them (``dense``, ``conv``, ``bn``, ``LayerNorm_0``), so
 that ``convert.py`` carries them path for path. Each layer is called as
 ``layer(x, generator)``: dropout in train mode draws from ``generator``.
+The recurrent layers (``nn.RNN``, ``nn.GRU``, ``nn.LSTM``) take ``[B, L,
+C]`` as the JAX package's do, and run torch's recurrences in float32
+without TF32, forward and backward (``run_recurrence``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from waveformml_tpu_torch.models.blocks import lecun_normal_
-from waveformml_tpu_torch.ops.sparse_conv import _ConvParams, conv, dropout
+from waveformml_tpu_torch.ops.sparse_conv import _ConvParams, conv, dropout, ieee_fp32
 from waveformml_tpu_torch.registry import registry
 
 IntOrPair = Union[int, Sequence[int]]
@@ -276,3 +280,151 @@ class MaxPool2d(_Pool):
 class AvgPool2d(_Pool):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         return F.avg_pool2d(x, _pair(self.kernel_size), _pair(self.stride))
+
+
+# -- recurrent ---------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _cudnn_off():
+    """PyTorch's own recurrence (its per-step ops) instead of cuDNN's
+    inside the block."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+class _IEEERecurrence(torch.autograd.Function):
+    """One torch recurrent module over ``x``, its forward and its backward
+    each inside ``ieee_fp32``: autograd runs the backward later, outside
+    any block the forward ran in, so the forward keeps the graph of its own
+    call and the backward differentiates that graph inside the block.
+    ``params`` are the module's parameters, for autograd to route their
+    gradients; ``keep`` masks their gradients (None: kept whole);
+    ``native`` runs PyTorch's own recurrence instead of cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, cell, keep, native, x, *params):
+        with torch.enable_grad(), ieee_fp32(), (_cudnn_off() if native
+                                                else contextlib.nullcontext()):
+            inner = x.detach().requires_grad_(x.requires_grad)
+            out = cell(inner)[0]
+        ctx.graph = (inner, out, params, keep)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        inner, out, params, keep = ctx.graph
+        wrt = [t for t in (inner, *params) if t.requires_grad]
+        with ieee_fp32():
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        grads = [next(grads) if t.requires_grad else None for t in (inner, *params)]
+        for i, mask in enumerate(keep):
+            if mask is not None and grads[i + 1] is not None:
+                grads[i + 1] = grads[i + 1] * mask
+        return (None, None, None) + tuple(grads)
+
+
+def run_recurrence(cell: nn.RNNBase, x: torch.Tensor) -> torch.Tensor:
+    """The outputs ``[B, L, H]`` of a batch-first one-layer torch recurrent
+    module over ``x [B, L, C]`` from a zero state, in float32 without TF32,
+    forward and backward.
+
+    Under autograd a ReLU cell runs PyTorch's own recurrence, not cuDNN's:
+    cuDNN's backward differentiates ReLU at 0 otherwise than autograd,
+    flax and the JAX package (which take 0 there), and a zero pre-activation
+    is common (zero biases at initialisation, waveforms clipped at 0), so
+    its bias gradients part from the reference's by several percent. The
+    forward alone (serving) stays on cuDNN: ReLU(0) is 0 either way.
+
+    flax's cells have one bias a gate where torch's have two
+    (``convert.py``): the recurrent bias gets no gradient (it stays as
+    loaded, zero), but for a GRU's n gate, whose recurrent bias flax keeps
+    apart (``hn``), so that an optimizer moves each gate's bias as it moves
+    flax's one."""
+    params = tuple(cell.parameters())
+    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
+        hidden = cell.hidden_size
+        mask = torch.zeros(cell.bias_hh_l0.shape, dtype=x.dtype, device=x.device)
+        if isinstance(cell, nn.GRU):
+            mask[2 * hidden:] = 1.0
+        keep = [mask if p is cell.bias_hh_l0 else None for p in params]
+        native = isinstance(cell, nn.RNN) and cell.nonlinearity == "relu"
+        return _IEEERecurrence.apply(cell, keep, native, x, *params)
+    with ieee_fp32():
+        return cell(x)[0]
+
+
+#: torch's recurrent module of each cell kind, and its gates a layer
+_CELLS = {"RNN": (nn.RNN, 1), "GRU": (nn.GRU, 3), "LSTM": (nn.LSTM, 4)}
+
+
+class RecurrentStack(nn.Module):
+    """``num_layers`` recurrent layers of one cell kind ("RNN", "GRU",
+    "LSTM") on ``[B, L, C]``, each a one-layer batch-first torch module
+    ``cell_<l>`` (flax's ``cell_<l>`` beside it: ``convert.py`` maps the
+    gates), from a zero state, with ``dropout`` between layers in train
+    mode. Initialised as flax's cells are: the input kernels
+    lecun-normal, each gate's recurrent kernel orthogonal, the biases
+    zero."""
+
+    kind = "RNN"
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 nonlinearity: str = "tanh", dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        cls, gates = _CELLS[self.kind]
+        kwargs = {"nonlinearity": nonlinearity} if self.kind == "RNN" else {}
+        self.n = num_layers
+        self.dropout = float(dropout or 0.0)
+        width = input_size
+        for layer in range(num_layers):
+            cell = cls(width, hidden_size, 1, batch_first=True, device=device, **kwargs)
+            with torch.no_grad():
+                lecun_normal_(cell.weight_ih_l0, width, generator)
+                for block in cell.weight_hh_l0.split(hidden_size):
+                    nn.init.orthogonal_(block, generator=generator)
+                cell.bias_ih_l0.zero_()
+                cell.bias_hh_l0.zero_()
+            self.add_module(f"cell_{layer}", cell)
+            width = hidden_size
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        for layer in range(self.n):
+            x = run_recurrence(getattr(self, f"cell_{layer}"), x)
+            if layer < self.n - 1:
+                x = dropout(x, self.dropout, self.training, generator)
+        return x
+
+
+@registry.register("RNNLayer", aliases=("nn.RNN",))
+class RNNLayer(RecurrentStack):
+    """torch ``nn.RNN(input_size, hidden_size, num_layers, nonlinearity)``
+    with ``batch_first=True``."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 nonlinearity: str = "tanh"):
+        super().__init__(input_size, hidden_size, num_layers, nonlinearity)
+
+
+@registry.register("GRULayer", aliases=("nn.GRU",))
+class GRULayer(RecurrentStack):
+    """torch ``nn.GRU(input_size, hidden_size, num_layers)``, batch first."""
+
+    kind = "GRU"
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1):
+        super().__init__(input_size, hidden_size, num_layers)
+
+
+@registry.register("LSTMLayer", aliases=("nn.LSTM",))
+class LSTMLayer(RecurrentStack):
+    """torch ``nn.LSTM(input_size, hidden_size, num_layers)``, batch first."""
+
+    kind = "LSTM"
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1):
+        super().__init__(input_size, hidden_size, num_layers)

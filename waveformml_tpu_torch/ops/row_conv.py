@@ -3,7 +3,8 @@
 
 The neighbour plan ``[N, K²]`` int32 lists, for each row, the row of each
 site in its centred K×K window (-1 where the site is empty, out of the
-detector or the row is padding). It depends on coords only, so the host
+detector or the row is padding); a 3D batch's ``[N, K³]`` plan lists the
+K×K×K window over (x, y, t). It depends on coords only, so the host
 builds it once per batch with numpy and every conv of the stack shares it.
 The conv itself is the custom op ``waveformml::subm_conv_rows``: kernel K1
 (``csrc/row_conv.cu``) for CUDA tensors, ``subm_conv_rows_plain`` for CPU
@@ -26,13 +27,16 @@ import torch
 
 from waveformml_tpu_torch.detector import NX, NY
 from waveformml_tpu_torch.ops import native
-from waveformml_tpu_torch.ops.sparse import SparseBatch, scatter_to_dense
+from waveformml_tpu_torch.ops.sparse import SparseBatch, scatter_to_dense, scatter_to_dense_3d
 
 
 def host_neighbor_plan(coords: np.ndarray, mask: np.ndarray, n_events: int,
-                       kernel_size: int) -> np.ndarray:
+                       kernel_size: int, n_t: Optional[int] = None) -> np.ndarray:
     """Neighbour rows ``[N, K²]`` int32 of a centred K×K window, -1 where
-    absent, tap order ``(dx, dy)`` row-major with dx, dy in ``-h..h``."""
+    absent, tap order ``(dx, dy)`` row-major with dx, dy in ``-h..h``; with
+    ``n_t`` (coords ``[N, 4]`` = x, y, t, event) ``[N, K³]`` of a K×K×K
+    window over (x, y, t) of T = n_t samples, tap order ``(dx, dy, dt)``
+    row-major."""
     k = int(kernel_size)
     if k % 2 != 1:
         # the backward of this conv reuses the plan with the window reversed,
@@ -42,21 +46,27 @@ def host_neighbor_plan(coords: np.ndarray, mask: np.ndarray, n_events: int,
     y = coords[:, 1].astype(np.int32)
     ev = coords[:, -1].astype(np.int32)
     m = np.asarray(mask, dtype=bool)
-    size = int(n_events) * NX * NY
+    n_t = None if n_t is None else int(n_t)
+    span = 1 if n_t is None else n_t
+    size = int(n_events) * NX * NY * span
     if size >= 2 ** 31:
         raise ValueError("flat site index overflows int32")
-    flat = ev * (NX * NY) + x * NY + y
+    t = np.zeros_like(x) if n_t is None else coords[:, 2].astype(np.int32)
+    flat = ev * (NX * NY * span) + x * (NY * span) + y * span + t
     lut = np.full((size,), -1, np.int32)
     rows = np.arange(coords.shape[0], dtype=np.int32)
     in_range = m & (flat >= 0) & (flat < size)
     lut[flat[in_range]] = rows[in_range]
     half = (k - 1) // 2
-    offs = np.asarray([(dx, dy) for dx in range(-half, k - half)
-                       for dy in range(-half, k - half)], dtype=np.int32)
+    taps = range(-half, k - half)
+    offs = np.asarray([(dx, dy, dt) for dx in taps for dy in taps
+                       for dt in (taps if n_t is not None else (0,))], dtype=np.int32)
     nx_ = x[:, None] + offs[None, :, 0]
     ny_ = y[:, None] + offs[None, :, 1]
-    valid = (nx_ >= 0) & (nx_ < NX) & (ny_ >= 0) & (ny_ < NY) & m[:, None]
-    site = ev[:, None] * (NX * NY) + nx_ * NY + ny_
+    nt_ = t[:, None] + offs[None, :, 2]
+    valid = ((nx_ >= 0) & (nx_ < NX) & (ny_ >= 0) & (ny_ < NY) & (nt_ >= 0) & (nt_ < span)
+             & m[:, None])
+    site = ev[:, None] * (NX * NY * span) + nx_ * (NY * span) + ny_ * span + nt_
     np.clip(site, 0, size - 1, out=site)
     plan = lut[site]
     plan[~valid] = -1
@@ -69,6 +79,12 @@ def rows_to_dense(rows: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
     channels-last view of the scatter: only the final channel count pays
     for the scatter."""
     return scatter_to_dense(batch, rows).permute(0, 3, 1, 2)
+
+
+def rows_to_dense_3d(rows: torch.Tensor, batch: SparseBatch, n_t: int) -> torch.Tensor:
+    """A 3D stack's final rows on the ``[B, C, NX, NY, T]`` grid, as a
+    channels-last view of the scatter."""
+    return scatter_to_dense_3d(batch, n_t, rows).permute(0, 4, 1, 2, 3)
 
 
 def subm_conv_rows_plain(feats: torch.Tensor, plan: torch.Tensor,

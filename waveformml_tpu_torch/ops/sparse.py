@@ -5,7 +5,9 @@ features and an ``[N]`` bool mask, padded to a bucketed ``N`` so that the
 number of distinct shapes stays small. The host-side helpers are numpy.
 The dense-grid helpers (``scatter_to_dense``, ``occupancy_mask``,
 ``gather_from_dense``) move rows to and from the ``[B, NX, NY, F]``
-detector grid on the device.
+detector grid on the device; the 3D nets' batches have ``[N, 4]`` coords
+(x, y, t, event) and their ``*_3d`` helpers the ``[B, NX, NY, T, F]``
+grid.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from waveformml_tpu_torch.detector import NX, NY
 
 @dataclasses.dataclass(frozen=True)
 class SparseBatch:
-    """coords [N, 3] int32 (x, y, event; padding rows 0), feats [N, F],
+    """coords [N, 3] int32 (x, y, event; padding rows 0), or [N, 4] (x, y,
+    t, event) for the 3D nets, the event always the last column; feats [N, F],
     mask [N] bool (True for real rows), ``n_events`` the padded event count,
     and ``plans``: the host-built ``{"k3": [N, 9] int32, "k1": ...,
     "site_take": [S, MAX] int32, ...}`` the row convs and the head consume;
@@ -33,6 +36,13 @@ class SparseBatch:
     n_events: int
     plans: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     generator: Optional[torch.Generator] = None
+
+    @property
+    def t(self) -> torch.Tensor:
+        """The time-sample coordinate of a 3D batch."""
+        if self.coords.shape[1] != 4:
+            raise ValueError("t needs 4-column (x, y, t, event) coords")
+        return self.coords[:, 2]
 
 
 def bucket_size(n: int, buckets: Tuple[int, ...] = (
@@ -107,6 +117,36 @@ def occupancy_mask(batch: SparseBatch) -> torch.Tensor:
     occ = torch.zeros(size + 1, dtype=torch.bool, device=batch.mask.device)
     occ.index_fill_(0, flat_site(batch), True)
     return occ[:size].view(batch.n_events, NX, NY)
+
+
+def flat_site_3d(batch: SparseBatch, n_t: int) -> torch.Tensor:
+    """Each row's (event, x, y, t) index into a flat ``[B·NX·NY·T]`` grid,
+    int64; padding rows, and rows outside the grid, get ``B·NX·NY·T``."""
+    c = batch.coords.long()
+    size = batch.n_events * NX * NY * n_t
+    idx = c[:, -1] * (NX * NY * n_t) + c[:, 0] * (NY * n_t) + c[:, 1] * n_t + c[:, 2]
+    keep = batch.mask & (idx >= 0) & (idx < size)
+    return torch.where(keep, idx, torch.full_like(idx, size))
+
+
+def scatter_to_dense_3d(batch: SparseBatch, n_t: int,
+                        feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A 3D batch's features (or ``feats``) on the ``[B, NX, NY, T, F]``
+    grid (``spconv.SparseConvTensor`` of spatial size [14, 11, n_samples]),
+    two rows at one site summed, padding rows dropped."""
+    f = batch.feats if feats is None else feats
+    size = batch.n_events * NX * NY * n_t
+    src = torch.where(batch.mask[:, None], f, torch.zeros((), dtype=f.dtype, device=f.device))
+    flat = f.new_zeros(size + 1, f.shape[-1]).index_add(0, flat_site_3d(batch, n_t), src)
+    return flat[:size].view(batch.n_events, NX, NY, n_t, f.shape[-1])
+
+
+def occupancy_mask_3d(batch: SparseBatch, n_t: int) -> torch.Tensor:
+    """``[B, NX, NY, T]`` bool, True at every (x, y, t) site of a real row."""
+    size = batch.n_events * NX * NY * n_t
+    occ = torch.zeros(size + 1, dtype=torch.bool, device=batch.mask.device)
+    occ.index_fill_(0, flat_site_3d(batch, n_t), True)
+    return occ[:size].view(batch.n_events, NX, NY, n_t)
 
 
 def gather_from_dense(dense: torch.Tensor, batch: SparseBatch) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Sparse convolution on the dense detector grid with spconv's occupancy
-semantics (counterpart of waveformml_tpu/ops/sparse_conv.py, 2D).
+semantics (counterpart of waveformml_tpu/ops/sparse_conv.py).
 
 The detector grid is 14×11 sites, so a batch densifies to a small
-``[B, C, NX, NY]`` block and the sparse semantics become occupancy-mask
+``[B, C, NX, NY]`` block (``[B, C, NX, NY, T]`` for the 3D nets, T the
+samples of a waveform) and the sparse semantics become occupancy-mask
 algebra around ordinary convolutions:
 
 * ``SubMConv2d``: output sites are the input sites; with zeros at empty
@@ -14,14 +15,17 @@ algebra around ordinary convolutions:
   with it by ``indice_key``, restoring the occupancy saved under that key.
 * ``MaskedBatchNorm``: BatchNorm statistics over the active sites only.
 
+Each conv class is 2D; its ``*3d`` subclass (``spconv.SubMConv3d``,
+``SparseConv3d``, ``SparseInverseConv3d``) is the same conv over three
+spatial axes, as the JAX package's classes take their rank from the grid.
+
 The grid holds its features in PyTorch's ``[B, C, NX, NY]`` order (the
 order the JAX package's ``ToDense`` and every flatten produce), usually as
 a channels-last view of the row scatter. The JAX package computes these
 convs with XLA's own convolution (``lax.conv_general_dilated``), not a
 Pallas kernel, so the port computes them with PyTorch's (cuDNN on the
-card), in float32: ``conv`` switches cuDNN's TF32 off around each conv, in
-the forward and in the backward, whatever the process has set
-(``ieee_fp32_convs``).
+card), in float32: ``conv`` switches TF32 off around each conv, in the
+forward and in the backward, whatever the process has set (``ieee_fp32``).
 """
 from __future__ import annotations
 
@@ -34,47 +38,53 @@ import torch
 from torch import nn
 
 from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_normal_
-from waveformml_tpu_torch.ops.sparse import SparseBatch, occupancy_mask, scatter_to_dense
+from waveformml_tpu_torch.ops.sparse import (SparseBatch, occupancy_mask, occupancy_mask_3d,
+                                             scatter_to_dense, scatter_to_dense_3d)
 from waveformml_tpu_torch.registry import registry
 
 IntPair = Union[int, Sequence[int]]
 Geometry = Tuple[Tuple[int, ...], ...]     # (kernel, stride, padding, dilation)
 
 
-def _pair(v: IntPair) -> Tuple[int, int]:
+def _ntuple(v: IntPair, n: int) -> Tuple[int, ...]:
     if isinstance(v, (list, tuple)):
-        if len(v) != 2:
-            raise ValueError(f"expected 2 values, got {v}")
-        return int(v[0]), int(v[1])
-    return int(v), int(v)
+        if len(v) != n:
+            raise ValueError(f"expected {n} values, got {v}")
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
 
 
 @contextlib.contextmanager
-def ieee_fp32_convs():
-    """cuDNN's float32 convolutions in full float32 (no TF32) inside the
-    block, through the precision API the installed PyTorch has; the
-    process's setting is restored after it."""
-    cudnn = torch.backends.cudnn
-    conv = getattr(cudnn, "conv", None)
-    if conv is not None and hasattr(conv, "fp32_precision"):
-        saved = conv.fp32_precision
-        conv.fp32_precision = "ieee"
+def ieee_fp32():
+    """cuDNN's float32 convolutions and recurrences and cuBLAS's float32
+    matmuls in full float32 (no TF32) inside the block, through the
+    precision API the installed PyTorch has; the process's settings are
+    restored after it."""
+    backends = torch.backends
+    apis = [getattr(backends.cudnn, "conv", None), getattr(backends.cudnn, "rnn", None),
+            getattr(backends.cuda, "matmul", None)]
+    apis = [a for a in apis if a is not None and hasattr(a, "fp32_precision")]
+    if len(apis) == 3:
+        saved = [a.fp32_precision for a in apis]
+        for a in apis:
+            a.fp32_precision = "ieee"
         try:
             yield
         finally:
-            conv.fp32_precision = saved
+            for a, v in zip(apis, saved):
+                a.fp32_precision = v
     else:
-        saved = cudnn.allow_tf32
-        cudnn.allow_tf32 = False
+        saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32)
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
         try:
             yield
         finally:
-            cudnn.allow_tf32 = saved
+            backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32 = saved
 
 
 class _Conv(torch.autograd.Function):
     """``aten.convolution`` (regular or transposed) and its backward, each
-    inside ``ieee_fp32_convs``: autograd runs the backward later, outside
+    inside ``ieee_fp32``: autograd runs the backward later, outside
     any block the forward ran in, so the backward sets the precision
     itself."""
 
@@ -83,7 +93,7 @@ class _Conv(torch.autograd.Function):
         ctx.save_for_backward(x, weight)
         ctx.geometry = (stride, padding, dilation, transposed, groups)
         ctx.has_bias = bias is not None
-        with ieee_fp32_convs():
+        with ieee_fp32():
             return torch.ops.aten.convolution(x, weight, bias, stride, padding, dilation,
                                               transposed, [0] * len(stride), groups)
 
@@ -94,7 +104,7 @@ class _Conv(torch.autograd.Function):
         cout = weight.shape[1] * groups if transposed else weight.shape[0]
         need = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
                 ctx.has_bias and ctx.needs_input_grad[2]]
-        with ieee_fp32_convs():
+        with ieee_fp32():
             dx, dw, db = torch.ops.aten.convolution_backward(
                 g, x, weight, [cout] if ctx.has_bias else None, stride, padding, dilation,
                 transposed, [0] * len(stride), groups, need)
@@ -118,8 +128,9 @@ def conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 @dataclasses.dataclass(frozen=True)
 class SparseGrid:
-    """A sparse batch on the dense grid: ``features [B, C, NX, NY]`` (zeros
-    off the occupancy), ``occupancy [B, NX, NY]`` bool, and per
+    """A sparse batch on the dense grid: ``features [B, C, NX, NY]`` (``[B,
+    C, NX, NY, T]`` in 3D; zeros off the occupancy), ``occupancy [B, NX,
+    NY]`` (``[B, NX, NY, T]``) bool, and per
     ``indice_key`` the occupancy saved by the conv that recorded it
     (``indice_occ``) and that conv's geometry (``indice_geom``: kernel,
     stride, padding, dilation), which the paired inverse conv reads."""
@@ -153,14 +164,25 @@ def batch_to_grid(batch: SparseBatch, feats: Optional[torch.Tensor] = None) -> S
                       occupancy_mask(batch))
 
 
+def batch_to_grid_3d(batch: SparseBatch, n_t: int,
+                     feats: Optional[torch.Tensor] = None) -> SparseGrid:
+    """A 3D ``SparseBatch`` (coords ``[N, 4]`` = x, y, t, event) as a
+    ``SparseGrid`` of ``T = n_t`` samples, ``[B, C, NX, NY, T]``, a
+    channels-last view of the scatter."""
+    return SparseGrid(scatter_to_dense_3d(batch, n_t, feats).permute(0, 4, 1, 2, 3),
+                      occupancy_mask_3d(batch, n_t))
+
+
 def dilate_occupancy(occ: torch.Tensor, kernel_size: IntPair, stride: IntPair,
                      padding: IntPair, dilation: IntPair) -> torch.Tensor:
-    """The occupancy ``[B, H, W]`` after a regular sparse conv: an output
-    site is active where its window holds an active input site."""
-    k = _pair(kernel_size)
+    """The occupancy ``[B, *S]`` (2 or 3 spatial axes) after a regular
+    sparse conv: an output site is active where its window holds an active
+    input site."""
+    nd = occ.dim() - 1
+    k = _ntuple(kernel_size, nd)
     ones = torch.ones((1, 1) + k, dtype=torch.float32, device=occ.device)
-    y = conv(occ[:, None].to(torch.float32), ones, None, _pair(stride), _pair(padding),
-             _pair(dilation))
+    y = conv(occ[:, None].to(torch.float32), ones, None, _ntuple(stride, nd),
+             _ntuple(padding, nd), _ntuple(dilation, nd))
     return y[:, 0] > 0.5
 
 
@@ -199,12 +221,15 @@ class SubMConv2d(nn.Module):
     """Submanifold sparse conv on the grid: stride 1, padded to keep the
     size, the output masked by the input's occupancy (which it keeps)."""
 
+    ndim = 2
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
                  stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1,
                  use_bias: bool = True, indice_key: Optional[str] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        self.kernel_size, self.dilation = _pair(kernel_size), _pair(dilation)
+        self.kernel_size = _ntuple(kernel_size, self.ndim)
+        self.dilation = _ntuple(dilation, self.ndim)
         self.indice_key = indice_key
         self.conv = _ConvParams(in_channels, out_channels, self.kernel_size, use_bias,
                                 generator, device)
@@ -213,9 +238,10 @@ class SubMConv2d(nn.Module):
         k, d = self.kernel_size, self.dilation
         # spconv pads a SubM conv to keep the size, whatever padding it got
         p = tuple(((ki - 1) * di) // 2 for ki, di in zip(k, d))
-        y = conv(g.masked(), self.conv.weight, self.conv.bias, (1, 1), p, d)
+        one = (1,) * self.ndim
+        y = conv(g.masked(), self.conv.weight, self.conv.bias, one, p, d)
         y = y * g.occupancy[:, None].to(y.dtype)
-        return g.with_features(y, save_key=self.indice_key, save_geom=(k, (1, 1), p, d))
+        return g.with_features(y, save_key=self.indice_key, save_geom=(k, one, p, d))
 
 
 @registry.register("spconv.SparseConv2d", aliases=("SparseConv2d",))
@@ -224,13 +250,16 @@ class SparseConv2d(nn.Module):
     down) and masks the output; with ``indice_key`` the input's occupancy
     and this conv's geometry are saved for the paired inverse conv."""
 
+    ndim = 2
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
                  stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1,
                  use_bias: bool = True, indice_key: Optional[str] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        self.kernel_size, self.stride = _pair(kernel_size), _pair(stride)
-        self.padding, self.dilation = _pair(padding), _pair(dilation)
+        nd = self.ndim
+        self.kernel_size, self.stride = _ntuple(kernel_size, nd), _ntuple(stride, nd)
+        self.padding, self.dilation = _ntuple(padding, nd), _ntuple(dilation, nd)
         self.indice_key = indice_key
         self.conv = _ConvParams(in_channels, out_channels, self.kernel_size, use_bias,
                                 generator, device)
@@ -255,8 +284,8 @@ class SparseInverseConv2d(nn.Module):
     conv's stride s, padding p and dilation d (a stride-1 "same" pairing
     where the key has no recorded geometry).
 
-    Weight ``[Cin, Cout, kh, kw]`` (``conv_transpose2d``'s layout: the JAX
-    package's ``kernel [kh, kw, Cin, Cout]``, which its forward flips,
+    Weight ``[Cin, Cout, *k]`` (``conv_transpose2d``'s layout: the JAX
+    package's ``kernel [*k, Cin, Cout]``, which its forward flips,
     unflipped and transposed, ``convert.py``), bias ``[Cout]``. The conv
     runs without padding, over the whole span ``(o − 1)·s + d·(k − 1) + 1``
     of each axis, and positions ``p .. p + target`` of it are kept, zeros
@@ -264,16 +293,18 @@ class SparseInverseConv2d(nn.Module):
     a strided pairing, which ``conv_transpose2d``'s ``output_padding`` can
     express only below ``max(s, d)``."""
 
+    ndim = 2
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair = 3,
                  indice_key: str = "", use_bias: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        self.kernel_size = _pair(kernel_size)
+        self.kernel_size = _ntuple(kernel_size, self.ndim)
         self.indice_key = indice_key
         k = self.kernel_size
         self.weight = nn.Parameter(torch.empty((in_channels, out_channels) + k, device=device))
         self.bias = nn.Parameter(torch.zeros(out_channels, device=device)) if use_bias else None
-        lecun_normal_(self.weight, in_channels * k[0] * k[1], generator)
+        lecun_normal_(self.weight, in_channels * math.prod(k), generator)
 
     def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
         if self.indice_key not in g.indice_occ:
@@ -283,13 +314,13 @@ class SparseInverseConv2d(nn.Module):
         k = self.kernel_size
         geom = g.indice_geom.get(self.indice_key)
         if geom is None:
-            s, p, d = (1, 1), tuple((ki - 1) // 2 for ki in k), (1, 1)
+            s, p, d = (1,) * self.ndim, tuple((ki - 1) // 2 for ki in k), (1,) * self.ndim
         else:
             k_f, s, p, d = geom
             if tuple(k_f) != k:
                 raise ValueError(f"kernel_size {k} != paired conv kernel {tuple(k_f)} for "
                                  f"indice_key '{self.indice_key}' (spconv requires them equal)")
-        y = conv(g.masked(), self.weight, None, s, (0, 0), d, transposed=True)
+        y = conv(g.masked(), self.weight, None, s, (0,) * self.ndim, d, transposed=True)
         for axis, (pi, target) in enumerate(zip(p, prev_occ.shape[1:])):
             dim = 2 + axis
             y = y.narrow(dim, pi, max(0, min(target, y.shape[dim] - pi)))
@@ -297,7 +328,7 @@ class SparseInverseConv2d(nn.Module):
                 pad = [0, 0] * (y.dim() - dim - 1) + [0, target - y.shape[dim]]
                 y = nn.functional.pad(y, pad)
         if self.bias is not None:
-            y = y + self.bias.to(y.dtype)[:, None, None]
+            y = y + self.bias.to(y.dtype).view((-1,) + (1,) * self.ndim)
         y = y * prev_occ[:, None].to(y.dtype)
         return SparseGrid(y, prev_occ, dict(g.indice_occ), dict(g.indice_geom))
 
@@ -311,9 +342,9 @@ class MaskedBatchNorm(MaskedArrayBatchNorm):
     def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
         x = g.features
         c = x.shape[1]
-        rows = x.permute(0, 2, 3, 1).reshape(-1, c)
+        rows = x.movedim(1, -1).reshape(-1, c)
         y = super().forward(rows, g.occupancy.reshape(-1))
-        y = y.view(x.shape[0], *x.shape[2:], c).permute(0, 3, 1, 2)
+        y = y.view(x.shape[0], *x.shape[2:], c).movedim(-1, 1)
         return g.with_features(y * g.occupancy[:, None].to(y.dtype))
 
 
@@ -348,7 +379,8 @@ class SparseActivation(nn.Module):
 
 @registry.register("spconv.ToDense", aliases=("ToDense", "sparseconvnet.SparseToDense"))
 class ToDense(nn.Module):
-    """``spconv.ToDense``: the masked features, ``[B, C, NX, NY]``."""
+    """``spconv.ToDense``: the masked features, ``[B, C, NX, NY]`` (``[B,
+    C, NX, NY, T]`` in 3D)."""
 
     def forward(self, g: SparseGrid, generator=None) -> torch.Tensor:
         return g.masked()
@@ -371,3 +403,23 @@ class SparseSequential(nn.Module):
             g = getattr(self, f"layers_{i}")(g, generator)
         return g
 
+
+@registry.register("spconv.SubMConv3d", aliases=("SubMConv3d",))
+class SubMConv3d(SubMConv2d):
+    """``SubMConv2d`` over the (x, y, t) grid: weight ``[Cout, Cin, kx, ky, kt]``."""
+
+    ndim = 3
+
+
+@registry.register("spconv.SparseConv3d", aliases=("SparseConv3d",))
+class SparseConv3d(SparseConv2d):
+    """``SparseConv2d`` over the (x, y, t) grid."""
+
+    ndim = 3
+
+
+@registry.register("spconv.SparseInverseConv3d", aliases=("SparseInverseConv3d",))
+class SparseInverseConv3d(SparseInverseConv2d):
+    """``SparseInverseConv2d`` over the (x, y, t) grid."""
+
+    ndim = 3

@@ -86,6 +86,7 @@ def retrieve_class(name: str) -> Any:
     tasks, criteria, optimizers, schedulers, datasets and data modules, the
     algorithm DSL's layers)."""
     for mod in ("waveformml_tpu_torch.models.nets",
+                "waveformml_tpu_torch.models.waveform_models",
                 "waveformml_tpu_torch.models.algorithm",
                 "waveformml_tpu_torch.nn.layers",
                 "waveformml_tpu_torch.ops.sparse_conv",
