@@ -67,6 +67,24 @@ order, it:
    writer where h5py is installed, else ``run`` over in-memory blocks,
    saying which on its own line; asserts ``version_0``, its checkpoint,
    the ``fit:``/``test:`` keys and the kernels' launches;
+8b. fits SubMPSD.json 2 epochs × 4 steps with ``profiler=True`` and no
+   TensorBoard logger: ``profile_results.txt`` (8 ``run_training_step``,
+   8 ``get_train_batch``, 2 ``evaluation_step``, as the JAX Trainer writes
+   for this loop) and a ``torch.profiler`` trace under ``profile/`` that
+   names K1's, K2's, K4's and K5's grids, the losses equal to a
+   profiler-off fit's (rtol 1e-5), the median step wall with the profiler
+   on and off (fits off, on, on, off); then a hyperparameter study (``ModelOptimization``, TPE
+   over lr and momentum, the median pruner, 4 trials of up to 3 epochs ×
+   4 steps over in-memory blocks, saying so): every trial COMPLETE or
+   PRUNED, each trial's launches of K1, K2, K4 and K5 asserted, the device
+   memory back within 64 MiB after each trial, the samplers replayed on
+   the recorded values giving the recorded params, the best trial's
+   checkpoint served as the plain versions on the card, and
+   ``eval_best_trials`` over the top 2 trials through ``evaluate.run``;
+   prints each trial's params, state, epochs, best val_loss, wall and peak
+   memory, and the study's wall (CombineData and ValidateCombined are
+   host tools over HDF5 files, which need h5py: they are held on the CPU
+   only, in tests/test_torch_combine.py);
 9. runs the per-segment regressors as shipped, from seeded random weights
    (BatchNorm statistics of one train-mode forward): SingleEndedZCNN.json
    (150-sample pairs; conv 300→150 3×3 and 150→1 on the dense grid, cuDNN
@@ -288,6 +306,19 @@ HALF_LOSS_RTOL = 1e-3
 # files of this many events a class, and the splits' events a class
 CLI_FILES, CLI_EVENTS_PER_FILE = 4, 512
 CLI_SPLITS = {"n_train": 1024, "n_validate": 512, "n_test": 512, "shuffled_size": 1024}
+# HPO phase: the study config (TPE over lr and momentum, the median pruner
+# from the first trial on), up to this many epochs a trial, and how far the
+# device memory allocated after a trial may sit from its value before the
+# study
+HPO_STUDY = {"hyperparameters": {"/optimize_config/lr": [0.001, 0.3],
+                                 "/optimize_config/optimizer_params/momentum": [0.8, 0.99]},
+             "sampler": "TPESampler", "sampler_params": {"seed": 0, "n_startup_trials": 2},
+             "pruner": "MedianPruner",
+             "pruner_params": {"n_startup_trials": 1, "n_warmup_steps": 0,
+                               "interval_steps": 1},
+             "optimize_args": {"n_trials": 4}}
+HPO_EPOCHS = 3
+HPO_MEMORY_SLACK = 64 << 20
 # writer phase: read chunks each writer streams (2048 rows a read, 1024 for
 # ZAndClass, as shipped), the last one a short chunk of about this many rows
 # (a new layout); events of records made (about 2.5 rows an event); the
@@ -2336,6 +2367,266 @@ def run_cli(config_path, train, val, fit_keys, test_keys, kernels, hdf5_dirs=Tru
               f"fit {printed['fit']}; test {printed['test']}", flush=True)
 
 
+# -- the profiler and the hyperparameter study ------------------------------------------
+
+def global_kernel_names() -> dict:
+    """Each kernel's ``__global__`` function names, read from its CUDA
+    source: the names ``kernel_name`` gives its grids, without template
+    arguments."""
+    import re
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)")
+    names = {}
+    for kernel, source in (("subm_conv_rows", "row_conv.cu"),
+                           ("site_grouped_matmul", "site_head.cu"),
+                           ("subm_conv_rows_wgrad", "row_conv_wgrad.cu"),
+                           ("site_grouped_matmul_bwd", "site_head_bwd.cu")):
+        with open(os.path.join(ROOT, "waveformml_tpu_torch", "csrc", source)) as f:
+            names[kernel] = set(pattern.findall(f.read()))
+        assert names[kernel], (kernel, source)
+    return names
+
+
+def median_step_wall_ms(*trainers) -> float:
+    """The median wall of the fits' steps but each fit's first, in ms."""
+    return statistics.median(p["wall_s"] for t in trainers for p in t.step_phases[1:]) * 1e3
+
+
+def run_profiler(cfg, state, train, val) -> None:
+    """``Trainer.fit`` with ``profiler=True`` and no TensorBoard logger (as
+    where tensorboardX is not installed), 2 epochs × 4 steps: the table
+    (``profile_results.txt``) and the trace (``profile/*.pt.trace.json``)
+    in the checkpoint directory; the table's calls of each section, the
+    trace's grids of K1, K2, K4 and K5 by name, the losses against a
+    profiler-off fit from the same state, and the median step wall with the
+    profiler on and off (fits off, on, on, off; steps 1-7 of each)."""
+    import glob
+
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+
+    data = BlockDataModule(train, val)
+    with tempfile.TemporaryDirectory() as run_dir:
+        plain_fit = make_trainer(cfg, state, plain=False)
+        counted_fit(plain_fit, data, "profiler off")
+        profiled = make_trainer(cfg, state, plain=False, checkpoint_dir=run_dir, profiler=True)
+        t0 = time.perf_counter()
+        counted_fit(profiled, data, "profiler on")
+        wall = time.perf_counter() - t0
+        # the same again in the other order, so that neither side takes the
+        # process's warm-up alone
+        with tempfile.TemporaryDirectory() as again_dir:
+            profiled_again = make_trainer(cfg, state, plain=False, checkpoint_dir=again_dir,
+                                          profiler=True)
+            profiled_again.fit(data)
+        plain_again = make_trainer(cfg, state, plain=False)
+        plain_again.fit(data)
+        with open(os.path.join(run_dir, "profile_results.txt")) as f:
+            table = f.read()
+        calls = {}
+        for line in table.splitlines()[6:]:
+            cells = [c.strip() for c in line.split("|")]
+            calls[cells[0]] = int(cells[2])
+        steps = TRAIN_EPOCHS * TRAIN_CHUNKS
+        want = {"run_training_step": steps, "get_train_batch": steps,
+                "evaluation_step": TRAIN_EPOCHS * VAL_CHUNKS}
+        assert calls == want, (calls, want)
+        traces = glob.glob(os.path.join(run_dir, "profile", "*.pt.trace.json"))
+        assert len(traces) == 1, os.listdir(run_dir)
+        trace_bytes = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    grids = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = kernel_name(e.get("name", ""))
+            grids[name] = grids.get(name, 0) + 1
+    found = {}
+    for kernel, names in global_kernel_names().items():
+        found[kernel] = {g: n for g, n in grids.items() if g.split("<")[0] in names}
+        assert found[kernel], (kernel, sorted(grids)[:40])
+    for other in (profiled, profiled_again, plain_again):
+        np.testing.assert_allclose(other.step_losses, plain_fit.step_losses, rtol=1e-5)
+    on = median_step_wall_ms(profiled, profiled_again)
+    off = median_step_wall_ms(plain_fit, plain_again)
+    print(f"profiler: profile_results.txt {calls} (as the JAX Trainer writes for this loop); "
+          f"trace {os.path.basename(traces[0])} {trace_bytes} bytes, {len(events)} events, "
+          f"{sum(grids.values())} kernel records; the kernels' grids in it: "
+          f"{ {k: sorted(v.items()) for k, v in found.items()} }; losses equal the "
+          f"profiler-off fit's (rtol 1e-5); fit with the profiler {wall:.3f} s (wall, host "
+          f"clock, trace export included)", flush=True)
+    print(f"profiler cost: median step wall {on:.3f} ms with the profiler (each step "
+          f"synchronised), {off:.3f} ms without (steps 1-7 of fits off, on, on, off): "
+          f"{on - off:+.3f} ms a step ({(on - off) / off:+.1%})", flush=True)
+    print("profiler table:\n" + table, end="", flush=True)
+
+
+def replayed_params(mo, recorded, sampler, pruner) -> list:
+    """The params that ``sampler`` and ``pruner`` suggest in a fresh
+    in-memory study whose objective replays each recorded trial's
+    intermediate values, state and value (the study's own
+    ``modify_config``)."""
+    from waveformml_tpu_torch.optimization.hpo import TrialPruned, create_study
+
+    replay = create_study(sampler=sampler, pruner=pruner)
+    history = iter(recorded)
+
+    def objective(trial):
+        rec = next(history)
+        mo.modify_config(trial)
+        trial.intermediate_values.update(rec.intermediate_values)
+        if rec.state == "PRUNED":
+            raise TrialPruned()
+        return rec.value
+
+    replay.optimize(objective, n_trials=len(recorded))
+    return [t.params for t in replay.get_trials()]
+
+
+def run_hpo(model, train, val) -> None:
+    """``ModelOptimization`` over SubMPSD.json as shipped (HPO_STUDY: TPE
+    over lr and momentum, the median pruner), 4 trials of up to HPO_EPOCHS
+    epochs of 4 steps over in-memory blocks (h5py not needed),
+    with pruning. Each trial's kernel counts set to 0 before it and read
+    after (its launches asserted against its epochs' steps and
+    validations), its wall, its peak device memory and the device memory
+    left after it (back within HPO_MEMORY_SLACK of the study's start). The
+    study.db's 4 trials COMPLETE or PRUNED, trial_results.json written; the
+    same samplers replayed on the recorded values suggest the recorded
+    params; the best trial's checkpoint served against the plain versions
+    on the card; ``eval_best_trials`` over the top 2 trials, run in process
+    through ``evaluate.run`` over the validation chunk."""
+    from waveformml_tpu_torch import evaluate
+    from waveformml_tpu_torch.config import Config, load_config
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+    from waveformml_tpu_torch.inference.model import InferenceModel
+    from waveformml_tpu_torch.io.hdf5 import available
+    from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+    from waveformml_tpu_torch.optimization.hpo import (PRUNERS, SAMPLERS, ModelOptimization,
+                                                       OptunaDB, create_study)
+    from waveformml_tpu_torch.scripts import eval_best_trials
+    from waveformml_tpu_torch.utils.util import get_model_folder, retrieve_best_checkpoint
+
+    print(f"HPO phase: the trials train on in-memory blocks (BlockDataModule) "
+          f"{'although' if available() else 'because'} h5py is "
+          f"{'installed' if available() else 'not installed'} here; the study writes its "
+          f"sqlite study.db, trial configs and checkpoints to disk", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(CONFIG) as f:
+            raw = json.load(f)
+        raw["system_config"]["model_base_path"] = os.path.join(tmp, "model")
+        cfg_path = os.path.join(tmp, "SubMPSD.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        cfg = load_config(cfg_path)
+        study_config = Config(copy.deepcopy(HPO_STUDY))
+        mo = ModelOptimization(study_config, cfg, get_model_folder(cfg),
+                               trainer_args={"max_epochs": HPO_EPOCHS},
+                               data_module=BlockDataModule(train, val))
+        records = {}
+        objective = mo.objective
+
+        def measured(trial):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                return objective(trial)
+            finally:
+                torch.cuda.synchronize()
+                records[trial.number] = {
+                    "wall_s": time.perf_counter() - t0, "launches": read_counts(),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "after": torch.cuda.memory_allocated()}
+
+        mo.objective = measured
+        torch.manual_seed(SEED + 90)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        study = mo.run_study(pruning=True)
+        study_wall = time.perf_counter() - t0
+        db_path = os.path.join(mo.study_dir, "study.db")
+        recorded = create_study(study_name=mo.study_name,
+                                storage="sqlite:///" + db_path).get_trials()
+        assert len(recorded) == HPO_STUDY["optimize_args"]["n_trials"], len(recorded)
+        assert all(t.state in ("COMPLETE", "PRUNED") for t in recorded), \
+            [t.state for t in recorded]
+        assert any(t.state == "COMPLETE" for t in recorded)
+        with open(os.path.join(mo.study_dir, "trial_results.json")) as f:
+            results = json.load(f)
+        assert results["n_finished_trials"] == len(recorded), results
+        for t in recorded:
+            r = records[t.number]
+            epochs = len(t.intermediate_values)
+            want = training_launches(model, epochs * len(train), epochs * len(val))
+            assert r["launches"] == want, (t.number, r["launches"], want)
+            assert all(r["launches"][k] > 0 for k in ("subm_conv_rows", "site_grouped_matmul",
+                                                      "subm_conv_rows_wgrad",
+                                                      "site_grouped_matmul_bwd"))
+            assert abs(r["after"] - before) <= HPO_MEMORY_SLACK, (t.number, r["after"], before)
+            print(f"HPO trial {t.number}: params {t.params}; {t.state}; {epochs} epochs; best "
+                  f"val_loss {min(t.intermediate_values.values()):.6f}; wall "
+                  f"{r['wall_s']:.3f} s; peak device memory {r['peak'] / 2**20:.1f} MiB; "
+                  f"allocated after it {r['after'] / 2**20:.1f} MiB (before the study "
+                  f"{before / 2**20:.1f} MiB); launches {r['launches']}", flush=True)
+
+        sampler = SAMPLERS[HPO_STUDY["sampler"]](**HPO_STUDY["sampler_params"])
+        pruner = PRUNERS[HPO_STUDY["pruner"]](**HPO_STUDY["pruner_params"])
+        replayed = replayed_params(mo, recorded, sampler, pruner)
+        assert replayed == [t.params for t in recorded], (replayed, recorded)
+
+        # the best trial's checkpoint served, against the plain versions
+        reader = OptunaDB(db_path)
+        best = reader.get_best_trial()
+        top = reader.get_top_trials(2)
+        reader.close()
+        trial_dir = os.path.join(mo.study_dir, f"trial_{best}")
+        ckpt = retrieve_best_checkpoint(trial_dir)
+        trial_cfg = load_config(os.path.join(trial_dir, "config.json"))
+        served = InferenceModel(trial_cfg, ckpt)
+        reference = InferenceModel(trial_cfg, ckpt)
+        for module in reference.task.model.modules():
+            if isinstance(module, (RowSubMConv2d, FoldedSiteLinear)):
+                module.plain = True
+        got = served(val[0].coords, val[0].feats)
+        want_logits = reference(val[0].coords, val[0].feats)
+        assert got.shape == (val[0].labels.shape[0], cfg.system_config.n_type)
+        np.testing.assert_allclose(got, want_logits, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+
+        # eval_best_trials over the top 2, each evaluate command run in process
+        evaluated = []
+
+        def in_process(argl):
+            args = evaluate.build_parser().parse_args(argl[3:])
+            config = load_config(args.config)
+            evaluate.apply_overrides(config, args)
+            out = io.StringIO()
+            zero_counts()
+            with contextlib.redirect_stdout(out):
+                res = evaluate.run(config, args, BlockDataModule([], [], val))
+            evaluated.append((argl[3], res["test"], read_counts()))
+            return 0
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            eval_best_trials.main([cfg_path, "-n", "2"], call=in_process)
+        assert [os.path.basename(os.path.dirname(p)) for p, _, _ in evaluated] == \
+            [f"trial_{n}" for n, _ in top], (evaluated, top)
+        for _, metrics, launches in evaluated:
+            assert metrics and all(np.isfinite(v) for v in metrics.values()), metrics
+            assert launches["subm_conv_rows"] > 0 and launches["site_grouped_matmul"] > 0
+    print(f"HPO study: {len(recorded)} trials ({[t.state for t in recorded]}) in "
+          f"{study_wall:.3f} s (wall, host clock); best trial {best} "
+          f"(value {results.get('best_trial')}); its checkpoint serves the validation chunk "
+          f"as the plain versions on the card (rtol={LOGIT_RTOL}, atol={LOGIT_ATOL}, largest "
+          f"|difference| {float(np.abs(got - want_logits).max()):.3g}); the samplers replayed "
+          f"on the recorded values suggest the recorded params; eval_best_trials evaluated "
+          f"{[(os.path.basename(os.path.dirname(p)), m) for p, m, _ in evaluated]} through "
+          f"evaluate.run", flush=True)
+
+
 # -- the prediction writers ------------------------------------------------------------
 
 def writer_configs(tmp: str) -> dict:
@@ -3665,6 +3956,14 @@ def main() -> int:
              "site_grouped_matmul_bwd"))
 
     lap("the CLI (phase 8)")
+
+    # -- 8b. the profiler and the hyperparameter study ----------------------------
+    run_profiler(cfg, state, train, val)
+    run_hpo(model, train, val)
+    print("combine_data and scripts/validate_combined.py: host tools over HDF5 files (they "
+          "need h5py); this script does not run them, "
+          "tests/test_torch_combine.py holds them to the JAX package's on the CPU", flush=True)
+    lap("the profiler and the hyperparameter study (phase 8b)")
 
     # -- 9. the per-segment regressors -----------------------------------------
     z_train, z_val = run_z()

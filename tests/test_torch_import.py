@@ -59,7 +59,9 @@ def test_import_loads_no_jax():
                  "scripts.peak_finder", "nn.layers", "models.algorithm", "models.nets",
                  "models.blocks", "models.sparse_blocks", "utils.model_validation",
                  "convert", "models.waveform_models", "models.recurrent_blocks",
-                 "engineering.tasks", "evaluation.tensor_eval", "evaluation.waveform_eval"):
+                 "engineering.tasks", "evaluation.tensor_eval", "evaluation.waveform_eval",
+                 "optimization", "optimization.hpo", "utils.profiler", "combine_data",
+                 "scripts.validate_combined", "scripts.eval_best_trials"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -81,7 +83,9 @@ def test_sources_do_not_refer_to_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, filenames in os.walk(PORT):
         files += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
-    for name in ("engineering/trainer.py", "optim.py", "nn/functional.py"):
+    for name in ("engineering/trainer.py", "optim.py", "nn/functional.py",
+                 "optimization/__init__.py", "optimization/hpo.py", "utils/profiler.py",
+                 "combine_data.py", "scripts/validate_combined.py", "scripts/eval_best_trials.py"):
         assert os.path.join(PORT, name) in files, name
     for name in H5PY_LOADERS:
         assert os.path.join(ROOT, name) in files, name

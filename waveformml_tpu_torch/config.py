@@ -1,9 +1,10 @@
 """JSON/YAML configs as nested attribute objects, and their validation.
 
 The port's own copy of waveformml_tpu/config.py's ``Config``,
-``load_config``, ``to_dict`` and ``validate_config``, with its own copy of
-the requirements template (``config_requirements.json``), so that the two
-packages read the same config files and fill the same defaults. Class names
+``load_config``, ``save_config``, ``to_dict`` and ``validate_config``,
+with its own copy of the requirements template
+(``config_requirements.json``), so that the two packages read the same
+config files and fill the same defaults. Class names
 in a config (the optimizer's, the scheduler's) resolve through the port's
 registry.
 """
@@ -96,6 +97,14 @@ def load_config(path: str, validate: bool = True) -> Config:
     if validate:
         validate_config(cfg)
     return cfg
+
+
+def save_config(config: Any, path: str) -> None:
+    """Write a Config (or dict) as indented JSON to ``path``, creating its
+    directory."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(_unwrap(config), f, indent=2)
 
 
 _REQUIREMENTS_FILE = os.path.join(os.path.dirname(__file__), "config_requirements.json")

@@ -95,8 +95,12 @@ class TaskBase:
     #: config must name one)
     default_net: Optional[str] = None
 
-    def __init__(self, config, device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, config, device: Optional[Union[str, torch.device]] = None,
+                 trial=None):
         self.config = config
+        #: the HPO trial this task trains for (``optimization.hpo.Trial``),
+        #: which ``Trainer.trial_prune_check`` reports to; None outside a study
+        self.trial = trial
         self.device = resolve_device(device)
         self.half_precision = bool(getattr(config.system_config, "half_precision", 0))
         self.occlude_index = getattr(config.dataset_config, "occlude_index", None)

@@ -34,8 +34,8 @@ def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 class LitPSD(TaskBase):
     """Event classification (pulse-shape discrimination)."""
 
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, trial=None):
+        super().__init__(config, device, trial)
         sc = config.system_config
         self.n_type = getattr(sc, "n_type", None) or len(sc.type_names)
 
@@ -95,7 +95,7 @@ class LitWaveform(TaskBase):
     labels_per_row = True
     output_unit = "row"
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, trial=None):
         nc = config.net_config
         self.use_detector_number = bool(getattr(nc, "use_detector_number", False))
         if self.use_detector_number:
@@ -110,7 +110,7 @@ class LitWaveform(TaskBase):
                 config.system_config["_det_coords_applied"] = True
             if nc.num_detectors != 308:
                 raise IOError(f"num detectors {nc.num_detectors} not supported")
-        super().__init__(config, device)
+        super().__init__(config, device, trial)
         dc = config.dataset_config
         self.target_index = (getattr(dc.dataset_params, "label_index", None)
                              if hasattr(dc, "dataset_params") else None)
@@ -222,8 +222,8 @@ class LitZ(TaskBase):
     default_net = "SingleEndedZConv"
     z_index = 4
 
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, trial=None):
+        super().__init__(config, device, trial)
         self.use_fft = bool(getattr(config.net_config, "UseFFT", False))
 
     def event_bucket(self, block: FileBlock) -> int:
@@ -298,8 +298,8 @@ class LitEZ(TaskBase):
     prepare_block = LitZ.prepare_block
     event_bucket = LitZ.event_bucket
 
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, trial=None):
+        super().__init__(config, device, trial)
         nc = config.net_config
         self.zscale = getattr(nc, "zscale", 1200.0)
         self.escale = getattr(nc, "escale", 12.0)
@@ -348,8 +348,8 @@ class _RowTask(TaskBase):
     prepare_block = LitZ.prepare_block
     event_bucket = LitZ.event_bucket
 
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, trial=None):
+        super().__init__(config, device, trial)
         self.seg_status = torch.as_tensor(seg_status_maps()[0], device=self.device)
 
     def _row_mask(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -370,8 +370,8 @@ class LitSegClassifier(_RowTask):
     accuracy sums and the confusion matrix (rows target, columns
     prediction)."""
 
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, trial=None):
+        super().__init__(config, device, trial)
         self.n_type = config.system_config.n_type
 
     def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:
@@ -409,8 +409,8 @@ class LitSegQuantifier(_RowTask):
     (column 0 by default): the criterion's sum over the rows, weighted by
     their count, and the squared error's sum."""
 
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, trial=None):
+        super().__init__(config, device, trial)
         self.target_index = getattr(config.net_config, "target_index", None)
 
     def loss_and_metrics(self, outputs: torch.Tensor, db: Dict[str, torch.Tensor]) -> Metrics:

@@ -17,7 +17,15 @@ forward, backward and optimizer step (CUDA events, read once per epoch so
 that no step waits for the device) are kept in ``step_phases``, and each
 test batch's in ``test_phases``. ``test`` builds the task's evaluator and
 feeds it every test batch; the default callback (``LoggingCallback``)
-renders it at the end of the pass. A
+renders it at the end of the pass. ``profiler=True`` times the JAX
+``Trainer``'s named sections (``utils.profiler.SimpleProfiler``, the
+device synchronised after each step) and traces the whole fit with
+``torch.profiler`` (CPU and, on the card, CUDA activities): the trace as
+``<log_dir>/profile/<host>_<pid>.pt.trace.json`` and the table as
+``<log_dir>/profile_results.txt``, ``log_dir`` being the logger's or,
+without a logger, ``checkpoint_dir``. Where the task holds an HPO
+``trial``, each validation reports ``val_loss`` to it and a pruned trial
+ends ``fit`` with ``TrialPruned``. A
 ``logger`` (``utils.tb.TBLogger``) gets what the JAX ``Trainer`` logs:
 each epoch's lr and its own metrics, and the test metrics at step 0.
 ``add_argparse_args`` and ``kwargs_from_args`` make the arguments CLI
@@ -30,6 +38,7 @@ import inspect
 import logging
 import math
 import os
+import socket
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
@@ -42,6 +51,7 @@ from waveformml_tpu_torch.device import resolve_device
 from waveformml_tpu_torch.engineering.callbacks import EarlyStopping, LoggingCallback
 from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_scheduler,
                                         clip_by_global_norm_, set_learning_rate)
+from waveformml_tpu_torch.utils.profiler import SimpleProfiler
 
 log = logging.getLogger(__name__)
 
@@ -83,7 +93,9 @@ class Trainer:
     * ``seed``: seeds ``generator``, the training step's random stream,
       which the task hands to the model's dropout in train mode;
     * ``logger``: an object with ``log_scalar(tag, value, step)``,
-      ``log_scalars(values, step)`` and ``flush()``, or None.
+      ``log_scalars(values, step)`` and ``flush()``, or None;
+    * ``profiler``: the section table and the ``torch.profiler`` trace of
+      each ``fit``.
     """
 
     #: constructor arguments that a driver wires as objects, not CLI flags
@@ -100,7 +112,7 @@ class Trainer:
                  early_stopping_patience: int = 5,
                  gradient_clip_val: Optional[float] = None,
                  accumulate_grad_batches: int = 1,
-                 seed: int = 0, logger=None):
+                 seed: int = 0, logger=None, profiler: bool = False):
         self.config = config
         self.task = task
         self.device = resolve_device(device)
@@ -152,6 +164,7 @@ class Trainer:
         self.last_test_arrays: Dict[str, np.ndarray] = {}
         self._epoch_wall: List[float] = []
         self._epoch_rows: List[float] = []
+        self.simple_profiler = SimpleProfiler() if profiler else None
 
     # -- argparse bridge --------------------------------------------------------------
     @classmethod
@@ -245,6 +258,44 @@ class Trainer:
         # that both train on the same batches in the same order
         for _ in _take(train_loader, 1):
             pass
+        # the profile goes where the run logs, with or without a TensorBoard
+        # logger (tensorboardX may not be installed)
+        log_dir = getattr(self.logger, "log_dir", None) or self.checkpoint_dir
+        trace = None
+        if self.simple_profiler and log_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            trace = profile(activities=activities)
+            trace.start()
+        try:
+            metrics = self._fit_epochs(train_loader, val_loader)
+        finally:
+            if trace is not None:
+                trace.stop()
+                trace_dir = os.path.join(log_dir, "profile")
+                os.makedirs(trace_dir, exist_ok=True)
+                path = os.path.join(trace_dir,
+                                    f"{socket.gethostname()}_{os.getpid()}.pt.trace.json")
+                trace.export_chrome_trace(path)
+                log.info("wrote the profiler trace to %s", path)
+            if self.simple_profiler and log_dir:
+                os.makedirs(log_dir, exist_ok=True)
+                path = os.path.join(log_dir, "profile_results.txt")
+                self.simple_profiler.describe(path)
+                log.info("wrote profiler summary to %s", path)
+        for cb in self.callbacks:
+            if hasattr(cb, "on_train_end"):
+                cb.on_train_end(self)
+        if self.logger:
+            self.logger.flush()
+        return metrics
+
+    def _fit_epochs(self, train_loader, val_loader) -> Dict[str, float]:
+        """``fit``'s epochs: train, validate, checkpoint, the callbacks, the
+        pruning hook, early stopping and the scheduler's step."""
         metrics: Dict[str, float] = {}
         while self.current_epoch < self.max_epochs:
             t0 = time.perf_counter()
@@ -259,6 +310,8 @@ class Trainer:
                 for cb in self.callbacks:
                     if hasattr(cb, "on_validation_end"):
                         cb.on_validation_end(self, val_metrics, self.current_epoch)
+                if self.trial_prune_check(val_metrics):
+                    break
                 if self.early_stopping.update(val_metrics):
                     log.info("early stopping at epoch %d", self.current_epoch)
                     break
@@ -277,12 +330,20 @@ class Trainer:
             if self.terminate_on_nan and not math.isfinite(metrics.get("train_loss", 0.0)):
                 log.error("non-finite loss: terminating")
                 break
-        for cb in self.callbacks:
-            if hasattr(cb, "on_train_end"):
-                cb.on_train_end(self)
-        if self.logger:
-            self.logger.flush()
         return metrics
+
+    def trial_prune_check(self, val_metrics: Dict[str, float]) -> bool:
+        """The HPO pruning hook: report this epoch's ``val_loss`` to the
+        task's trial and raise ``TrialPruned`` where its pruner says so."""
+        trial = getattr(self.task, "trial", None)
+        if trial is None:
+            return False
+        trial.report(val_metrics.get("val_loss", math.inf), self.current_epoch)
+        if trial.should_prune():
+            from waveformml_tpu_torch.optimization.hpo import TrialPruned
+
+            raise TrialPruned()
+        return False
 
     def _train_epoch(self, loader) -> Dict[str, float]:
         cuda = self.device.type == "cuda"
@@ -291,16 +352,24 @@ class Trainer:
         phases: List[Dict[str, Any]] = []
         t_epoch = time.perf_counter()
         rows = 0
-        for block in _take(loader, self._limit(loader, self.limit_train_batches)):
+        prof = self.simple_profiler
+        for block in _take(loader, self._limit(loader, self.limit_train_batches), prof):
             start = time.perf_counter()
             db, _, host_prep_s, h2d_s = self.device_batch(block)
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True)) if cuda else None
+            if prof:
+                prof.start("run_training_step")
             if events:
                 events[0].record()
             loss, metrics = self.training_step(db)
             if events:
                 events[1].record()
+            if prof:
+                # the section times the step's device work
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                prof.stop("run_training_step")
             losses.append(loss)
             _accumulate(agg, metrics)
             rows += int(block.coords.shape[0])
@@ -338,6 +407,8 @@ class Trainer:
             db, db_host, host_prep_s, h2d_s = self.device_batch(block)
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True)) if cuda else None
+            if self.simple_profiler:
+                self.simple_profiler.start("evaluation_step")
             if events:
                 events[0].record()
             outputs = self.task.model_outputs(db, train=False)
@@ -346,6 +417,8 @@ class Trainer:
             ls, w, metrics = self.task.loss_and_metrics(outputs, db)
             loss_sum += float(ls)
             weight += float(w)
+            if self.simple_profiler:
+                self.simple_profiler.stop("evaluation_step")
             _accumulate(agg, metrics)
             copy_back_s = collect_s = 0.0
             if collect is not None:
@@ -582,16 +655,23 @@ def load_exported(path: str, device: Optional[Union[str, torch.device]] = None
     return forward
 
 
-def _take(loader, n: int) -> Iterator:
+def _take(loader, n: int, profiler: Optional[SimpleProfiler] = None) -> Iterator:
     """The first ``n`` items of ``loader``; the loader's iterator is closed
-    after them (which stops a prefetch thread)."""
+    after them (which stops a prefetch thread). Each draw from the loader
+    is timed as ``get_train_batch`` in ``profiler``, where given."""
     it = iter(loader)
     try:
         for _ in range(n):
+            if profiler:
+                profiler.start("get_train_batch")
             try:
-                yield next(it)
+                item = next(it)
             except StopIteration:
                 return
+            finally:
+                if profiler:
+                    profiler.stop("get_train_batch")
+            yield item
     finally:
         close = getattr(it, "close", None)
         if close is not None:

@@ -14,7 +14,15 @@ optimizer, scheduler and epoch; ``--auto_lr_find`` sets the lr from
 ``fit: {...}``, and with ``-t`` a test pass, printing ``test: {...}``, with
 the JAX CLI's keys. ``--validate`` checks the ``algorithm`` DSL's shapes
 (``utils.model_validation``) before anything is built, and raises
-``IOError`` on a mismatch.
+``IOError`` on a mismatch. ``--profiler`` writes ``profile_results.txt``
+and a ``torch.profiler`` trace (``profile/``) into the run directory.
+
+``-oc <study.json>`` runs a hyperparameter study instead
+(``optimization.hpo.ModelOptimization``, one fit per trial with the
+Trainer flags given, ``-p`` pruning with the median pruner) into
+``<model_base_path>/<model_name>/studies/<exp>/``; a study of that name
+resumes. ``--distributed`` (not ported yet) raises, and with ``-oc`` is
+refused.
 
 ``--device`` (default ``cuda``) picks the device: the card, or ``cpu`` for
 the plain PyTorch versions of the kernels. HDF5 input needs h5py.
@@ -30,9 +38,7 @@ from typing import Any, Dict, Optional
 
 #: flags of the JAX CLI that the port parses but does not run yet, and the
 #: ROADMAP.md item that ports each
-NOT_PORTED = {"optuna_config": ("-oc/--optuna_config (HPO)", "queue 1 item 10"),
-              "distributed": ("--distributed (multi-GPU)", "queue 1 item 12"),
-              "profiler": ("--profiler", "queue 1 item 2")}
+NOT_PORTED = {"distributed": ("--distributed (multi-GPU)", "queue 1 item 12")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,13 +63,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume optimizer/scheduler/epoch state as well")
     p.add_argument("--num_threads", "-nt", type=int, default=None)
     p.add_argument("--optuna_config", "-oc", default=None,
-                   help="hyperparameter-optimization config (not ported yet)")
+                   help="hyperparameter-optimization config (runs a study)")
     p.add_argument("--pruning", "-p", action="store_true",
                    help="enable trial pruning during HPO")
     p.add_argument("--auto_lr_find", action="store_true")
     p.add_argument("--validate", action="store_true",
                    help="statically validate the algorithm DSL before training")
-    p.add_argument("--profiler", action="store_true", help="(not ported yet)")
+    p.add_argument("--profiler", action="store_true",
+                   help="write profile_results.txt and a torch.profiler trace "
+                        "(<log dir>/profile/) of the fit")
     p.add_argument("--max_epochs", type=int, default=None)
     p.add_argument("--overfit_batches", type=int_or_float, default=None)
     p.add_argument("--limit_train_batches", type=int_or_float, default=None)
@@ -171,6 +179,9 @@ def main(argv: Optional[list] = None) -> int:
     from waveformml_tpu_torch.utils.util import apply_num_threads, setup_logger
 
     args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    if args.optuna_config and args.distributed:
+        raise SystemExit("HPO studies are single-host (each trial already uses every "
+                         "local device); drop --distributed for -oc runs")
     for dest, (flag, item) in NOT_PORTED.items():
         if getattr(args, dest):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
@@ -187,6 +198,16 @@ def main(argv: Optional[list] = None) -> int:
 
         ModelValidation.validate(config)
         log.info("model validation passed")
+    if args.optuna_config:
+        from waveformml_tpu_torch.engineering.trainer import Trainer
+        from waveformml_tpu_torch.optimization.hpo import ModelOptimization
+        from waveformml_tpu_torch.utils.util import get_model_folder
+
+        opt_config = load_config(args.optuna_config, validate=False)
+        ModelOptimization(opt_config, config, get_model_folder(config),
+                          trainer_args=Trainer.kwargs_from_args(args)
+                          ).run_study(pruning=args.pruning)
+        return 0
     run(config, args, choose_data_module(config))
     return 0
 

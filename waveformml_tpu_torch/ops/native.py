@@ -43,6 +43,11 @@ NAMESPACE = "waveformml"
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel that could not be built (no ``nvcc``, a failed compile) or
+    whose launch returned a CUDA error."""
+
+
 #: the library that holds the ops' definitions and kernels; it lives as
 #: long as the process (a collected library unregisters them)
 _LIBRARY = None
@@ -74,7 +79,7 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return found
 
 
@@ -89,7 +94,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one nvcc
     process each, all started together. Returns ``{name: nvcc output}``
     (the ``-Xptxas -v`` register and spill report) for what it built;
-    raises with the compiler's output if any build fails."""
+    raises ``KernelError`` with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     started = []
@@ -113,7 +118,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         else:
             os.replace(tmp, so)
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failures))
     return reports
 
 
@@ -138,10 +143,10 @@ def load(name: str, functions: Dict[str, list]) -> ctypes.CDLL:
 
 
 def check_launch(lib: ctypes.CDLL, err: int, kernel: str) -> None:
-    """Raise if a launch function returned a CUDA error code."""
+    """Raise ``KernelError`` if a launch function returned a CUDA error code."""
     if err != 0:
         msg = lib.wf_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+        raise KernelError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
 def count_launches(fn: Callable, grids: int) -> None:
