@@ -123,16 +123,34 @@ order, it:
    4 chunks of 16384 single waveforms served through ``InferenceModel``
    with per-waveform detector ids as coords (waveforms/s, the device
    forward, the host share, the peak memory; the first chunk against a CPU
-   run) and 2 epochs × 4 steps with two blocks' steps held to CPU steps, no
-   kernel launched; SCNet3D.json (``SCNet``: SubMConv3d 2→8 on the [B, 2,
-   14, 11, 16] grid, Linear 19712→32→2) served and trained as the grid
-   nets, its forward by kernel; then its sparse section in row space
+   run) and 2 epochs × 4 steps with two blocks' steps held to CPU steps, the
+   TCN's chunks served again from its trained weights against a CPU run
+   (also within a tenth of the outputs' spread), no kernel launched;
+   SCNet3D.json (``SCNet``: SubMConv3d 2→8 on the [B, 2, 14, 11, 16]
+   grid, Linear 19712→32→2) served and trained as the grid nets, its
+   forward by kernel; then its sparse section in row space
    (``DSLSpecNet(n_t=16)``, the SubM weights carried over) against the
    grid's at every occupied site, a forward and backward against the plain
    versions with the launches asserted, K1 (2→8, and as d_feats 8→8) and
    K4 (Cin + 1 = 3, bitwise over two runs) at 27 taps against their plain
    versions with their times, bounds and library times beside cuDNN's
    conv3d of the same layer over the dense grid;
+11b. runs the graph family, from seeded random weights and biases:
+   IoniClassifierGraph.json as shipped (``GraphNet``: SAGEConv
+   130→73→16, k = 4, masked BatchNorm, a max pool over each event,
+   LinearBlock 16→2) over chunks of 4096 events of up to 12 rows: the kNN edges built
+   on the host by the C++ library (built by g++ in this run, saying so)
+   a chunk, timed, the first held to the numpy plain version; 4 chunks
+   served through ``InferenceModel`` (a CUDA graph per row bucket and edge
+   cap, the edge build its own dispatch phase), the first against a CPU
+   run over every event, the forward by kernel; 2 epochs × 4 steps of
+   ``Trainer.fit`` with two blocks' steps held to CPU steps; the graph
+   ops (gather, segment_mean, segment_sum, edge_softmax, the max pool)
+   at its shapes, each timed beside its bound with its launches a serving
+   replay and a training step; ``feature_knn`` on a chunk against the
+   CPU's (near-ties allowed) with its peak memory; ``GraphZNet`` under
+   ``LitZ`` (65 samples) served and trained 2 epochs × 2 steps the same
+   way; no hand-written kernel launched; the phase's wall time;
 12. runs the prediction writers on the card, each through its own pipeline
    (prefetch reader, dispatch, three fetch workers, table writer; the HDF5
    reader and table writer replaced by the in-memory stand-ins of
@@ -157,21 +175,23 @@ order, it:
    SegQuantifier.json (``SegEvaluator``; K1) and SingleEndedZCNN.json with
    a synthetic calibration group (``ZEvaluatorWF``: ``Calibrator``,
    ``CalCurve``, ``calc_calib_z_E``) over 2, SingleWaveformTCN.json
-   (``TensorEvaluator``) over 2 chunks of 16384 waveforms; each again with
+   (``TensorEvaluator``) over 2 chunks of 16384 waveforms,
+   IoniClassifierGraph.json (``PSDEvaluator``) over one chunk; each again with
    ``--device cpu``: the outputs, and every array each evaluator accumulated, held to
    the CPU run's (argmax flips only at ties, counted); prints the test
    metrics, events/s, the per-chunk split of the test pass (host prep, copy
    in, device forward, copy back, ``add_batch`` on the host) and
    ``dump()``'s time, and the figures where matplotlib renders them (else
    that it does not);
-14. exports the eval forward of eight configs that serve on the card
+14. exports the eval forward of nine configs that serve on the card
    and reloads it: SubMPSD.json through ``evaluate.run`` with ``--script``
    (what ``python -m waveformml_tpu_torch.evaluate --script`` runs), from
    the evaluation's checkpoint, SubMPSD_w128.json, OPs3ns_SCNet.json,
    SingleWaveformRNN.json and SCNet3D.json (1-epoch fits),
-   SegQuantifier.json, SingleEndedZCNN.json and SingleWaveformTCN.json
-   through ``Trainer.export_model``; prints each program's custom-op nodes
-   (K1 in the row-path ones, K2 in the SubMPSD ones); reloads all eight in one
+   SegQuantifier.json, SingleEndedZCNN.json, SingleWaveformTCN.json and
+   IoniClassifierGraph.json through ``Trainer.export_model``; prints each
+   program's custom-op nodes (K1 in the row-path ones, K2 in the SubMPSD
+   ones); reloads all nine in one
    fresh process that imports torch and the port only and runs each on
    the card, its output within 1e-5 of the eager forward and its K1 and K2
    launches equal to one eager forward's; runs ``torch.library.opcheck``
@@ -234,6 +254,20 @@ CONFIGS_GRID_NETS = tuple(os.path.join(os.path.dirname(CONFIG), f"{name}.json")
 CONFIGS_WAVEFORM = tuple(os.path.join(os.path.dirname(CONFIG), f"{name}.json")
                          for name in ("SingleWaveformTCN", "SingleWaveformRNN"))
 CONFIG_3D = os.path.join(os.path.dirname(CONFIG), "SCNet3D.json")
+# the graph family: IoniClassifierGraph.json as shipped (SAGEConv 130→73→16,
+# k = 4, a max pool, LinearBlock 16→2) over events of up to 12 rows, so that
+# the kNN picks 4 of up to 11 peers and integer distances tie; GraphZNet
+# under LitZ at 65 samples with the hparams of tests/test_inference.py; the
+# phase's wall time it is meant to stay under
+CONFIG_GRAPH = os.path.join(os.path.dirname(CONFIG), "IoniClassifierGraph.json")
+GRAPH_MAX_MULT = 12
+GRAPH_Z_HPARAMS = {"neighbors": 1, "n_conv": 1, "n_point": 1, "conv_position": 1,
+                   "graph_index": 0}
+GRAPH_PHASE_TARGET_S = 60.0
+# the TCN's trained serving: its card-against-CPU difference within this
+# fraction of the outputs' standard deviation (they spread ~1e-05 after the
+# phase's 8 steps, the size of LOGIT_ATOL)
+TCN_SPREAD_TOL = 0.1
 WAVEFORMS_PER_CHUNK = 16384
 # training blocks of a grid net whose steps are each held to a CPU step
 GRID_STEP_CHECKS = 2
@@ -1395,13 +1429,24 @@ def run_segment_serving(cfg, state, chunks, tag, cpu_events=CPU_EVENTS):
     served_ms = [replay_time_ms(g.graph) for g in server.graphs.values()]
     n_events = N_CHUNKS * EVENTS_PER_CHUNK
     names = {"host_prep_s": "host prep (pad, plans, pack)", "h2d_s": "copy in",
-             "launch_s": "replay + copy out", "fetch_s": "fetch"}
+             "launch_s": "replay + copy out", "fetch_s": "fetch",
+             "edge_build_s": "of host prep, the C++ edge build"}
     phases = "; ".join(f"{names[k]} {v * 1e3 / N_CHUNKS:.3f} ({v / wall:.1%})"
                        for k, v in server.dispatch_phases.items())
     packed = [sum(leaf[4] for leaf in spec) for spec in server.graphs]
     print(f"{tag} serving: {N_CHUNKS} chunks, {n_events} events in {wall:.4f} s = "
           f"{n_events / wall:.1f} events/s; graphs {len(server.graphs)}, launches {launches}, "
           f"of which from replays {replayed}", flush=True)
+    if task.is_graph:
+        layouts = {}
+        for spec in server.graphs:
+            shapes = {leaf[0]: leaf[1] for leaf in spec}
+            key = (shapes["coords"][0], tuple(sorted(
+                (k[len("edges_"):], v[1]) for k, v in shapes.items() if k.startswith("edges_"))))
+            layouts[key] = layouts.get(key, 0) + 1
+        print(f"{tag} serving: graphs captured per (row bucket, edge caps): "
+              + "; ".join(f"{rb} rows, edges {dict(caps)}: {n}"
+                          for (rb, caps), n in sorted(layouts.items())), flush=True)
     # the device is busy for the serving graphs' replays: their own time (a
     # graph of the eager forward may get other cuDNN algorithms than the
     # serving graph, captured into its memory pool, as the grid nets show)
@@ -1463,7 +1508,8 @@ def run_segment_serving(cfg, state, chunks, tag, cpu_events=CPU_EVENTS):
     return launches
 
 
-def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
+def run_segment_training(cfg, state, train, val, tag, reference: str,
+                         trained_state=None) -> dict:
     """``Trainer.fit`` of a config on the card, 2 epochs × 4 steps, with
     each kernel's count set to 0 before and read after (and asserted), the
     per-step breakdown and the peak device memory; the losses held to the
@@ -1472,7 +1518,8 @@ def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
     held to a CPU step from the card's state), or only each of the first
     GRID_STEP_CHECKS training blocks' steps held to a CPU step from the
     card's state (``"steps"``); the best checkpoint's test loss against its
-    recorded validation loss. Returns the launches."""
+    recorded validation loss. Where ``trained_state`` is a dict, it receives
+    the weights the fit ends with. Returns the launches."""
     from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
     from waveformml_tpu_torch.inference.model import InferenceModel
 
@@ -1482,6 +1529,9 @@ def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         launches = counted_fit(trainer, data, f"{tag} training")
         peak = torch.cuda.max_memory_allocated()
+        if trained_state is not None:
+            trained_state.update({k: v.detach().cpu().clone()
+                                  for k, v in trainer.task.model.state_dict().items()})
         print(f"{tag} training: peak device memory {peak / 2**30:.3f} GiB "
               f"(torch.cuda.max_memory_allocated); losses "
               f"{np.round(trainer.step_losses, 6).tolist()}", flush=True)
@@ -1534,11 +1584,13 @@ def run_segment_training(cfg, state, train, val, tag, reference: str) -> dict:
 def biases_before_batchnorm(model):
     """The parameter names of the conv biases that a BatchNorm follows:
     their gradient is rounding. Returns those of the sparse stacks (a
-    ``_SpecNet``'s or a DSL's ``SparseSequential``), whose BatchNorm sums
-    the occupied sites, and those of ``Conv2DBlock``, whose BatchNorm sums
+    ``_SpecNet``'s or a DSL's ``SparseSequential``) and the graph convs,
+    whose BatchNorm sums the occupied sites or real rows, and those of
+    ``Conv2DBlock``, whose BatchNorm sums
     every site of every real event (~6·10^5 terms a channel at 4096
     events, most of them the bias alone)."""
     from waveformml_tpu_torch.models.blocks import Conv2DBlock
+    from waveformml_tpu_torch.models.graph_net import GraphNet, GraphZ
     from waveformml_tpu_torch.models.sparse_blocks import _SpecNet
     from waveformml_tpu_torch.ops.sparse_conv import MaskedBatchNorm, SparseSequential
 
@@ -1546,7 +1598,15 @@ def biases_before_batchnorm(model):
     sparse, dense = set(), set()
     for name, module in model.named_modules():
         prefix = f"{name}." if name else ""
-        if isinstance(module, _SpecNet):
+        if isinstance(module, (GraphNet, GraphZ)):
+            # a graph conv's output bias (every row's, before its masked
+            # BatchNorm over the real rows): SAGEConv's lin_l, GraphConv's
+            # lin_rel, GCN's own
+            for child, _ in module.named_children():
+                if child.startswith("gconv_") and hasattr(module, f"norm_{child[6:]}"):
+                    sparse |= {f"{prefix}{child}.{b}" for b in ("bias", "lin_l.bias",
+                                                              "lin_rel.bias")} & set(params)
+        elif isinstance(module, _SpecNet):
             specs = module.specs
             for i in range(len(specs) - 1):
                 if specs[i + 1][0] == "bn":
@@ -1949,15 +2009,16 @@ def waveform_chunk(rng, n: int, n_samples: int):
     return FileBlock(block.coords[:n], block.feats[:n], block.labels[:n])
 
 
-def run_waveform_serving(cfg, state, chunks, tag) -> dict:
+def run_waveform_serving(cfg, state, chunks, tag, spread_tol=None) -> dict:
     """A waveform net served through ``InferenceModel`` on the card, its
     chunks' coords the per-waveform detector ids ``[N]`` (N events): each
     chunk one packed copy in, one replay of its layout's CUDA graph and a
     copy out; no kernel launched; waveforms/s, where the wall goes, the
     serving graph's replay (the device forward), the device's busy share
     and the peak device memory; the outputs held to the eager forward and
-    the first chunk's to a CPU run of the port from the same state. Returns
-    the launches."""
+    the first chunk's to a CPU run of the port from the same state (and,
+    with ``spread_tol``, within that fraction of the outputs' standard
+    deviation). Returns the launches."""
     from waveformml_tpu_torch.inference.model import InferenceModel
 
     server = InferenceModel(cfg, state)
@@ -2010,11 +2071,15 @@ def run_waveform_serving(cfg, state, chunks, tag) -> dict:
     cpu = InferenceModel(cfg, state, device="cpu")(chunks[0].coords, chunks[0].feats)
     cpu_s = time.perf_counter() - t0
     np.testing.assert_allclose(outs[0], cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    err_cpu = float(np.abs(outs[0] - cpu).max())
+    if spread_tol is not None:
+        assert err_cpu <= spread_tol * spread, (err_cpu, spread)
     print(f"{tag} outputs {outs[0].shape} a chunk (std {spread:.4g}): the graph path matches "
           f"the eager forward (largest |difference| {err_eager:.3g}) and the first chunk's "
           f"{cpu.shape[0]} waveforms a CPU run of the port ({cpu_s:.2f} s; largest |difference| "
-          f"{float(np.abs(outs[0] - cpu).max()):.3g}) (rtol={LOGIT_RTOL}, atol={LOGIT_ATOL})",
-          flush=True)
+          f"{err_cpu:.3g}, {err_cpu / spread:.3g} of the std) (rtol={LOGIT_RTOL}, "
+          f"atol={LOGIT_ATOL}" + (f"; within {spread_tol} of the std" if spread_tol else "")
+          + ")", flush=True)
     return launches
 
 
@@ -2026,7 +2091,10 @@ def run_waveform_nets() -> dict:
     (``run_waveform_serving``) and 2 epochs × 4 steps of ``Trainer.fit``
     of ``LitWaveform`` (SGD nesterov, ExponentialLR), the first
     GRID_STEP_CHECKS blocks' steps each held to a CPU step from the card's
-    state; no kernel launched in either. Returns, by config path, its
+    state; the TCN's chunks served again from the weights its fit ends
+    with (their outputs spread, those at init barely do), held to the CPU
+    at the same tolerance and within TCN_SPREAD_TOL of their standard
+    deviation; no kernel launched. Returns, by config path, its
     state and its training and validation blocks."""
     from waveformml_tpu_torch.config import load_config
 
@@ -2045,7 +2113,16 @@ def run_waveform_nets() -> dict:
         train = [waveform_chunk(rng, WAVEFORMS_PER_CHUNK, n_samples)
                  for _ in range(TRAIN_CHUNKS)]
         val = [waveform_chunk(rng, WAVEFORMS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
-        training = run_segment_training(cfg, state, train, val, tag, reference="steps")
+        trained = {}
+        training = run_segment_training(cfg, state, train, val, tag, reference="steps",
+                                        trained_state=trained)
+        if path == CONFIGS_WAVEFORM[0]:
+            # the TCN's outputs at init barely vary (std ~3e-06 a chunk), so
+            # the serving check above could pass a wrong forward near that
+            # constant: serve the trained weights too, whose outputs spread
+            served = run_waveform_serving(cfg, trained, chunks, f"{tag} after training",
+                                          spread_tol=TCN_SPREAD_TOL)
+            serving = {k: serving[k] + served[k] for k in serving}
         assert not any(serving.values()) and not any(training.values()), (serving, training)
         print(f"{tag}: no kernel launched in serving or training; the config's phase took "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2243,6 +2320,273 @@ def run_scnet3d():
     state, train, val = run_grid_net(CONFIG_3D, SEED + 120, make_block=labelled_block_3d)
     results, launches = run_scnet3d_rows(load_config(CONFIG_3D), state, val[0])
     return results, launches, state, train, val
+
+
+def kernels_per_call(fn, grad_input=None, calls: int = 3) -> tuple:
+    """The device kernels one ``fn()`` call launches: the kernel records of
+    a torch.profiler trace over ``calls`` calls, divided by ``calls``, and
+    their names; with ``grad_input``, a tensor fn reads, also those of the
+    backward to it (from a gradient of ones made beforehand, its ``grad``
+    unset as a training step leaves it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if grad_input is not None:
+        grad_input.requires_grad_(True)
+    grad = torch.ones_like(fn()) if grad_input is not None else None
+
+    def call():
+        out = fn()
+        if grad_input is not None:
+            grad_input.grad = None
+            out.backward(grad)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    if grad_input is not None:
+        grad_input.requires_grad_(False)
+        grad_input.grad = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = sorted({kernel_name(e["name"]) for e in events if e.get("cat") == "kernel"})
+    n = sum(1 for e in events if e.get("cat") == "kernel")
+    return n // calls, names
+
+
+def graph_edge_build(chunks, k: int) -> None:
+    """The kNN edges of each serving chunk built on the host by the C++
+    library (``ops.graph.knn_graph``, built by g++ in this run), timed a
+    chunk, the first chunk's held to the numpy plain version, edge for
+    edge."""
+    from waveformml_tpu_torch.ops import graph, native
+
+    t0 = time.perf_counter()
+    graph.library()
+    load_s = time.perf_counter() - t0
+    built = native.HOST_BUILDS.get("window_edges")
+    how = (f"built by g++ ({' '.join(native.GXX_FLAGS)}) in {built:.2f} s" if built is not None
+           else f"loaded as built before ({load_s:.2f} s)")
+    print(f"graph edges: the C++ library {native.host_library_path('window_edges')} {how}; "
+          f"the numpy plain version did not run in its place", flush=True)
+    times, counts, first = [], [], None
+    for b in chunks:
+        pos, batch = b.coords[:, :2].astype(np.float64), b.coords[:, 2].astype(np.int64)
+        t0 = time.perf_counter()
+        edges = graph.knn_graph(pos, k, batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(edges.shape[1])
+        first = edges if first is None else first
+    b = chunks[0]
+    t0 = time.perf_counter()
+    plain = graph.knn_graph_numpy(b.coords[:, :2], k, b.coords[:, 2])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert np.array_equal(plain, first)
+    sizes = np.bincount(b.coords[:, 2])
+    print(f"graph edges: kNN (k = {k}) of {N_CHUNKS} chunks on the host (C++, OpenMP): "
+          f"{[round(t, 3) for t in times]} ms a chunk, {counts} edges; rows an event up to "
+          f"{sizes.max()} (mean {sizes.mean():.2f}); the first chunk's edges equal the numpy "
+          f"plain version's, edge for edge ({plain_ms:.1f} ms)", flush=True)
+
+
+def knn_sets(edges, mask) -> dict:
+    sets = {}
+    for s, d in zip(*np.asarray(edges)[:, np.asarray(mask)]):
+        sets.setdefault(int(d), set()).add(int(s))
+    return sets
+
+
+def check_feature_knn(db, k: int) -> None:
+    """``feature_knn`` on a prepared chunk's features on the card, against
+    the CPU run over the same inputs under the near-tie rule of
+    tests/test_parity_graph_torch.py: each centre's live neighbour set
+    equal, or differing only between candidates whose float64 distances
+    agree to 1e-5 relative. Prints its time (eager, CUDA events, its host
+    synchronisation included), the peak device memory above what was
+    allocated before, and its bound."""
+    from waveformml_tpu_torch.models.graph_layers import feature_knn
+
+    x, batch, mask = db["feats"], db["coords"][:, 2], db["mask"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    edges, live = feature_knn(x, batch, mask, k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    samples = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        feature_knn(x, batch, mask, k)
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    ms = statistics.median(samples)
+    t0 = time.perf_counter()
+    cpu_edges, cpu_live = feature_knn(x.cpu(), batch.cpu(), mask.cpu(), k)
+    cpu_s = time.perf_counter() - t0
+    got, want = knn_sets(edges.cpu(), live.cpu()), knn_sets(cpu_edges, cpu_live)
+    x64 = x.double().cpu().numpy()
+    tied = 0
+    for c in set(got) | set(want):
+        a, b = got.get(c, set()), want.get(c, set())
+        if a != b:
+            d64 = [float(np.sum((x64[c] - x64[j]) ** 2)) for j in a ^ b]
+            assert max(d64) - min(d64) <= 1e-5 * max(max(d64), 1e-30), (c, a, b, d64)
+            tied += 1
+    n, f = x.shape
+    m = mask.cpu().numpy()
+    sizes = np.bincount(batch.cpu().numpy()[m])
+    n_bytes = n * f * 4 + n * 4 + n + 2 * n * k * 4 + n * k
+    # each event's pairs: a difference, a square and an add a feature
+    b_ms, by = bound_ms(n_bytes, 3.0 * f * float((sizes.astype(np.float64) ** 2).sum()))
+    print(f"graph feature_knn (k = {k}) on {int(m.sum())} rows x {f} features of "
+          f"{len(sizes)} events (bucket {n}): {ms:.4f} ms (eager, CUDA events, its host "
+          f"synchronisation included), bound {b_ms:.6f} ms ({by}); peak device memory "
+          f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB allocated before "
+          f"(torch.cuda.max_memory_allocated); its live edges match the CPU run's ({cpu_s:.2f} "
+          f"s) at every centre but {tied} near-ties (float64 distances within 1e-5 relative)",
+          flush=True)
+
+
+def graph_op_table(task, db) -> None:
+    """The graph family's device ops as the port runs them on the card, at
+    IoniClassifierGraph.json's shapes over a prepared chunk: each op's time
+    (a CUDA graph of one call, replayed), its bound (bytes each input read
+    once and each output written once, or float32 operations), and its
+    kernel launches a serving replay and a training step (the kernels one
+    call launches, forward or forward and backward, times its calls a
+    forward from the code). Prints one line an op."""
+    from waveformml_tpu_torch.models.graph_layers import (edge_softmax, global_max_pool,
+                                                          segment_mean, segment_sum)
+
+    net = task.model
+    x, mask = db["feats"], db["mask"]
+    n, n_events = x.shape[0], db["labels"].shape[0]
+    edges, live = db[f"edges_knn{net.k}"], db[f"edge_mask_knn{net.k}"]
+    n_edges = edges.shape[1]
+    src, dst = edges[0], edges[1]
+    widths = [net.gconv_0.lin_l.in_features, net.gconv_1.lin_l.in_features]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+
+    def row(name, fn, grad_input, n_bytes, flops, calls):
+        ms = graph_time_ms(fn)
+        b_ms, by = bound_ms(n_bytes, flops)
+        fwd, names = kernels_per_call(fn)
+        both, _ = kernels_per_call(fn, grad_input)
+        print(f"graph op {name}: {ms:.5f} ms (CUDA graph replay), bound {b_ms:.6f} ms ({by}); "
+              f"{fwd} kernels a call ({names}), {both} with its backward; {calls} calls a "
+              f"forward: {calls * fwd} launches a serving replay, {calls * both} a training "
+              f"step", flush=True)
+
+    for i, f in enumerate(widths):
+        h = torch.randn(n, f, device="cuda", generator=gen)
+        msg = h[src]
+        row(f"gather x[src] (conv {i}, {f} wide)", lambda h=h: h[src], h,
+            n * f * 4 + n_edges * 8 + n_edges * f * 4, 0.0, 1)
+        row(f"segment_mean (conv {i}, {f} wide)", lambda m=msg: segment_mean(m, dst, n, live),
+            msg, n_edges * f * 4 + n_edges * 8 + n_edges + n * f * 4,
+            float(n_edges * f + n_edges + n * f), 1)
+    f = widths[0]
+    msg = torch.randn(n_edges, f, device="cuda", generator=gen)
+    row(f"segment_sum ({f} wide)", lambda: segment_sum(msg, dst, n, live), msg,
+        n_edges * f * 4 + n_edges * 8 + n_edges + n * f * 4, float(n_edges * f), 0)
+    logits = torch.randn(n_edges, 1, device="cuda", generator=gen)
+    row("edge_softmax (one head)", lambda: edge_softmax(logits, dst, n, live), logits,
+        2 * n_edges * 4 + n_edges * 8 + n_edges, 5.0 * n_edges, 0)
+    out = net.graph_out
+    pooled_in = torch.randn(n, out, device="cuda", generator=gen)
+    batch = db["coords"][:, 2]
+    row(f"global_max_pool (segment_max, {out} wide)",
+        lambda: global_max_pool(pooled_in, batch, n_events, mask), pooled_in,
+        n * out * 4 + n * 4 + n + n_events * out * 4, float(n * out), 1)
+
+
+def run_graph():
+    """The graph family on the card. IoniClassifierGraph.json as shipped
+    (``LitPSD`` + ``GraphNet``: SAGEConv 130→73→16, k = 4, masked
+    BatchNorm, a max pool over each event, LinearBlock 16→2), from seeded
+    random weights and biases, over chunks of 4096 events of up to
+    GRAPH_MAX_MULT rows: the host edge build (C++) a chunk; 4 chunks
+    served through ``InferenceModel`` (a CUDA graph per row bucket and
+    edge cap) with the first held to a CPU run over every event, the
+    forward by kernel (torch.profiler), events/s and the busy share; 2
+    epochs × 4 steps of ``Trainer.fit`` over the serving chunks, the first
+    GRID_STEP_CHECKS blocks' steps each held to a CPU step from the card's
+    state (``index_add``'s atomics reorder the float32 sums); the graph
+    ops' table; ``feature_knn`` on a chunk against the CPU's; then
+    ``GraphZNet`` under ``LitZ`` (65 samples, GRAPH_Z_HPARAMS) served the
+    same way and trained 2 epochs × 2 steps. No hand-written kernel
+    launches. Returns the IoniClassifierGraph state and its training and
+    validation blocks."""
+    from waveformml_tpu_torch.config import Config, load_config, to_dict, validate_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block, segment_block
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+    from waveformml_tpu_torch.models.graph_net import GraphZNet
+
+    t_start = time.perf_counter()
+    zero_counts()
+    tag = "IoniClassifierGraph"
+    cfg = load_config(CONFIG_GRAPH)
+    n_samples = cfg.system_config.n_samples
+    rng = np.random.default_rng(SEED + 160)
+    chunks = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples, max_mult=GRAPH_MAX_MULT)
+              for _ in range(N_CHUNKS)]
+    k = cfg.net_config.hparams.k
+    graph_edge_build(chunks, k)
+    state = seeded_state(cfg, SEED + 161, chunks[0])
+    print(f"{tag}: {cfg.net_config.net_class} at {n_samples} samples, "
+          f"{sum(v.numel() for v in state.values())} parameters and statistics", flush=True)
+    serving = run_segment_serving(cfg, state, [(b.coords, b.feats) for b in chunks], tag,
+                                  cpu_events=None)
+    task = LitPSD(cfg)
+    task.model.load_state_dict(state)
+    db = prepared(task, chunks[0])
+    kernels = sorted(grid_times_ms(lambda: task.apply_model(db), reps=5).items(),
+                     key=lambda kv: -kv[1])
+    print(f"{tag} forward by kernel (ms a forward, torch.profiler over 5 eager forwards, "
+          f"the largest 8 of {len(kernels)}): "
+          + "; ".join(f"{name} {v:.4f}" for name, v in kernels[:8])
+          + f"; all {sum(v for _, v in kernels):.4f}", flush=True)
+    # the serving chunks train too (a 4096-event block takes ~2 s to make)
+    train = chunks[:TRAIN_CHUNKS]
+    val = [labelled_block(rng, EVENTS_PER_CHUNK, n_samples, max_mult=GRAPH_MAX_MULT)
+           for _ in range(VAL_CHUNKS)]
+    training = run_segment_training(cfg, state, train, val, tag, reference="steps")
+    graph_op_table(task, db)
+    check_feature_knn(db, k)
+
+    z_tag = "GraphZNet (LitZ)"
+    d = to_dict(cfg)
+    d["run_config"].update(exp_name="GraphZ", run_class="LitZ")
+    d["net_config"].update(net_class="GraphNet.GraphZNet", net_type="graph",
+                           criterion_class="L1Loss", hparams=dict(GRAPH_Z_HPARAMS))
+    d["system_config"]["model_name"] = "GraphZ"
+    z_cfg = validate_config(Config(d))
+    z_chunks = [segment_block(rng, EVENTS_PER_CHUNK, n_samples, label="z",
+                              max_mult=GRAPH_MAX_MULT) for _ in range(N_CHUNKS)]
+    z_state = seeded_state(z_cfg, SEED + 162, z_chunks[0])
+    print(f"{z_tag}: {GRAPH_Z_HPARAMS} at {n_samples} samples, edges "
+          f"{GraphZNet(z_cfg).edge_requirements()}", flush=True)
+    z_serving = run_segment_serving(z_cfg, z_state, [(b.coords, b.feats) for b in z_chunks],
+                                    z_tag, cpu_events=None)
+    # 2 epochs of 2 of the serving chunks: 4 steps; another validates
+    z_train, z_val = z_chunks[:2], z_chunks[2:3]
+    z_training = run_segment_training(z_cfg, z_state, z_train, z_val, z_tag,
+                                      reference="steps")
+    counts = read_counts()
+    for launches in (serving, training, z_serving, z_training, counts):
+        assert not any(launches.values()), launches
+    wall = time.perf_counter() - t_start
+    print(f"graph phase: no hand-written kernel launched (K1-K5 counts {counts}); the phase "
+          f"took {wall:.1f} s (meant to stay under {GRAPH_PHASE_TARGET_S:.0f} s"
+          + ("" if wall <= GRAPH_PHASE_TARGET_S else "; it did not") + ")", flush=True)
+    return state, train, val
 
 
 def run_validate_cli(train, val) -> None:
@@ -3544,8 +3888,9 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
     runs, over in-memory test chunks), SubMPSD_w128.json (half precision;
     a 1-epoch fit from seeded weights), SegQuantifier.json,
     SingleEndedZCNN.json, OPs3ns_SCNet.json, SingleWaveformTCN.json,
-    SingleWaveformRNN.json (cuDNN's RNN in the program) and SCNet3D.json
-    (``Trainer.export_model``), each from the checkpoint its evaluation or
+    SingleWaveformRNN.json (cuDNN's RNN in the program), SCNet3D.json and
+    IoniClassifierGraph.json (``Trainer.export_model``), each from the
+    checkpoint its evaluation or
     fit wrote, on its first test chunk: the program's custom-op nodes (K1
     in the four row-path configs, K2 in the two SubMPSD ones, none in the
     others); the program reloaded in one fresh
@@ -3569,7 +3914,7 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
                 CONFIG_W128: ("subm_conv_rows", "site_grouped_matmul"),
                 CONFIG_SEGQ: ("subm_conv_rows",), CONFIG_Z: (),
                 CONFIG_OPS: ("subm_conv_rows",), CONFIGS_WAVEFORM[0]: (),
-                CONFIGS_WAVEFORM[1]: (), CONFIG_3D: ()}
+                CONFIGS_WAVEFORM[1]: (), CONFIG_3D: (), CONFIG_GRAPH: ()}
     cases = []
     for cfg_path, kernels in expected.items():
         ckpt, test = checkpoints[cfg_path]
@@ -3983,6 +4328,10 @@ def main() -> int:
     rows3d, rows3d_launches, d3_state, d3_train, d3_val = run_scnet3d()
     lap("the waveform nets and SCNet3D.json (phase 11)")
 
+    # -- 11b. the graph family ---------------------------------------------------
+    graph_state, graph_train, graph_val = run_graph()
+    lap("the graph family (phase 11b)")
+
     # -- 12. the prediction writers --------------------------------------------
     run_writers()
     lap("the prediction writers (phase 12)")
@@ -3990,6 +4339,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         # -- 13. the evaluation ------------------------------------------------
         _, checkpoints = run_evaluation(state, train, val, work_dir, waveform)
+        graph_test = [labelled_block(np.random.default_rng(SEED + 165), EVENTS_PER_CHUNK,
+                                     load_config(CONFIG_GRAPH).system_config.n_samples,
+                                     max_mult=GRAPH_MAX_MULT)]
+        _, ckpt = run_evaluate("IoniClassifierGraph.json", CONFIG_GRAPH, graph_state,
+                               graph_train[:2], graph_val, graph_test, "logits",
+                               work_dir=work_dir)
+        checkpoints[CONFIG_GRAPH] = (ckpt, graph_test)
         for path, (st, tr, va) in ((CONFIG_OPS, (ops_state, ops_train, ops_val)),
                                    (CONFIGS_WAVEFORM[1], waveform[CONFIGS_WAVEFORM[1]]),
                                    (CONFIG_3D, (d3_state, d3_train, d3_val))):

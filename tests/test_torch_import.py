@@ -1,6 +1,6 @@
 """The port stands alone: importing it, module by module, loads neither
 JAX nor the JAX package nor h5py, matplotlib, tensorboard or tensorboardX,
-and no source of the port or of chip_smoke.py refers to JAX, the JAX
+the graph family leaves ctypes and subprocess to ``ops/native.py``, and no source of the port or of chip_smoke.py refers to JAX, the JAX
 package or h5py. The one exception: the HDF5 loaders import h5py inside
 their own functions (``H5PY_LOADERS``), when they run, so that the package
 imports without it (the scripts open files through them). matplotlib,
@@ -61,7 +61,8 @@ def test_import_loads_no_jax():
                  "convert", "models.waveform_models", "models.recurrent_blocks",
                  "engineering.tasks", "evaluation.tensor_eval", "evaluation.waveform_eval",
                  "optimization", "optimization.hpo", "utils.profiler", "combine_data",
-                 "scripts.validate_combined", "scripts.eval_best_trials"):
+                 "scripts.validate_combined", "scripts.eval_best_trials", "ops.graph",
+                 "models.graph_layers", "models.graph_net", "datasets.graph_dataset"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -85,7 +86,9 @@ def test_sources_do_not_refer_to_jax():
         files += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
     for name in ("engineering/trainer.py", "optim.py", "nn/functional.py",
                  "optimization/__init__.py", "optimization/hpo.py", "utils/profiler.py",
-                 "combine_data.py", "scripts/validate_combined.py", "scripts/eval_best_trials.py"):
+                 "combine_data.py", "scripts/validate_combined.py", "scripts/eval_best_trials.py",
+                 "ops/graph.py", "models/graph_layers.py", "models/graph_net.py",
+                 "datasets/graph_dataset.py"):
         assert os.path.join(PORT, name) in files, name
     for name in H5PY_LOADERS:
         assert os.path.join(ROOT, name) in files, name
@@ -124,4 +127,20 @@ def test_matplotlib_and_tensorboardx_are_imported_inside_functions():
                          [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
                 if any(n.split(".")[0] in LAZY for n in names):
                     offenders.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
+    assert not offenders, offenders
+
+
+def test_graph_modules_leave_native_code_to_ops_native():
+    """The graph family loads its C++ library through ``ops/native.py``
+    (``load_host``): none of its modules imports ctypes or subprocess."""
+    offenders = []
+    for name in ("ops/graph.py", "models/graph_layers.py", "models/graph_net.py",
+                 "datasets/graph_dataset.py", "engineering/base.py"):
+        with open(os.path.join(PORT, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] in ("ctypes", "subprocess") for n in names):
+                offenders.append(f"{name}:{node.lineno}")
     assert not offenders, offenders

@@ -15,7 +15,13 @@ flax                            torch                         layout
 ``…/head0/kernel``              ``….head0.weight``            site head ``[C·S, F]`` as it is
 ``…/dense_<i>/kernel``,         ``….weight``                  ``[in, out]`` → ``[out, in]``
 ``…/dense/kernel``,
-``…/pw_<i>/kernel``
+``…/pw_<i>/kernel``, the
+graph convs' Dense layers
+(``lin*``, ``q``, ``k``, ``v``,
+``edge``, ``edge_proj``,
+``skip``, ``g``, ``root``,
+``u``, ``film*``, ``V_<i>``,
+``W_<i>``, ``mlp<i>``)
 ``…/conv/kernel``,              ``….weight``                  ``[*k, Cin, Cout]`` →
 ``…/conv_<i>/kernel``,                                        ``[Cout, Cin, *k]`` (1D, 2D
 ``…/conv1``, ``conv2``,                                       and 3D convs)
@@ -32,6 +38,8 @@ weight-normed conv              .weight.original1``
 ``…/bias``                      ``….bias``
 ``batch_stats/…/mean``          ``….running_mean``
 ``batch_stats/…/var``           ``….running_var``
+``…/att_src``, ``att_dst``,     ``….att_src``, …              as they are
+``att``, ``mu``, ``sigma``
 ==============================  ============================  ===========================
 
 Module paths are carried as they are (``/`` ↔ ``.``): the port names its
@@ -71,7 +79,13 @@ _STATS_INV = {v: k for k, v in _STATS.items()}
 #: a weight-norm parametrisation's leaves in a torch state_dict
 _WN = ".parametrizations.weight.original"
 _CONV = re.compile(r"^(conv(_\d+)?|conv1|conv2|downsample)$")
-_DENSE = re.compile(r"^(dense(_\d+)?|pw_\d+)$")
+_DENSE = re.compile(r"^(dense(_\d+)?|pw_\d+"
+                    # the graph convs' Dense layers (models/graph_layers.py)
+                    r"|lin(_\w+|\d)?|[qkvgu]|edge(_proj)?|skip|root|film(_skip)?|[VW]_\d+"
+                    r"|mlp\d)$")
+#: parameters carried as they are, under their own names (the graph convs'
+#: attention vectors, GMMConv's means and widths)
+_RAW = ("att_src", "att_dst", "att", "mu", "sigma")
 _WN_SCALE = re.compile(r"^(?P<parent>.*?)/?WeightNorm_\d+/(?P<conv>[^/]+)/kernel/scale$")
 
 
@@ -192,6 +206,8 @@ def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         module, _, leaf = path.rpartition("/")
         if collection == "batch_stats":
             name = _STATS[leaf]
+        elif collection == "params" and leaf in _RAW:
+            name = leaf
         elif collection == "params":
             name = {"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]
             if leaf == "kernel":
@@ -229,8 +245,8 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         prefix = f"{path}/" if path else ""
         if leaf in _STATS_INV:
             out[f"batch_stats/{prefix}{_STATS_INV[leaf]}"] = arr
-        elif leaf == "bias":
-            out[f"params/{prefix}bias"] = arr
+        elif leaf == "bias" or leaf in _RAW:
+            out[f"params/{prefix}{leaf}"] = arr
         elif leaf == "weight" and (key[:-len("weight")] + "running_mean" in state
                                    or _leaf_module(path).startswith("LayerNorm_")):
             out[f"params/{prefix}scale"] = arr

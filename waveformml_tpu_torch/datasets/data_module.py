@@ -217,3 +217,11 @@ class PSDDataModule:
         if self.test_dataset is None:
             self.setup("test")
         return DataLoaderLite(self.test_dataset, shuffle=False, **self._loader_params())
+
+
+@registry.register("GraphDataModule", aliases=("GraphDataModule.GraphDataModule",))
+class GraphDataModule(PSDDataModule):
+    """The reference's GraphDataModule under its config names (ref:
+    src/engineering/GraphDataModule.py:22-52): the loaders are
+    ``PSDDataModule``'s, since the task's ``prepare_block`` builds a graph
+    model's edges on the host."""

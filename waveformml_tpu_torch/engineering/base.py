@@ -4,7 +4,8 @@
 ``prepare_block`` runs on the host with numpy: it pads a ``FileBlock`` to a
 row bucket and an event bucket and builds every plan the model reads
 (``model.plan_requirements()``): the ``[N, K²]`` neighbour plans and the
-``[S, MAX]`` site layout. ``sparse_batch`` turns such a dict, once on the
+``[S, MAX]`` site layout, and a graph model's padded edge lists
+(``add_graph_edges``). ``sparse_batch`` turns such a dict, once on the
 device, into the model's ``SparseBatch``. ``to_device`` ships such a dict
 to the card as one packed copy (``pack_db``, ``unpack_db``), each array in
 its own dtype: float16 features (``half_precision``'s datasets) ship as
@@ -18,6 +19,7 @@ after it runs in float32.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -27,6 +29,7 @@ from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
 from waveformml_tpu_torch.engineering.se_mask import se_loss_mask
 from waveformml_tpu_torch.nn.functional import build_criterion
+from waveformml_tpu_torch.ops.graph import knn_graph, pad_edges, window_edges
 from waveformml_tpu_torch.ops.row_conv import host_neighbor_plan
 from waveformml_tpu_torch.ops.site_head import MIN_CAP, host_site_layout
 from waveformml_tpu_torch.ops.sparse import (SparseBatch, bucket_size, occupancy_mask,
@@ -125,6 +128,8 @@ class TaskBase:
         # grow-only per-site capacity of the head's slot layout, so that its
         # [S, MAX] shape does not flap between buckets from batch to batch
         self._site_cap = 0
+        #: host-clock seconds spent building graph edges (``add_graph_edges``)
+        self.edge_build_s = 0.0
 
     def _build_frozen_z(self) -> Optional[torch.nn.Module]:
         """Where ``net_config`` has ``z_weights`` (a port checkpoint or
@@ -187,6 +192,7 @@ class TaskBase:
         out = {"coords": coords, "feats": feats, "mask": mask,
                "labels": y, "label_mask": ymask}
         self.add_row_extras(block, out, row_bucket)
+        self.add_graph_edges(block, out)
         self.add_row_plans(out, event_bucket)
         return out
 
@@ -200,6 +206,49 @@ class TaskBase:
             pad = np.zeros((row_bucket,) + v.shape[1:], dtype=v.dtype)
             pad[:v.shape[0]] = v
             out[f"extra_{k}"] = pad
+
+    @property
+    def is_graph(self) -> bool:
+        """Whether the model is a graph model: it takes the whole prepared
+        batch and its padded edge lists (``models.graph_net``)."""
+        return getattr(type(self.model), "is_graph", False)
+
+    def add_graph_edges(self, block: FileBlock, out: Dict[str, np.ndarray]) -> None:
+        """A graph model's padded edge lists (``model.edge_requirements()``),
+        built on the host by the C++ library of ``ops.graph``, each padded
+        to the ``bucket_size`` of its edge count: ``edges_knn<k>`` and
+        ``edges_w<d>`` with their ``edge_mask_*``. Where the block carries
+        them already (a ``GraphDataset`` cache), its live edges are
+        re-padded to this batch's bucket. Adds the build's host-clock
+        seconds to ``edge_build_s``."""
+        if not self.is_graph:
+            return
+        t0 = time.perf_counter()
+        coords = block.coords
+        n = coords.shape[0]
+        pos = coords[:, :2].astype(np.float64)
+        batch_col = coords[:, -1].astype(np.int64)
+        extras = block.extras or {}
+        seen = set()
+        for req in self.model.edge_requirements():
+            key = f"knn{req[1]}" if req[0] == "knn" else f"w{req[1]}"
+            if key in seen:
+                continue
+            seen.add(key)
+            cached = extras.get(f"edges_{key}")
+            cached_mask = extras.get(f"edge_mask_{key}")
+            if cached is not None and cached_mask is not None:
+                edges = np.asarray(cached)[:, np.asarray(cached_mask, dtype=bool)]
+            elif n == 0:
+                edges = np.zeros((2, 0), np.int64)
+            elif req[0] == "knn":
+                edges = knn_graph(pos, req[1], batch_col, loop=req[2])
+            else:
+                edges = window_edges(coords[:, :2], batch_col, max_dist=req[1],
+                                     self_loops=req[2])
+            out[f"edges_{key}"], out[f"edge_mask_{key}"] = pad_edges(
+                edges, bucket_size(max(1, edges.shape[1])))
+        self.edge_build_s += time.perf_counter() - t0
 
     def add_row_plans(self, out: Dict[str, np.ndarray], n_events: int) -> None:
         """Host-build the plans the model requires (they depend on coords
@@ -245,11 +294,21 @@ class TaskBase:
             f = f.to(torch.bfloat16)
         return f
 
+    def model_inputs(self, db: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A graph model's input: the whole device batch, its features as
+        ``_features`` gives them."""
+        out = dict(db)
+        out["feats"] = self._features(db)
+        return out
+
     def forward_model(self, db: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The model over a device batch, in the mode it is in: the sparse
         nets take the batch's ``SparseBatch`` (``generator`` in it, for
-        dropout in train mode)."""
+        dropout in train mode), the graph models the batch itself
+        (``model_inputs``)."""
+        if self.is_graph:
+            return self.model(self.model_inputs(db))
         return self.model(self.sparse_batch(db, generator))
 
     @torch.no_grad()

@@ -235,13 +235,15 @@ class LitZ(TaskBase):
                       event_bucket: int) -> Dict[str, np.ndarray]:
         """The rows padded with their labels (``labels_rows``, padding rows
         0) and extras; ``labels`` and ``label_mask`` zeros over the event
-        bucket, which fix the batch's event count; the model's plans."""
+        bucket, which fix the batch's event count; a graph model's edge
+        lists; the model's plans."""
         coords, feats, mask, y = pad_sparse(block.coords, block.feats, row_bucket,
                                             labels=block.labels)
         out = {"coords": coords, "feats": feats, "mask": mask, "labels_rows": y,
                "labels": np.zeros((event_bucket,), dtype=np.float32),
                "label_mask": np.zeros((event_bucket,), dtype=bool)}
         self.add_row_extras(block, out, row_bucket)
+        self.add_graph_edges(block, out)
         self.add_row_plans(out, event_bucket)
         return out
 

@@ -5,7 +5,8 @@ waveformml_tpu/inference/model.py).
 event bucket, builds the model's plans on the host and packs the whole
 prepared batch into one pinned host buffer (``engineering.base.pack_db``).
 On the card, each layout of that buffer (the row bucket, the event bucket,
-the site capacity, the dtypes) is captured once as a CUDA graph, the JAX
+the site capacity, a graph model's edge caps, the dtypes) is captured
+once as a CUDA graph, the JAX
 package's compiled program per layout; every chunk then costs one copy in
 to that graph's static buffer, one replay and an asynchronous copy of the
 outputs into pinned host memory, with nothing waiting for the card until
@@ -121,11 +122,15 @@ class InferenceModel:
         self.graphs: Dict[PackSpec, _Graph] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         #: host-clock seconds summed over calls: host prep (pad, plans,
-        #: pack), the copy in, the launch (a graph replay and the enqueue of
-        #: the copy out on the card; the eager forward on the CPU) and the
-        #: fetch (wait for the outputs, un-pad)
+        #: a graph model's edges, pack), the copy in, the launch (a graph
+        #: replay and the enqueue of the copy out on the card; the eager
+        #: forward on the CPU) and the fetch (wait for the outputs, un-pad);
+        #: for a graph model also ``edge_build_s``, the part of host prep
+        #: that built its edges
         self.dispatch_phases = {"host_prep_s": 0.0, "h2d_s": 0.0,
                                 "launch_s": 0.0, "fetch_s": 0.0}
+        if self.task.is_graph:
+            self.dispatch_phases["edge_build_s"] = 0.0
         #: host-clock seconds of warming up and capturing new layouts
         self.capture_s = 0.0
         # guards the counters that concurrent fetches update
@@ -194,7 +199,10 @@ class InferenceModel:
         block = FileBlock(coords=np.asarray(coords, dtype=np.int32), feats=vals,
                           labels=labels)
         rb, eb = self.task.row_bucket(block), self.task.event_bucket(block)
+        edge_s = self.task.edge_build_s
         db = self.task.prepare_block(block, rb, eb)
+        if self.task.is_graph:
+            self.dispatch_phases["edge_build_s"] += self.task.edge_build_s - edge_s
         if self.device.type == "cpu":
             t1 = time.perf_counter()
             dev = self.task.to_device(db)

@@ -18,6 +18,12 @@ as one node of its graph. They are registered through the dispatcher's
 own API (``torch.library.Library``) rather than ``torch.library.custom_op``,
 whose Python autograd and aliasing wrappers add tens of µs of host time to
 every call (``chip_smoke.py``'s dispatch timing, PERF.md §6).
+
+Host code in C++ (``csrc/<name>.cpp``, plain C interface; the graph edge
+construction of ``ops/graph.py``) is built the same way by ``g++ -O3 -fopenmp
+-shared -fPIC`` (``load_host``) into the same directory. A host build that
+fails raises ``KernelError``: nothing falls back to another version
+quietly.
 """
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -36,6 +43,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "waveformml_tpu_torc
 SOURCES = ("row_conv", "row_conv_wgrad", "site_head", "site_head_bwd", "waveform_features")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+#: ctypes types of a host library's arguments and results, by the names
+#: ``load_host`` takes (a ``ptr`` is a numpy array's ``ctypes.data``)
+_HOST_TYPES = {"i64": ctypes.c_int64, "bool": ctypes.c_bool, "ptr": ctypes.c_void_p,
+               "void": None}
+#: seconds each host library took to build in this process, by name
+HOST_BUILDS: Dict[str, float] = {}
 
 #: the ``torch.library`` namespace of the port's kernels
 NAMESPACE = "waveformml"
@@ -158,3 +173,44 @@ def count_launches(fn: Callable, grids: int) -> None:
         fn.captured += grids
     else:
         fn.launches += grids
+
+
+def host_library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def load_host(name: str, functions: Dict[str, Tuple[str, Sequence[str]]]) -> ctypes.CDLL:
+    """The loaded host library ``csrc/<name>.cpp``, built first with g++
+    where it is not built yet (to a file of this process, then renamed into
+    place, so that processes building it at once never load half a file).
+    ``functions`` maps each function to its result and argument types, by
+    the names of ``_HOST_TYPES``. Raises ``KernelError`` where g++ is
+    missing or the build fails."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    so = host_library_path(name)
+    if not so.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise KernelError(f"g++ not found: cannot build the host library {name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([gxx, *GXX_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelError(f"host library {name}: g++ exited {proc.returncode}\n"
+                              f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+        HOST_BUILDS[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for fn_name, (restype, argtypes) in functions.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = _HOST_TYPES[restype]
+        fn.argtypes = [_HOST_TYPES[a] for a in argtypes]
+    _LIBS[name] = lib
+    return lib

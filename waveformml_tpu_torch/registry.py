@@ -82,11 +82,12 @@ registry = Registry()
 
 def retrieve_class(name: str) -> Any:
     """Resolve a config class name after importing the modules whose import
-    registers the port's classes (models, the grid ops' spconv names,
+    registers the port's classes (models, graph models, the grid ops' spconv names,
     tasks, criteria, optimizers, schedulers, datasets and data modules, the
     algorithm DSL's layers)."""
     for mod in ("waveformml_tpu_torch.models.nets",
                 "waveformml_tpu_torch.models.waveform_models",
+                "waveformml_tpu_torch.models.graph_net",
                 "waveformml_tpu_torch.models.algorithm",
                 "waveformml_tpu_torch.nn.layers",
                 "waveformml_tpu_torch.ops.sparse_conv",
@@ -94,6 +95,7 @@ def retrieve_class(name: str) -> Any:
                 "waveformml_tpu_torch.nn.functional",
                 "waveformml_tpu_torch.optim",
                 "waveformml_tpu_torch.datasets.pulse_dataset",
-                "waveformml_tpu_torch.datasets.data_module"):
+                "waveformml_tpu_torch.datasets.data_module",
+                "waveformml_tpu_torch.datasets.graph_dataset"):
         importlib.import_module(mod)
     return registry.retrieve_class(name)
