@@ -85,6 +85,23 @@ order, it:
    memory, and the study's wall (CombineData and ValidateCombined are
    host tools over HDF5 files, which need h5py: they are held on the CPU
    only, in tests/test_torch_combine.py);
+8c. trains SubMPSD.json data-parallel: (a) through the CLI's ``run`` with
+   ``--distributed --num_processes 1`` (one NCCL rank on the card, every
+   all-reduce of the data-parallel step on one rank), 2 epochs × 4 steps
+   over in-memory blocks, against the same ``run`` without a group from
+   the same seeded init (fit metrics and the best checkpoint within rtol
+   1e-5), K1, K2, K4 and K5 launched; (b) two ranks sharing the card over
+   Gloo with CUDA tensors (Gloo stages them through the host: a check of
+   the results, not of speed), each its own process started by this
+   script, each on 2048 events of each of 4 blocks of 4096 events and of
+   the validation block, against one process on the whole blocks from the
+   same weights (each step's loss, and each weight's and running
+   statistic's change over the 4 steps, held to the one process's within
+   limits set between the reading of one process with each event's rows
+   reordered and that of a planted fault); prints each rank's launches of K1, K2, K4 and
+   K5 (each that of its steps and validation), its step walls and the
+   all-reduces' share of them (``--dp-ranks N``, below, runs the ranks
+   one a card over NCCL);
 9. runs the per-segment regressors as shipped, from seeded random weights
    (BatchNorm statistics of one train-mode forward): SingleEndedZCNN.json
    (150-sample pairs; conv 300→150 3×3 and 150→1 on the dense grid, cuDNN
@@ -209,6 +226,10 @@ order, it:
    row stack's forward and backward), the
    card line again, and as its last line ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --dp-ranks N`` runs phase 8c (b)'s check alone
+with N ranks over NCCL, one a card (``dp_main``; N cards needed, e.g. a
+4-card machine), and ends with the same last line.
+
 Any failure raises, so the script exits non-zero without the last line.
 Without CUDA, or outside a checkout, it exits non-zero before printing any
 result. Times are CUDA-event medians of CUDA-graph replays (device time
@@ -222,6 +243,7 @@ import importlib.util
 import io
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -2971,6 +2993,334 @@ def run_hpo(model, train, val) -> None:
           f"evaluate.run", flush=True)
 
 
+# -- data-parallel training --------------------------------------------------------------
+
+#: two ranks against one process on the whole blocks, from the same weights:
+#: each tensor's change over the steps (final − init, ``delta_reading``)
+#: within DP_DELTA_LIMIT of one process's, relative to the change, and each
+#: step's loss within DP_LOSS_RTOL. Both limits lie between two readings of
+#: this phase on an NVIDIA H100 80GB HBM3 at 700 W: one process with each
+#: event's rows reordered (float32 rounding alone: changes 1.08e-05 to
+#: 1.24e-05 apart, losses equal) and the ranks (1.51e-05, 1.53e-05, losses
+#: equal), against faults planted in a copy: the BatchNorm all-reduce's
+#: backward the identity (24.5; losses 4.29e-06 apart) and the gradients
+#: averaged over the ranks, not summed (0.527; losses 2.42e-02 apart)
+DP_DELTA_LIMIT, DP_LOSS_RTOL = 1e-3, 1e-6
+#: a group of one against no group (phase 8c a): rtol 1e-5, atol 1e-6 (K1's
+#: atomics vary the last bits from run to run)
+DP_NCCL_RTOL, DP_NCCL_ATOL = 1e-5, 1e-6
+DP_STEPS = 4
+DP_TIMEOUT_S = 300
+#: the ranks of phase 8c (b), all on the one card
+DP_DEVICES = ("cuda:0", "cuda:0")
+
+DP_RANK_SCRIPT = r"""
+import json
+import pickle
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+from waveformml_tpu_torch.config import Config
+from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+from waveformml_tpu_torch.engineering.trainer import Trainer
+from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgrad
+from waveformml_tpu_torch.ops.site_head import site_grouped_matmul, site_grouped_matmul_bwd
+from waveformml_tpu_torch.parallel.mesh import initialize_distributed
+from waveformml_tpu_torch.registry import retrieve_class
+
+job_path, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+with open(job_path, "rb") as f:
+    job = pickle.load(f)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+device = torch.device(job["devices"][rank])
+sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+initialize_distributed(job["init_method"], world, rank, backend=job["backend"], device=device)
+# every all-reduce timed on the host clock, the card synchronised before and
+# after it; those of the training epoch (bucket agreement, BatchNorm sums
+# forward and backward, the weight, the gradients) summed by step
+spent = {"train_s_by_step": [], "train_calls": 0, "all_s": 0.0, "all_calls": 0}
+in_train = [False]
+all_reduce = dist.all_reduce
+
+
+def timed_all_reduce(*args, **kwargs):
+    sync()
+    t0 = time.perf_counter()
+    out = all_reduce(*args, **kwargs)
+    sync()
+    dt = time.perf_counter() - t0
+    spent["all_s"] += dt
+    spent["all_calls"] += 1
+    if in_train[0]:
+        spent["train_s_by_step"][-1] += dt
+        spent["train_calls"] += 1
+    return out
+
+
+dist.all_reduce = timed_all_reduce
+cfg = Config(job["config"])
+task = retrieve_class(cfg.run_config.run_class)(cfg, device)
+task.model.load_state_dict(job["state"])
+trainer = Trainer(cfg, task, device=device, max_epochs=1)
+train_epoch = trainer._train_epoch
+
+
+def counted_train_epoch(loader):
+    in_train[0] = True
+    try:
+        return train_epoch(loader)
+    finally:
+        in_train[0] = False
+
+
+trainer._train_epoch = counted_train_epoch
+loop_batch = trainer._loop_batch
+
+
+def step_loop_batch(block):
+    # a training step starts with its batch (the buckets' agreement)
+    if in_train[0]:
+        spent["train_s_by_step"].append(0.0)
+    return loop_batch(block)
+
+
+trainer._loop_batch = step_loop_batch
+kernels = (subm_conv_rows, site_grouped_matmul, subm_conv_rows_wgrad, site_grouped_matmul_bwd)
+sync()
+for fn in kernels:
+    fn.launches = 0
+t0 = time.perf_counter()
+metrics = trainer.fit(BlockDataModule(job["train"], job["val"]))
+sync()
+wall = time.perf_counter() - t0
+launches = {fn.__name__: fn.launches for fn in kernels}
+torch.save({k: v.cpu() for k, v in task.model.state_dict().items()},
+           f"{job_path}.rank{rank}.pt")
+dist.destroy_process_group()
+print(json.dumps({"rank": trainer.rank, "world_size": trainer.world_size,
+                  "launches": launches, "step_losses": trainer.step_losses,
+                  "metrics": metrics, "fit_wall_s": wall,
+                  "step_wall_s": [p["wall_s"] for p in trainer.step_phases],
+                  "events": [p["events"] for p in trainer.step_phases],
+                  **spent}), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def delta_reading(got, want, init) -> float:
+    """How far ``got`` moved from ``init`` otherwise than ``want`` did: the
+    largest over the float tensors of ||got − want||₂ over the change
+    ||want − init||₂, the change floored at the median tensor's change per
+    element (a conv bias ahead of a BatchNorm has a zero gradient, so its
+    change is float32 rounding alone and is held to that floor)."""
+    keys = [k for k, w in want.items() if w.is_floating_point()]
+    moved = {k: float((want[k].double() - init[k].double()).norm()) / want[k].numel() ** 0.5
+             for k in keys}
+    floor = float(np.median(list(moved.values())))
+    return max(float((got[k].double() - want[k].double()).norm())
+               / (want[k].numel() ** 0.5 * max(moved[k], floor)) for k in keys)
+
+
+def loss_reading(got, want) -> float:
+    """The largest |got − want| / |want| over the steps."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.abs(want)).max())
+
+
+def states_close(got, want, rtol: float, atol: float, label: str) -> float:
+    """Assert every element of each tensor of ``got`` within ``atol + rtol
+    · |want|``; returns the largest |difference| over that bound (≤ 1)."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.float().cpu()
+        ratio = float(((got[k].float().cpu() - w).abs() / (atol + rtol * w.abs())).max())
+        assert ratio <= 1.0, (label, k, ratio)
+        worst = max(worst, ratio)
+    return worst
+
+
+def reorder_rows(block, seed: int):
+    """``block`` with the rows of each event in another order (the events
+    and their order kept)."""
+    from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
+
+    key = np.random.default_rng(seed).permutation(block.coords.shape[0])
+    order = np.lexsort((key, block.coords[:, -1]))
+    return FileBlock(block.coords[order], block.feats[order], block.labels, {})
+
+
+def run_dp_nccl(cfg, train, val) -> None:
+    """Phase 8c (a): SubMPSD.json through the CLI's ``run`` with
+    ``--distributed --num_processes 1`` (one NCCL rank on the card: every
+    all-reduce of the data-parallel step runs, on one rank) against the
+    same ``run`` without ``--distributed``, from the same seeded init, 2
+    epochs × 4 steps over in-memory blocks: the fit metrics within
+    DP_NCCL_RTOL, the best checkpoints' weights within rtol DP_NCCL_RTOL, atol
+    DP_NCCL_ATOL; K1, K2, K4 and K5 launched in the group's run."""
+    from waveformml_tpu_torch import main as cli
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(CONFIG) as f:
+            d = json.load(f)
+        d["system_config"]["model_base_path"] = os.path.join(tmp, "model")
+        path = os.path.join(tmp, "SubMPSD.json")
+        with open(path, "w") as f:
+            json.dump(d, f)
+        out = {}
+        for mode in ("one device", "NCCL group of one"):
+            argv = [path, "--max_epochs", "2"]
+            if mode != "one device":
+                argv += ["--distributed", "--coordinator", f"localhost:{free_port()}",
+                         "--num_processes", "1", "--process_id", "0"]
+            args = cli.build_parser().parse_args(argv)
+            torch.manual_seed(SEED + 81)        # the same init in both runs
+            zero_counts()
+            t0 = time.perf_counter()
+            res = cli.run(load_config(path), args, BlockDataModule(train, val, val))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            assert all(launches[k] > 0 for k in ("subm_conv_rows", "site_grouped_matmul",
+                                                 "subm_conv_rows_wgrad",
+                                                 "site_grouped_matmul_bwd")), launches
+            ckpts = [p for p in os.listdir(res["log_dir"]) if p.endswith(".ckpt")]
+            assert len(ckpts) == 1, ckpts
+            state = torch.load(os.path.join(res["log_dir"], ckpts[0]), map_location="cpu",
+                               weights_only=True)["state_dict"]
+            out[mode] = (res["fit"], state, launches, wall)
+            print(f"phase 8c (a), {mode}: run() of 2 epochs in {wall:.3f} s (wall, host "
+                  f"clock); launches {launches}; fit {res['fit']}", flush=True)
+        import torch.distributed as dist
+
+        assert not dist.is_initialized(), "run() left its process group"
+        (fit0, st0, n0, _), (fit1, st1, n1, _) = out.values()
+        assert n0 == n1, (n0, n1)
+        for k, v in fit0.items():
+            assert abs(fit1[k] - v) <= DP_NCCL_RTOL * abs(v) + 1e-6, (k, fit1[k], v)
+        worst = states_close(st1, st0, DP_NCCL_RTOL, DP_NCCL_ATOL, "8c (a)")
+        print(f"phase 8c (a): the NCCL group of one matches one device: fit metrics within "
+              f"rtol {DP_NCCL_RTOL}, the best checkpoint's weights at {worst:.3g} of the "
+              f"bound (rtol {DP_NCCL_RTOL}, atol {DP_NCCL_ATOL}); the same launches",
+              flush=True)
+
+
+def run_dp_ranks(cfg, state, train, val, devices, backend: str, tag: str) -> None:
+    """Data-parallel ranks, one a device of ``devices`` (phase 8c (b): two
+    ranks sharing the card over Gloo, which stages CUDA tensors through the
+    host; ``--dp-ranks N``: N cards over NCCL), each started as a process
+    of its own (``DP_RANK_SCRIPT``), each on its share of the events of
+    each of DP_STEPS 4096-event blocks (``split_block_for_devices``; the
+    Trainer reads the shards round-robin) and of the validation block,
+    against this process (``make_trainer``, the kernels) on the whole
+    blocks, from the same weights: every step's loss and the final weights
+    and running statistics within the DP tolerances, the ranks' losses
+    equal; each rank's K1, K2, K4 and K5 launches equal to
+    ``training_launches`` of its steps and validation; prints each rank's
+    launches, its step wall and the all-reduces' share of it."""
+    from waveformml_tpu_torch.config import to_dict
+    from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
+    from waveformml_tpu_torch.parallel.mesh import split_block_for_devices
+
+    blocks, vblock = train[:DP_STEPS], val[:1]
+    zero_counts()
+    one = make_trainer(cfg, state, plain=False, max_epochs=1)
+    one_metrics = one.fit(BlockDataModule(blocks, vblock))
+    torch.cuda.synchronize()
+    want = training_launches(one.task.model, DP_STEPS, 1)
+    assert read_counts() == want, (read_counts(), want)
+    one_state = {k: v.detach().cpu() for k, v in one.task.model.state_dict().items()}
+    # the same process again with each event's rows reordered: how far
+    # float32 rounding alone moves the weights
+    reordered = make_trainer(cfg, state, plain=False, max_epochs=1)
+    reordered.fit(BlockDataModule([reorder_rows(b, SEED + 82) for b in blocks], vblock))
+    init = {k: v.detach().cpu() for k, v in state.items()}
+    rounding = delta_reading({k: v.detach().cpu() for k, v in
+                              reordered.task.model.state_dict().items()}, one_state, init)
+    rounding_loss = loss_reading(reordered.step_losses, one.step_losses)
+    n = len(devices)
+    shards = [split_block_for_devices(b, n) for b in blocks]
+    assert all(h.labels.shape[0] == EVENTS_PER_CHUNK // n for hs in shards for h in hs)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job")
+        with open(job, "wb") as f:
+            pickle.dump({"init_method": f"file://{tmp}/rendezvous", "devices": list(devices),
+                         "backend": backend, "config": to_dict(cfg),
+                         "state": {k: v.detach().cpu() for k, v in state.items()},
+                         "train": [h for hs in shards for h in hs],
+                         "val": split_block_for_devices(vblock[0], n)}, f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", DP_RANK_SCRIPT, job, str(r), str(n)],
+                                  cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for p, (so, se) in zip(procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"a data-parallel rank exited {p.returncode}:\n{se[-6000:]}")
+        ranks = [json.loads([ln for ln in so.splitlines() if ln.startswith("{")][-1])
+                 for so, _ in outs]
+        states = [torch.load(f"{job}.rank{r}.pt", weights_only=True) for r in range(n)]
+    print(f"phase {tag}: {n} ranks over {backend} on {sorted(set(devices))}, {DP_STEPS} steps "
+          f"of {EVENTS_PER_CHUNK // n} events a rank, in {wall:.2f} s (wall, host clock, the "
+          f"processes' start and the kernels' loading included)", flush=True)
+    deltas = [delta_reading(st, one_state, init) for st in states]
+    loss_err = loss_reading(ranks[0]["step_losses"], one.step_losses)
+    # the readings first, so that a run that fails shows them
+    print(f"phase {tag}: against one process on the whole blocks (metrics {one_metrics}): "
+          f"the change of the weights and running statistics over {DP_STEPS} steps at "
+          f"{max(deltas):.3g} of one process's (worst tensor, L2; limit {DP_DELTA_LIMIT}), the "
+          f"losses at {loss_err:.3g} (relative; limit {DP_LOSS_RTOL}); one process with each "
+          f"event's rows reordered: {rounding:.3g} and {rounding_loss:.3g}; one process's "
+          f"steps {[round(p['wall_s'] * 1e3, 3) for p in one.step_phases]} ms", flush=True)
+    for r, info in enumerate(ranks):
+        steps, reduced = info["step_wall_s"], info["train_s_by_step"]
+        assert len(reduced) == len(steps), (reduced, steps)
+        median_ms = statistics.median(steps[1:]) * 1e3
+        # the first step holds the group's first exchanges: its own line
+        print(f"phase {tag} rank {r} ({devices[r]}): launches {info['launches']}; change at "
+              f"{deltas[r]:.3g} of one process's; step walls "
+              f"{[round(t * 1e3, 3) for t in steps]} ms (median of steps 1-{len(steps) - 1} "
+              f"{median_ms:.3f} ms); all-reduces a step {[round(t * 1e3, 3) for t in reduced]} "
+              f"ms ({info['train_calls']} calls in the training epoch, each timed between two "
+              f"synchronisations of the card), {sum(reduced[1:]) / sum(steps[1:]):.1%} of "
+              f"steps 1-{len(steps) - 1}'s wall; fit {info['fit_wall_s']:.3f} s with "
+              f"{info['all_calls']} all-reduces taking {info['all_s'] * 1e3:.3f} ms; "
+              f"metrics {info['metrics']}", flush=True)
+    assert all(r["step_losses"] == ranks[0]["step_losses"] for r in ranks), ranks
+    assert loss_err <= DP_LOSS_RTOL, (loss_err, ranks[0]["step_losses"], one.step_losses)
+    for r, info in enumerate(ranks):
+        assert info["rank"] == r and info["world_size"] == n, info
+        assert info["launches"] == {k: v for k, v in want.items() if k in info["launches"]}, (
+            info["launches"], want)
+        assert all(v > 0 for v in info["launches"].values()), info["launches"]
+        assert deltas[r] <= DP_DELTA_LIMIT, (tag, r, deltas[r])
+    print(f"phase {tag}: the ranks' losses equal, and match one process's", flush=True)
+
+
 # -- the prediction writers ------------------------------------------------------------
 
 def writer_configs(tmp: str) -> dict:
@@ -4024,6 +4374,60 @@ def run_analyze(chunks, n_samples: int) -> int:
     return launches["waveform_features"]
 
 
+def seeded_submpsd(cfg):
+    """SubMPSD.json's net from seeded random weights, its head's bias too
+    (initialisation leaves it zero, which K2 adds)."""
+    from waveformml_tpu_torch.models.nets import SubMPSDNet
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = SubMPSDNet(cfg, generator=gen)
+    with torch.no_grad():
+        model.head0.bias.normal_(generator=gen)
+    return model
+
+
+def dp_main(n: int, gloo: bool = False) -> int:
+    """``python3 chip_smoke.py --dp-ranks N [--gloo]``: the data-parallel
+    ranks of phase 8c (b) alone (``run_dp_ranks``), one a card over NCCL,
+    N cards needed, or with ``--gloo`` all N on card 0 over Gloo, as the
+    phase runs them; the same last line as ``main``."""
+    cards_needed = 1 if gloo else n
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards_needed:
+        print(f"chip_smoke --dp-ranks {n}: needs {cards_needed} CUDA card(s)", file=sys.stderr)
+        return 1
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block
+    from waveformml_tpu_torch.ops import native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout
+    print(cards.strip(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    reports = native.build()
+    print(f"build: nvcc {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = load_config(CONFIG)
+    state = seeded_submpsd(cfg).state_dict()
+    train_rng = np.random.default_rng(SEED + 4)
+    n_samples = cfg.system_config.n_samples
+    train = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples)
+             for _ in range(TRAIN_CHUNKS)]
+    val = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+    if gloo:
+        run_dp_ranks(cfg, state, train, val, ["cuda:0"] * n, "gloo", f"--dp-ranks {n} --gloo")
+    else:
+        run_dp_ranks(cfg, state, train, val, [f"cuda:{r}" for r in range(n)], "nccl",
+                     f"--dp-ranks {n}")
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4036,7 +4440,6 @@ def main() -> int:
     from waveformml_tpu_torch.engineering.base import pack_db
     from waveformml_tpu_torch.inference.model import InferenceModel
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
-    from waveformml_tpu_torch.models.nets import SubMPSDNet
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
     from waveformml_tpu_torch.ops import native
     from waveformml_tpu_torch.ops.row_conv import subm_conv_rows
@@ -4076,11 +4479,7 @@ def main() -> int:
               for i in range(N_CHUNKS)]
     inputs = [(ch["coords"], (ch["waveforms"] / MAX_RANGE).astype(np.float32))
               for ch in chunks]
-    gen = torch.Generator().manual_seed(SEED)
-    model = SubMPSDNet(cfg, generator=gen)
-    with torch.no_grad():
-        # initialisation leaves the head's bias zero, which K2 now adds
-        model.head0.bias.normal_(generator=gen)
+    model = seeded_submpsd(cfg)
     state = model.state_dict()
     server = InferenceModel(cfg, state)
     t0 = time.perf_counter()
@@ -4310,6 +4709,11 @@ def main() -> int:
           "tests/test_torch_combine.py holds them to the JAX package's on the CPU", flush=True)
     lap("the profiler and the hyperparameter study (phase 8b)")
 
+    # -- 8c. data-parallel training -------------------------------------------------
+    run_dp_nccl(cfg, train, val)
+    run_dp_ranks(cfg, state, train, val, DP_DEVICES, "gloo", "8c (b)")
+    lap("data-parallel training (phase 8c)")
+
     # -- 9. the per-segment regressors -----------------------------------------
     z_train, z_val = run_z()
     segq, segq_launches = run_segq()
@@ -4410,4 +4814,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-ranks"]:
+        sys.exit(dp_main(int(sys.argv[2]), "--gloo" in sys.argv[3:]))
     sys.exit(main())

@@ -5,9 +5,11 @@ directories are named as the JAX CLI names them (the JAX package's
 when a run resumes), each holds ``run_info.json``, the TensorBoard scalars
 and the best checkpoint; ``fit:`` and ``test:`` print the JAX CLI's keys;
 ``-lb`` and ``-lc … -r`` start from a checkpoint (``-r`` resuming at its
-epoch), ``-lb`` without one raises ``IOError``, and ``--distributed``,
-not ported yet, raises ``NotImplementedError`` (``-oc`` and ``--profiler``
-are held in tests/test_torch_hpo.py and tests/test_torch_profiler.py)."""
+epoch), ``-lb`` without one raises ``IOError``, and the GSPMD engine's
+flags, not ported yet, raise ``NotImplementedError`` before any rendezvous
+(``-oc`` and ``--profiler`` are held in tests/test_torch_hpo.py and
+tests/test_torch_profiler.py, ``--distributed`` in
+tests/test_torch_distributed.py)."""
 import ast
 import glob
 import json
@@ -145,7 +147,8 @@ def test_load_best_without_checkpoint_raises(workdir):
         cli.main([path, "-lb", "--max_epochs", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["--distributed"]], ids=lambda f: f[0].lstrip("-"))
+@pytest.mark.parametrize("flags", [["--distributed", "--parallel", "gspmd"], ["--tp", "2"]],
+                         ids=lambda f: f[0].lstrip("-"))
 def test_flags_not_ported_raise(workdir, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
         cli.main([workdir["config"], "--device", "cpu", *flags])

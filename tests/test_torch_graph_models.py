@@ -401,7 +401,7 @@ def test_config_names_resolve():
     ``PSDDataModule``."""
     from waveformml_tpu_torch.config import validate_config
     from waveformml_tpu_torch.datasets.data_module import GraphDataModule, PSDDataModule
-    from waveformml_tpu_torch.main import NOT_PORTED, choose_data_module
+    from waveformml_tpu_torch.main import choose_data_module
     from waveformml_tpu_torch.registry import retrieve_class
 
     for net_type in ("Graph", "graph"):
@@ -416,7 +416,6 @@ def test_config_names_resolve():
                  "GraphNet.PointNet", "GraphNet.Graph3DNet", "GraphDataModule.GraphDataModule",
                  "GraphDataset"):
         assert retrieve_class(name) is not None
-    assert list(NOT_PORTED) == ["distributed"]
 
 
 # -- the dynamic convs ------------------------------------------------------------------

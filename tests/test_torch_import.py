@@ -62,7 +62,8 @@ def test_import_loads_no_jax():
                  "engineering.tasks", "evaluation.tensor_eval", "evaluation.waveform_eval",
                  "optimization", "optimization.hpo", "utils.profiler", "combine_data",
                  "scripts.validate_combined", "scripts.eval_best_trials", "ops.graph",
-                 "models.graph_layers", "models.graph_net", "datasets.graph_dataset"):
+                 "models.graph_layers", "models.graph_net", "datasets.graph_dataset",
+                 "parallel", "parallel.mesh", "nn.bn", "main"):
         assert f"waveformml_tpu_torch.{name}" in names, name
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -88,7 +89,8 @@ def test_sources_do_not_refer_to_jax():
                  "optimization/__init__.py", "optimization/hpo.py", "utils/profiler.py",
                  "combine_data.py", "scripts/validate_combined.py", "scripts/eval_best_trials.py",
                  "ops/graph.py", "models/graph_layers.py", "models/graph_net.py",
-                 "datasets/graph_dataset.py"):
+                 "datasets/graph_dataset.py", "parallel/__init__.py", "parallel/mesh.py",
+                 "nn/bn.py", "main.py"):
         assert os.path.join(PORT, name) in files, name
     for name in H5PY_LOADERS:
         assert os.path.join(ROOT, name) in files, name

@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_cache.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -449,17 +450,17 @@ int copy_width(int count, const void* ptr) {
 // shared-memory carveout, so that several blocks fit on an SM.
 template <int MT>
 cudaError_t configure(size_t smem) {
-  static size_t configured = 0;   // dynamic shared memory allowed so far
-  if (smem <= configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(subm_conv_rows_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(subm_conv_rows_kernel<MT>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) configured = smem;
-  return err;
+  static DeviceCache configured;   // dynamic shared memory allowed so far, per device
+  return raise_per_device(configured, smem, [smem] {
+    cudaError_t err = cudaFuncSetAttribute(subm_conv_rows_kernel<MT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(subm_conv_rows_kernel<MT>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    return err;
+  });
 }
 
 template <int MT>

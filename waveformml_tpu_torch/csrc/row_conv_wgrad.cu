@@ -75,6 +75,7 @@
 
 #include <algorithm>
 
+#include "device_cache.cuh"
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -512,13 +513,11 @@ int launch_centre(const Geometry& geo, const float* feats, const int32_t* plan, 
                   const uint8_t* mask, float* partial, int2* lists, int* counts, int n, int cin,
                   int cout, int kk, cudaStream_t stream) {
   auto kernel = wgrad_centre_kernel<MT, NTW>;
-  static int configured = 0;   // dynamic shared memory allowed so far
-  if (geo.smem > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = geo.smem;
-  }
+  static DeviceCache configured;   // dynamic shared memory allowed so far, per device
+  const cudaError_t err = raise_per_device(configured, geo.smem, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(geo.blocks, geo.ci_tiles * geo.co_tiles);
   config.blockDim = dim3(THREADS);
@@ -595,13 +594,15 @@ int subm_conv_rows_wgrad(const float* feats, const int32_t* plan, const float* g
   const int tiles_o = ceil_div(cout, TO);
   const int tap_blocks = (kk - 1) * ceil_div(cin, TI) * tiles_o;
   const size_t smem = sizeof(int) * ((size_t)blocks + 1);
-  static size_t allowed =   // dynamic shared memory allowed so far, beside the static
-      48 * 1024 - sizeof(float) * 2 * BR2 * TI - sizeof(int) * (2 * WINDOW + WARPS);
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wgrad_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // dynamic shared memory a launch may use without the attribute, beside the static
+  const size_t unset = 48 * 1024 - sizeof(float) * 2 * BR2 * TI - sizeof(int) * (2 * WINDOW + WARPS);
+  static DeviceCache allowed;   // dynamic shared memory allowed so far, per device
+  if (smem > unset) {
+    const cudaError_t err = raise_per_device(allowed, smem, [smem] {
+      return cudaFuncSetAttribute(wgrad_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem));
+    });
     if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
   }
   // a programmatic dependent launch: its blocks start while grid 1 runs and
   // wait for it (griddepcontrol.wait) before reading anything

@@ -75,6 +75,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_cache.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -382,14 +383,15 @@ site_grouped_matmul_tiled_kernel(const float* __restrict__ rows,
   if (!waited) asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// Allow `smem` bytes of dynamic shared memory for kernel `fn`.
+// Allow `smem` bytes of dynamic shared memory for kernel `fn` on the
+// current device; `allowed` is what has been allowed so far, per device.
 template <typename Fn>
-cudaError_t allow_smem(Fn* fn, size_t smem, size_t& allowed) {
-  if (smem <= allowed || smem <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-  if (err == cudaSuccess) allowed = smem;
-  return err;
+cudaError_t allow_smem(Fn* fn, size_t smem, DeviceCache& allowed) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return raise_per_device(allowed, smem, [fn, smem] {
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  });
 }
 
 // A programmatic dependent launch of `kernel`, whose blocks wait for the
@@ -412,12 +414,10 @@ int launch_dependent(Kernel* kernel, dim3 grid, size_t smem, cudaStream_t st, Ar
 int launch_tiled(const float* rows, const float* k3, const int32_t* take1, const int32_t* ev1,
                  const int32_t* site1, float* out, int groups, int max_slots, int c, int s,
                  int f, int ldo, int n_events, cudaStream_t st) {
-  static int optin = 0;
-  if (optin == 0) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  static DeviceCache optin_cache;   // the opt-in limit, read once a device
+  size_t optin = 0;
+  {
+    const cudaError_t err = optin_smem(optin_cache, &optin);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // the weight tile and two chunks of rows: the largest power-of-two chunk
@@ -426,11 +426,11 @@ int launch_tiled(const float* rows, const float* k3, const int32_t* take1, const
   const size_t static_bytes = sizeof(int) * (2 * THREADS + WARPS);
   auto smem_of = [&](int kr) { return sizeof(float) * ((size_t)c8 * FTS + 2 * (size_t)kr * lr); };
   int kr = KR;
-  while (kr > 16 && smem_of(kr) + static_bytes > static_cast<size_t>(optin)) kr /= 2;
+  while (kr > 16 && smem_of(kr) + static_bytes > optin) kr /= 2;
   const size_t smem = smem_of(kr);
-  if (smem + static_bytes > static_cast<size_t>(optin))
+  if (smem + static_bytes > optin)
     return static_cast<int>(cudaErrorInvalidValue);
-  static size_t allowed = 0;
+  static DeviceCache allowed;
   const cudaError_t err = allow_smem(site_grouped_matmul_tiled_kernel, smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_rows = c % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;

@@ -92,6 +92,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_cache.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -711,14 +712,15 @@ site_head_bwd_tiled_kernel(const float* __restrict__ d_out, const float* __restr
                   (site * gridDim.y + ct) * gridDim.z + fp, d_k3, dkg_part, tickets, &last);
 }
 
-// Allow `smem` bytes of dynamic shared memory for kernel `fn`.
+// Allow `smem` bytes of dynamic shared memory for kernel `fn` on the
+// current device; `allowed` is what has been allowed so far, per device.
 template <typename Fn>
-cudaError_t allow_smem(Fn* fn, size_t smem, size_t& allowed) {
-  if (smem <= allowed || smem <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-  if (err == cudaSuccess) allowed = smem;
-  return err;
+cudaError_t allow_smem(Fn* fn, size_t smem, DeviceCache& allowed) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return raise_per_device(allowed, smem, [fn, smem] {
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  });
 }
 
 // A programmatic dependent launch of `kernel`: its blocks load and multiply
@@ -743,24 +745,22 @@ int launch_tiled(const float* d_out, const float* rows, const float* k3, const i
                  float* d_rows, float* d_k3, float* d_bias, float* dkg_part, int* tickets,
                  int groups, int max_slots, int c, int s, int f, int n_events, int bias_parts,
                  cudaStream_t st) {
-  static int optin = 0;
-  if (optin == 0) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  static DeviceCache optin_cache;   // the opt-in limit, read once a device
+  size_t optin = 0;
+  {
+    const cudaError_t err = optin_smem(optin_cache, &optin);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // the largest power-of-two chunk of KC or 16 slots (the row gradient's
   // two 16-slot m-tiles) that fits
   const int ld = tiled_ld(f);
   int kc = KC;
-  while (kc > 16 && tiled_smem_bytes(ld, kc, groups) + TILED_STATIC_BYTES > static_cast<size_t>(optin))
+  while (kc > 16 && tiled_smem_bytes(ld, kc, groups) + TILED_STATIC_BYTES > optin)
     kc /= 2;
   const size_t smem = tiled_smem_bytes(ld, kc, groups);
-  if (smem + TILED_STATIC_BYTES > static_cast<size_t>(optin))
+  if (smem + TILED_STATIC_BYTES > optin)
     return static_cast<int>(cudaErrorInvalidValue);
-  static size_t allowed = 0;
+  static DeviceCache allowed;
   const cudaError_t err = allow_smem(site_head_bwd_tiled_kernel, smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_rows = c % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
@@ -825,7 +825,7 @@ int site_grouped_matmul_bwd(const float* d_out, const float* rows, const float* 
   if (c == 8 && f == 50) {
     auto kernel = site_head_bwd_kernel<8, 50>;
     const size_t smem = group_smem_bytes(8, 50, groups);
-    static size_t allowed = 0;
+    static DeviceCache allowed;
     err = allow_smem(kernel, smem, allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
     return launch_dependent(kernel, dim3(groups > 0 ? groups : 1), smem, st, d_out, rows, k3,

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_cache.cuh"
+
 namespace {
 
 // PSD_WINDOW_LO, PSD_DIVIDER and PSD_WINDOW_HI of ops/waveform_features.py
@@ -160,13 +162,14 @@ int waveform_features_fwd(const float* wfs, float* arrival, float* psd,
   if (n == 0) return 0;
   if (rows <= 0 || rows % 32 != 0 || sp < s) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * static_cast<size_t>(rows) * sp;
-  static size_t configured = 48 * 1024;   // dynamic shared memory allowed so far
-  if (smem > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        waveform_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  static DeviceCache configured;   // dynamic shared memory allowed so far, per device
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_per_device(configured, smem, [smem] {
+      return cudaFuncSetAttribute(waveform_features_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem));
+    });
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
   }
   const int vec_span = stride == s && reinterpret_cast<uintptr_t>(wfs) % 16 == 0 &&
                        (static_cast<long long>(rows) * s) % 4 == 0;

@@ -1,5 +1,5 @@
-"""Single-device trainer (counterpart of the one-device path of
-waveformml_tpu/engineering/trainer.py).
+"""The trainer (counterpart of waveformml_tpu/engineering/trainer.py's
+shard_map engine: one device, or data-parallel ranks).
 
 ``Trainer(config, task, device=None, ...).fit(data_module)`` trains the
 task's model with the config's optimizer and epoch scheduler: per epoch,
@@ -30,6 +30,22 @@ ends ``fit`` with ``TrialPruned``. A
 each epoch's lr and its own metrics, and the test metrics at step 0.
 ``add_argparse_args`` and ``kwargs_from_args`` make the arguments CLI
 flags, as the JAX ``Trainer``'s.
+
+Where ``torch.distributed`` has a process group (``parallel.mesh
+.initialize_distributed``), the Trainer is one rank of a data-parallel run,
+as the JAX ``shard_map`` step is one device of its mesh: each loader is
+read round-robin (``shard_loader_round_robin``: at step t, batch t·W + r);
+each step agrees the row and event buckets and the data-dependent dims
+(graph edge caps, the site layout's width) with the group's largest, runs
+its forward with the BatchNorm statistics summed over the ranks
+(``nn.bn``), divides its loss sum by the ranks' summed weight, and sums
+the gradients, the loss and the metric sums over the ranks before
+accumulation, clipping and the optimizer; the BatchNorm running
+statistics are averaged over the ranks after it. Validation and test
+batches sum their loss, weight and metrics the same way; each rank hands
+its own outputs to its evaluator. Rank 0 alone writes checkpoints (the
+others wait for it) and logs; dropout draws from a stream seeded with the
+seed and the rank.
 """
 from __future__ import annotations
 
@@ -44,13 +60,18 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from waveformml_tpu_torch.config import to_dict
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
 from waveformml_tpu_torch.engineering.callbacks import EarlyStopping, LoggingCallback
+from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm
+from waveformml_tpu_torch.nn.bn import synced_bn
+from waveformml_tpu_torch.nn.layers import _FlaxBatchNorm
 from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_scheduler,
                                         clip_by_global_norm_, set_learning_rate)
+from waveformml_tpu_torch.parallel.mesh import pad_to, shard_loader_round_robin
 from waveformml_tpu_torch.utils.profiler import SimpleProfiler
 
 log = logging.getLogger(__name__)
@@ -69,9 +90,10 @@ def _parse_bool(s: str) -> bool:
 
 
 class Trainer:
-    """Fit, validate and test a task's model on one device.
+    """Fit, validate and test a task's model on one device, or as one rank
+    of a data-parallel process group (see the module docstring).
 
-    The arguments are the JAX ``Trainer``'s that a single device uses:
+    The arguments are the JAX ``Trainer``'s:
 
     * ``callbacks``: objects whose ``on_validation_end(trainer, metrics,
       epoch)``, ``on_train_end(trainer)`` and ``on_test_end(trainer,
@@ -95,7 +117,12 @@ class Trainer:
     * ``logger``: an object with ``log_scalar(tag, value, step)``,
       ``log_scalars(values, step)`` and ``flush()``, or None;
     * ``profiler``: the section table and the ``torch.profiler`` trace of
-      each ``fit``.
+      each ``fit``;
+    * ``steps_per_dispatch``: accepted for the JAX CLI's sake; eager
+      PyTorch has no dispatch to amortise, so every K steps one batch at a
+      time, with the results of K = 1;
+    * ``parallel``, ``tp``: ``"shard_map"`` (data parallelism) only; the
+      GSPMD engine (``parallel="gspmd"``, ``tp > 1``) is not ported.
     """
 
     #: constructor arguments that a driver wires as objects, not CLI flags
@@ -112,10 +139,19 @@ class Trainer:
                  early_stopping_patience: int = 5,
                  gradient_clip_val: Optional[float] = None,
                  accumulate_grad_batches: int = 1,
-                 seed: int = 0, logger=None, profiler: bool = False):
+                 seed: int = 0, logger=None, profiler: bool = False,
+                 steps_per_dispatch: int = 1, parallel: str = "shard_map", tp: int = 1):
+        self.check_engine(parallel, tp)
         self.config = config
         self.task = task
         self.device = resolve_device(device)
+        #: the data-parallel process group (None: one device), this rank and
+        #: the number of ranks
+        self.group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+        self.rank = dist.get_rank() if self.group is not None else 0
+        self.world_size = dist.get_world_size() if self.group is not None else 1
+        if self.rank != 0:
+            logger = None
         task.device = self.device
         task.model.to(self.device)
         oc = config.optimize_config
@@ -131,7 +167,9 @@ class Trainer:
         self.terminate_on_nan = terminate_on_nan
         self.gradient_clip_val = gradient_clip_val
         self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            _rank_seed(seed, self.rank))
         task.generator = self.generator
         self.lr = oc.lr
         self.params = list(task.model.parameters())
@@ -166,6 +204,17 @@ class Trainer:
         self._epoch_rows: List[float] = []
         self.simple_profiler = SimpleProfiler() if profiler else None
 
+    @staticmethod
+    def check_engine(parallel: str, tp: int) -> None:
+        """Raise for an engine the port does not run: ``parallel="gspmd"``
+        or ``tp > 1`` (NotImplementedError), or a name of none (ValueError)."""
+        if parallel == "gspmd" or int(tp) > 1:
+            raise NotImplementedError(
+                "the GSPMD dp x tp engine (parallel='gspmd', tp > 1) is not ported yet "
+                "(ROADMAP.md queue 1 item 13); parallel='shard_map' trains data-parallel")
+        if parallel != "shard_map":
+            raise ValueError(f"parallel must be 'shard_map' or 'gspmd', not {parallel!r}")
+
     # -- argparse bridge --------------------------------------------------------------
     @classmethod
     def add_argparse_args(cls, parser) -> None:
@@ -197,16 +246,69 @@ class Trainer:
     # -- batches ----------------------------------------------------------------------
     def device_batch(self, block: FileBlock
                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, np.ndarray], float, float]:
-        """Pad a block, build its plans on the host and copy it to the
-        device; returns the device batch, the host batch it was copied
-        from, and the seconds of the two phases (host prep, copy in) on the
-        host clock."""
-        task = self.task
+        """Pad a block (``_loop_batch``: under a process group to the ranks'
+        largest shapes, so every rank calls it), build its plans on the host
+        and copy it to the device; returns the device batch, the host batch
+        it was copied from, and the seconds of the two phases (host prep,
+        copy in) on the host clock."""
         t0 = time.perf_counter()
-        db_host = task.prepare_block(block, task.row_bucket(block), task.event_bucket(block))
+        db_host = self._loop_batch(block)
         t1 = time.perf_counter()
-        db = task.to_device(db_host)
+        db = self.task.to_device(db_host)
         return db, db_host, t1 - t0, time.perf_counter() - t1
+
+    def _loop_batch(self, block: FileBlock) -> Dict[str, np.ndarray]:
+        """A loop's host batch: ``prepare_block`` at the block's buckets, or
+        under a process group at the ranks' largest buckets, every array
+        then padded to the ranks' largest shape (``pad_to``), so that every
+        rank runs the same shapes."""
+        task = self.task
+        if self.group is None:
+            return task.prepare_block(block, task.row_bucket(block), task.event_bucket(block))
+        rb, eb = self._max_over_ranks([task.row_bucket(block), task.event_bucket(block)])
+        db = task.prepare_block(block, rb, eb)
+        keys = sorted(db)
+        shapes = self._max_over_ranks([d for k in keys for d in db[k].shape])
+        for k in keys:
+            want, shapes = tuple(shapes[:db[k].ndim]), shapes[db[k].ndim:]
+            db[k] = pad_to(db[k], want)
+        return db
+
+    # -- collectives over the ranks ---------------------------------------------------
+    def _max_over_ranks(self, values: List[int]) -> List[int]:
+        t = torch.tensor(values, dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t.tolist()
+
+    def _sum_over_ranks(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor summed over the ranks, by one all-reduce of a float32
+        buffer that holds them all."""
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        dist.all_reduce(flat, group=self.group)
+        out, pos = [], 0
+        for t in tensors:
+            out.append(flat[pos:pos + t.numel()].view(t.shape).to(t.dtype))
+            pos += t.numel()
+        return out
+
+    def _shard(self, loader):
+        """``loader``, or under a process group this rank's round-robin
+        share of it."""
+        if self.group is None:
+            return loader
+        sharded = shard_loader_round_robin(loader, self.world_size, self.rank)
+        if len(sharded) == 0:
+            raise RuntimeError(f"the loader has {len(loader)} batches for "
+                               f"{self.world_size} ranks; each needs one at least")
+        return sharded
+
+    def _barrier(self) -> None:
+        if self.group is None:
+            return
+        if dist.get_backend(self.group) == "nccl":
+            dist.barrier(self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(self.group)
 
     # -- steps ------------------------------------------------------------------------
     def training_step(self, db: Dict[str, torch.Tensor]):
@@ -216,13 +318,33 @@ class Trainer:
         clipped by ``gradient_clip_val``. Returns the loss and the metric
         sums (device tensors, detached). The parameters' ``.grad`` hold the
         gradients the optimizer stepped with, or this micro-step's own where
-        it did not step, until the next micro-step."""
-        outputs = self.task.model_outputs(db, train=True)
+        it did not step, until the next micro-step.
+
+        Under a process group the forward sums its BatchNorm statistics over
+        the ranks, ``weight`` is the ranks' sum (clamped after the sum, so an
+        empty shard adds 0), and the gradients, the loss and the metrics are
+        summed over the ranks, the BatchNorm running statistics averaged,
+        before accumulation, clipping and the optimizer: every rank steps
+        with the whole batch's gradient, as the JAX step's ``psum``."""
+        with synced_bn(self.group):
+            outputs = self.task.model_outputs(db, train=True)
         loss_sum, weight, metrics = self.task.loss_and_metrics(outputs, db)
+        if self.group is not None:
+            weight = self._sum_over_ranks([weight])[0]
         loss = loss_sum / weight.clamp(min=1e-12)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        if self.group is not None:
+            stats = _bn_running_stats(self.task.model)
+            keys = list(metrics)
+            summed = self._sum_over_ranks(grads + [loss] + [metrics[k] for k in keys] + stats)
+            grads, loss = summed[:len(grads)], summed[len(grads)]
+            metrics = dict(zip(keys, summed[len(grads) + 1:len(grads) + 1 + len(keys)]))
+            with torch.no_grad():
+                for b, total in zip(stats, summed[len(grads) + 1 + len(keys):]):
+                    b.copy_(total / self.world_size)
         if self.multi_steps is not None:
             grads = self.multi_steps.update(grads)
         if grads is not None:
@@ -232,7 +354,7 @@ class Trainer:
                 p.grad = g
             self.optimizer.step()
         self.global_step += 1
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return loss, metrics
 
     # -- loops ------------------------------------------------------------------------
     @staticmethod
@@ -247,9 +369,9 @@ class Trainer:
 
     def fit(self, data_module) -> Dict[str, float]:
         data_module.setup("fit")
-        train_loader = data_module.train_dataloader()
+        train_loader = self._shard(data_module.train_dataloader())
         data_module.setup("test")
-        val_loader = data_module.val_dataloader()
+        val_loader = self._shard(data_module.val_dataloader())
         if self.overfit_batches:
             self.limit_train_batches = self.overfit_batches
             self.limit_val_batches = self.overfit_batches
@@ -397,7 +519,9 @@ class Trainer:
         ``prefix``; the metric arrays kept as ``last_<prefix>_arrays``
         (copied off the device once, after the pass). ``collect(block,
         db_host, test_out)`` gets each batch's host arrays and its test
-        outputs (numpy); a test pass records ``test_phases``."""
+        outputs (numpy); a test pass records ``test_phases``. Under a
+        process group each batch's loss sum, weight and metrics are summed
+        over the ranks; ``collect`` gets this rank's own batch and outputs."""
         cuda = self.device.type == "cuda"
         loss_sum, weight = 0.0, 0.0
         agg: Dict[str, torch.Tensor] = {}
@@ -415,6 +539,10 @@ class Trainer:
             if events:
                 events[1].record()
             ls, w, metrics = self.task.loss_and_metrics(outputs, db)
+            if self.group is not None:
+                keys = list(metrics)
+                ls, w, *values = self._sum_over_ranks([ls, w] + [metrics[k] for k in keys])
+                metrics = dict(zip(keys, values))
             loss_sum += float(ls)
             weight += float(w)
             if self.simple_profiler:
@@ -451,7 +579,8 @@ class Trainer:
 
     def validate(self, data_module) -> Dict[str, float]:
         data_module.setup("test")
-        return self._eval_epoch(data_module.val_dataloader(), "val", self.limit_val_batches)
+        return self._eval_epoch(self._shard(data_module.val_dataloader()), "val",
+                                self.limit_val_batches)
 
     def test(self, data_module, collect: Optional[Callable] = None) -> Dict[str, float]:
         """The test metrics over the test loader (``test_loss`` and the
@@ -464,7 +593,9 @@ class Trainer:
         rows for a per-row task). Without ``collect`` the task's evaluator
         (``task.evaluator``, else built by ``make_evaluator(logger)``; a
         failure to build it is a warning) gets each block through its
-        ``add_batch``."""
+        ``add_batch``. Under a process group the test loader is read
+        round-robin, as ``fit`` reads its loaders, and each rank collects
+        its own blocks."""
         data_module.setup("test")
         evaluator = getattr(self.task, "evaluator", None)
         if evaluator is None:
@@ -475,7 +606,7 @@ class Trainer:
                 log.warning("evaluator construction failed: %s", e)
         if collect is None and evaluator is not None:
             collect = evaluator.add_batch
-        metrics = self._eval_epoch(data_module.test_dataloader(), "test",
+        metrics = self._eval_epoch(self._shard(data_module.test_dataloader()), "test",
                                    self.limit_test_batches, collect)
         for cb in self.callbacks:
             if hasattr(cb, "on_test_end"):
@@ -515,15 +646,19 @@ class Trainer:
     def save_checkpoint(self, path: str) -> None:
         """One ``torch.save`` file: the model's ``state_dict``, the
         optimizer's, the scheduler's and the gradient accumulation's state,
-        the epoch, the micro-step count and the best validation loss."""
-        torch.save({"state_dict": self.task.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "scheduler": (self.scheduler.state_dict()
-                                  if self.scheduler is not None else None),
-                    "multi_steps": (self.multi_steps.state_dict()
-                                    if self.multi_steps is not None else None),
-                    "epoch": self.current_epoch, "step": self.global_step,
-                    "best_val_loss": self.best_val_loss}, path)
+        the epoch, the micro-step count and the best validation loss. Under
+        a process group every rank calls it, rank 0 writes the file and the
+        others wait for it."""
+        if self.rank == 0:
+            torch.save({"state_dict": self.task.model.state_dict(),
+                        "optimizer": self.optimizer.state_dict(),
+                        "scheduler": (self.scheduler.state_dict()
+                                      if self.scheduler is not None else None),
+                        "multi_steps": (self.multi_steps.state_dict()
+                                        if self.multi_steps is not None else None),
+                        "epoch": self.current_epoch, "step": self.global_step,
+                        "best_val_loss": self.best_val_loss}, path)
+        self._barrier()
 
     def load_checkpoint(self, path: str, restore_training: bool = False) -> None:
         """Load a checkpoint's weights; with ``restore_training`` also the
@@ -548,11 +683,12 @@ class Trainer:
         if vl is None or not self.checkpoint_dir or not vl < self.best_val_loss:
             return
         self.best_val_loss = vl
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
         path = os.path.join(self.checkpoint_dir,
                             f"epoch={self.current_epoch}-val_loss={vl:.2f}.ckpt")
-        if self.best_ckpt_path and os.path.exists(self.best_ckpt_path):
-            os.remove(self.best_ckpt_path)
+        if self.rank == 0:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            if self.best_ckpt_path and os.path.exists(self.best_ckpt_path):
+                os.remove(self.best_ckpt_path)
         self.save_checkpoint(path)
         self.best_ckpt_path = path
         log.info("saved best checkpoint: %s", path)
@@ -568,7 +704,7 @@ class Trainer:
         (``np.gradient``), or the config's lr with fewer than 3 finite
         losses."""
         data_module.setup("fit")
-        loader = data_module.train_dataloader()
+        loader = self._shard(data_module.train_dataloader())
         saved = (copy.deepcopy(self.task.model.state_dict()),
                  copy.deepcopy(self.optimizer.state_dict()),
                  self.multi_steps.state_dict() if self.multi_steps is not None else None,
@@ -653,6 +789,23 @@ def load_exported(path: str, device: Optional[Union[str, torch.device]] = None
             return module({k: v.to(dev) for k, v in db.items()})
 
     return forward
+
+
+def _bn_running_stats(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The running means and variances of ``model``'s BatchNorms, the
+    buffers the JAX step averages over its devices (``pmean`` of
+    ``batch_stats``)."""
+    return [t for m in model.modules() if isinstance(m, (MaskedArrayBatchNorm, _FlaxBatchNorm))
+            for t in (m.running_mean, m.running_var)]
+
+
+def _rank_seed(seed: int, rank: int) -> int:
+    """The dropout stream's seed of a rank: ``seed`` on rank 0 (so that a
+    group of one draws what one device draws), else one drawn from
+    ``(seed, rank)``, as the JAX step folds the device index into its key."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def _take(loader, n: int, profiler: Optional[SimpleProfiler] = None) -> Iterator:

@@ -21,11 +21,21 @@ and a ``torch.profiler`` trace (``profile/``) into the run directory.
 (``optimization.hpo.ModelOptimization``, one fit per trial with the
 Trainer flags given, ``-p`` pruning with the median pruner) into
 ``<model_base_path>/<model_name>/studies/<exp>/``; a study of that name
-resumes. ``--distributed`` (not ported yet) raises, and with ``-oc`` is
-refused.
+resumes.
 
-``--device`` (default ``cuda``) picks the device: the card, or ``cpu`` for
-the plain PyTorch versions of the kernels. HDF5 input needs h5py.
+``--distributed`` makes the process one rank of a data-parallel run
+(``parallel.mesh.initialize_distributed``: ``--coordinator host:port`` or a
+``file://`` URL with ``--num_processes`` and ``--process_id``, else
+torchrun's environment), one process per GPU: rank 0 picks the run
+directory and sends it to the others, and alone writes ``run_info.json``,
+the TensorBoard scalars and the checkpoint; the group is left at the end.
+With ``-oc`` it is refused. ``--parallel gspmd`` and ``--tp`` > 1 (the
+GSPMD engine, not ported) raise before anything starts.
+
+``--device`` (default ``cuda``) picks the device: the card (under
+``--distributed``, ``cuda:<local rank>``), or ``cpu`` for the plain
+PyTorch versions of the kernels (Gloo between ranks). HDF5 input needs
+h5py.
 """
 from __future__ import annotations
 
@@ -35,10 +45,6 @@ import logging
 import os
 import sys
 from typing import Any, Dict, Optional
-
-#: flags of the JAX CLI that the port parses but does not run yet, and the
-#: ROADMAP.md item that ports each
-NOT_PORTED = {"distributed": ("--distributed (multi-GPU)", "queue 1 item 12")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,8 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="apply the optimizer every k batches")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
-    p.add_argument("--coordinator", default=None)
+                   help="data-parallel training, one process per GPU (torchrun's "
+                        "environment, or --coordinator)")
+    p.add_argument("--coordinator", default=None,
+                   help="rendezvous address host:port, or a file:// URL")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", default="cuda",
@@ -119,10 +127,27 @@ def _rounded(metrics: Dict[str, Any]) -> Dict[str, float]:
 def run(config, args: argparse.Namespace, data_module) -> Dict[str, Any]:
     """Train (and with ``args.test`` test) ``config``'s task on
     ``data_module`` as ``main`` does once it has parsed the flags and built
-    the data module: the run directory, its run info and logger, the
-    checkpoint to start from, the lr finder, fit and test, printing the
-    ``fit:`` and ``test:`` lines. Returns ``{"log_dir", "fit", "test"}``
-    (``test`` None without ``args.test``)."""
+    the data module: with ``args.distributed`` the process group first
+    (left again at the end), then the run directory, its run info and
+    logger, the checkpoint to start from, the lr finder, fit and test,
+    printing the ``fit:`` and ``test:`` lines. Returns ``{"log_dir", "fit",
+    "test"}`` (``test`` None without ``args.test``)."""
+    if not args.distributed:
+        return _run(config, args, data_module, args.device, 0)
+    import torch.distributed as dist
+
+    from waveformml_tpu_torch.parallel.mesh import initialize_distributed
+
+    rank, _, device, _ = initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=None if args.device == "cuda" else args.device)
+    try:
+        return _run(config, args, data_module, device, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(config, args: argparse.Namespace, data_module, device, rank: int) -> Dict[str, Any]:
     from waveformml_tpu_torch.engineering.trainer import Trainer
     from waveformml_tpu_torch.optim import set_learning_rate
     from waveformml_tpu_torch.registry import retrieve_class
@@ -138,16 +163,27 @@ def run(config, args: argparse.Namespace, data_module) -> Dict[str, Any]:
     if args.restore_training and not resuming:
         log.warning("--restore_training ignored: no --load_checkpoint/--load_best given, "
                     "starting a fresh run")
-    if not resuming:
-        exp_name = next_experiment_name(model_folder, exp_name)
-    log_dir = next_version_dir(os.path.join(model_folder, "runs", exp_name))
-    logger = _tb_logger(log_dir, log)
-    write_run_info(log_dir)
+    log_dir = None
+    if rank == 0:
+        if not resuming:
+            exp_name = next_experiment_name(model_folder, exp_name)
+        log_dir = next_version_dir(os.path.join(model_folder, "runs", exp_name))
+    if args.distributed:
+        # every rank writes into the run directory rank 0 picked
+        import torch.distributed as dist
+
+        box = [log_dir]
+        dist.broadcast_object_list(box, src=0)
+        log_dir = box[0]
+    logger = None
+    if rank == 0:
+        logger = _tb_logger(log_dir, log)
+        write_run_info(log_dir)
     log.info("logging to %s", log_dir)
     try:
-        task = retrieve_class(config.run_config.run_class)(config, args.device)
+        task = retrieve_class(config.run_config.run_class)(config, device)
         trainer = Trainer(config, task, logger=logger, checkpoint_dir=log_dir,
-                          **Trainer.kwargs_from_args(args))
+                          **{**Trainer.kwargs_from_args(args), "device": device})
         ckpt = args.load_checkpoint
         if args.load_best and not ckpt:
             ckpt = retrieve_best_checkpoint(model_folder)
@@ -182,9 +218,9 @@ def main(argv: Optional[list] = None) -> int:
     if args.optuna_config and args.distributed:
         raise SystemExit("HPO studies are single-host (each trial already uses every "
                          "local device); drop --distributed for -oc runs")
-    for dest, (flag, item) in NOT_PORTED.items():
-        if getattr(args, dest):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
+    from waveformml_tpu_torch.engineering.trainer import Trainer
+
+    Trainer.check_engine(args.parallel, args.tp)
     apply_num_threads(args.num_threads)
     config = load_config(args.config, validate=args.config_validation is None)
     if args.config_validation:

@@ -20,6 +20,7 @@ from torch import nn
 
 from waveformml_tpu_torch.detector import NX, NY
 from waveformml_tpu_torch.models.schedules import get_frame_contraction, get_frame_expansion
+from waveformml_tpu_torch.nn.bn import all_reduce_sum, get_bn_group
 from waveformml_tpu_torch.ops.site_head import SiteGroupedMatmul
 from waveformml_tpu_torch.ops.sparse import SparseBatch
 
@@ -40,7 +41,8 @@ class MaskedArrayBatchNorm(nn.Module):
     from the real rows only, in float32, with the count clamped to ≥ 1; the
     rows are normalised with the biased variance, and the running statistics
     move by torch's momentum 0.1, the running variance with the unbiased
-    (Bessel) one. In eval mode
+    (Bessel) one. Under a BatchNorm group (``nn.bn``) the count and sums
+    are the group's. In eval mode
     the running statistics normalise every row. Either way the caller
     re-zeroes the padding rows. Plain PyTorch under autograd, as XLA
     computed it outside any kernel."""
@@ -73,9 +75,15 @@ class MaskedArrayBatchNorm(nn.Module):
             raise ValueError("MaskedArrayBatchNorm needs the row mask in train mode")
         m = mask.to(torch.float32)[:, None]
         xf = x.float()
-        count = m.sum().clamp(min=1.0)
-        mean = (xf * m).sum(0) / count
-        vsum = ((xf - mean) ** 2 * m).sum(0)
+        count, xsum = m.sum(), (xf * m).sum(0)
+        if get_bn_group() is not None:
+            # the group's sums, before the count is clamped: an empty shard
+            # adds zeros, not a count of 1
+            both = all_reduce_sum(torch.cat([count[None], xsum]))
+            count, xsum = both[0], both[1:]
+        count = count.clamp(min=1.0)
+        mean = xsum / count
+        vsum = all_reduce_sum(((xf - mean) ** 2 * m).sum(0))
         var = vsum / count
         with torch.no_grad():
             mom = self.momentum

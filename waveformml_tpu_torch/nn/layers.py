@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from waveformml_tpu_torch.models.blocks import lecun_normal_
+from waveformml_tpu_torch.nn.bn import all_reduce_sum, bn_world_size
 from waveformml_tpu_torch.ops.sparse_conv import _ConvParams, conv, dropout, ieee_fp32
 from waveformml_tpu_torch.registry import registry
 
@@ -176,7 +177,9 @@ class _FlaxBatchNorm(nn.Module):
     float32) normalise it and move the running statistics by
     ``momentum``, the running variance with the biased one too; in eval
     mode the running statistics normalise it. Every element counts,
-    padding included, as in the JAX package."""
+    padding included, as in the JAX package. Under a BatchNorm group
+    (``nn.bn``) the mean and E[x²] are averaged over its ranks, as flax's
+    ``axis_name`` averages them."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -192,8 +195,14 @@ class _FlaxBatchNorm(nn.Module):
         if self.training:
             axes = [0] + list(range(2, x.dim()))
             xf = x.float()
-            mean = xf.mean(axes)
-            var = (xf.square().mean(axes) - mean.square()).clamp(min=0.0)
+            mean, mean2 = xf.mean(axes), xf.square().mean(axes)
+            world = bn_world_size()
+            if world is not None:
+                # flax's axis_name: the ranks' means averaged, the global
+                # statistics only where every rank's shape is the same
+                both = all_reduce_sum(torch.cat([mean, mean2])) / world
+                mean, mean2 = both[:mean.shape[0]], both[mean.shape[0]:]
+            var = (mean2 - mean.square()).clamp(min=0.0)
             with torch.no_grad():
                 mom = self.momentum
                 self.running_mean.copy_((1 - mom) * self.running_mean + mom * mean)

@@ -117,8 +117,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         so = library_path(name)
         if so.exists():
             continue
+        # this process's own files: ranks that build at once never share one
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        log = so.with_suffix(".log")
+        log = so.with_name(f"{so.name}.{os.getpid()}.log")
         with open(log, "w") as log_f:
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
@@ -128,6 +129,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     for name, proc, tmp, so, log in started:
         proc.wait()
         reports[name] = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{reports[name]}")
         else:
