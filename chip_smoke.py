@@ -102,6 +102,22 @@ order, it:
    K5 (each that of its steps and validation), its step walls and the
    all-reduces' share of them (``--dp-ranks N``, below, runs the ranks
    one a card over NCCL);
+8d. trains SubMPSD.json tensor-parallel (``Trainer(tp=2)``, the JAX
+   package's GSPMD engine): ranks sharing the card over Gloo, each its own
+   process, on (a) a (1, 2) grid of (data, model) ranks, each on the whole
+   blocks, and (b) a (2, 2) grid, 2048 events of each block a data rank,
+   held to the one process of 8c (b) by the same readings and limits; the
+   k=3 convs' weights are column blocks of Cout 52 and 28 and the head's
+   of (C, F) = (8, 25) on every rank; prints each rank's launches of K1,
+   K2, K4 and K5, its blocks' shapes, its step walls and the collectives'
+   share of them by group (world, data, model); then (a) again from a copy
+   of the port in which ``copy_to_model``'s backward is the identity (a
+   planted fault, which the readings must fail); then K1 (forward, and as
+   d_feats at 28→104) and K4 at Cout 52 and 28 and K2 and K5 at (8, 25),
+   without the bias as the tensor-parallel layers call them, against
+   their plain versions with their times, bounds, plain and library
+   times (``--dp-ranks 4 --tp 2``, below, runs (b) one rank a card over
+   NCCL);
 9. runs the per-segment regressors as shipped, from seeded random weights
    (BatchNorm statistics of one train-mode forward): SingleEndedZCNN.json
    (150-sample pairs; conv 300→150 3×3 and 150→1 on the dense grid, cuDNN
@@ -223,12 +239,14 @@ order, it:
    training run, K3's of the analysis path; K1 and K4 also at
    SegQuantifier.json's and OPs3ns_SCNet.json's widths, each with its
    training run's launches, and at 27 taps, with those of SCNet3D.json's
-   row stack's forward and backward), the
-   card line again, and as its last line ``{"ok": true, "device": {...}}``.
+   row stack's forward and backward; K1, K4, K2 and K5 at phase 8d's
+   column blocks, with its (2, 2) rank 0's launches), the card line again,
+   and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --dp-ranks N`` runs phase 8c (b)'s check alone
 with N ranks over NCCL, one a card (``dp_main``; N cards needed, e.g. a
-4-card machine), and ends with the same last line.
+4-card machine), and ends with the same last line; ``--dp-ranks N --tp
+T`` runs phase 8d's check on an (N / T, T) grid the same way.
 
 Any failure raises, so the script exits non-zero without the last line.
 Without CUDA, or outside a checkout, it exits non-zero before printing any
@@ -548,7 +566,8 @@ def check_subm_conv_rows_adversarial(rng) -> float:
 def check_subm_conv_rows(model, db, feats0, tag=""):
     """K1 at each conv of the SubM stack, on one chunk's batch: the first
     conv's input ``feats0`` (the batch's features as the task gives them
-    to the model, widened to float32), the others random; lines begin
+    to the model, widened to float32), the others random; without the bias
+    where the conv has none (``tp_view``'s column blocks); lines begin
     with ``tag``."""
     from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_plain,
                                                    take_row_taps)
@@ -568,7 +587,8 @@ def check_subm_conv_rows(model, db, feats0, tag=""):
         else:
             feats = torch.randn(n, cin, device="cuda", generator=gen)
             feats = torch.where(mask[:, None], feats, 0.0).contiguous()
-        args = (feats, plan, conv.weight.detach(), conv.bias.detach(), mask)
+        bias = conv.bias.detach() if conv.bias is not None else None
+        args = (feats, plan, conv.weight.detach(), bias, mask)
         take_row_taps()
         got = subm_conv_rows(*args)
         computed = take_row_taps()
@@ -579,12 +599,13 @@ def check_subm_conv_rows(model, db, feats0, tag=""):
         idx = torch.where(plan >= 0, plan, n).long().reshape(-1)
         w2 = conv.weight.detach().reshape(kk * cin, cout)
         maskf = mask[:, None].float()
-        bias = conv.bias.detach()
         ms = graph_time_ms(lambda: subm_conv_rows(*args))
         plain_ms = graph_time_ms(lambda: subm_conv_rows_plain(*args))
-        library_ms = graph_time_ms(lambda: torch.addmm(
-            bias, torch.index_select(padded, 0, idx).view(n, kk * cin), w2).mul_(maskf))
-        n_bytes = 4 * (n * cin + n * kk + kk * cin * cout + cout + n * cout) + n
+        gathered = lambda: torch.index_select(padded, 0, idx).view(n, kk * cin)  # noqa: E731
+        library_ms = graph_time_ms(lambda: (torch.mm(gathered(), w2) if bias is None else
+                                            torch.addmm(bias, gathered(), w2)).mul_(maskf))
+        n_bytes = 4 * (n * cin + n * kk + kk * cin * cout + (cout if bias is not None else 0)
+                       + n * cout) + n
         needed = int(((plan >= 0) & mask[:, None]).sum())
         # three TF32 passes over the row-taps the data needs
         flops = 3 * 2.0 * cin * cout * needed
@@ -657,8 +678,9 @@ def check_site_grouped_matmul_adversarial(rng, c, f, tag="") -> float:
 
 
 def check_site_grouped_matmul(model, db, tag=""):
-    """K2 at the SubMPSD head (with its bias; C=8, F=50 at SubMPSD.json's
-    widths) on one chunk's slot layout; lines begin with ``tag``."""
+    """K2 at the SubMPSD head (with its bias, where it has one; C=8, F=50 at
+    SubMPSD.json's widths) on one chunk's slot layout; lines begin with
+    ``tag``."""
     from waveformml_tpu_torch.detector import NX, NY
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul,
                                                     site_grouped_matmul_plain)
@@ -670,7 +692,7 @@ def check_site_grouped_matmul(model, db, tag=""):
     rows = torch.relu(torch.randn(mask.shape[0], c, device="cuda", generator=gen))
     rows = torch.where(mask[:, None], rows, 0.0).contiguous()
     k3 = head.weight.detach().view(c, s, f)
-    bias = head.bias.detach()
+    bias = head.bias.detach() if head.bias is not None else None
     take, ev, site = db["plan_site_take"], db["plan_site_ev"], db["plan_site_s"]
     n_events = db["labels"].shape[0]
     args = (rows, k3, take, ev, site, n_events, bias)
@@ -688,7 +710,10 @@ def check_site_grouped_matmul(model, db, tag=""):
     out = torch.empty(n_events + 1, f, device="cuda")
 
     def library():
-        out.copy_(bias.expand(n_events + 1, f))
+        if bias is None:
+            out.zero_()
+        else:
+            out.copy_(bias.expand(n_events + 1, f))
         out.index_add_(0, idx, torch.bmm(torch.index_select(rows_pad, 0, take_flat)
                                          .view(g, m, c), kg).view(-1, f))
 
@@ -703,7 +728,8 @@ def check_site_grouped_matmul(model, db, tag=""):
     live = (take > 0) & (ev > 0) & (ev <= n_events)
     n_live = int(live.sum())
     rows_read = int(torch.unique(take[live]).numel())
-    n_bytes = 4 * (rows_read * c + k3.numel() + 2 * g * m + g + f + n_events * f)
+    n_bytes = 4 * (rows_read * c + k3.numel() + 2 * g * m + g + (f if bias is not None else 0)
+                   + n_events * f)
     b_ms, by, fp32_ms = head_bound_ms(n_bytes, 2.0 * c * f * n_live, c, f)
     print(f"{tag}K2 site_grouped_matmul: {layout} C={c} F={f} B={n_events} ms={ms:.5f} "
           f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.6f} ({by}; "
@@ -741,7 +767,8 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
     input, the first one's ``feats0``, and a masked cotangent of its output
     width, rounded to bf16 at the first conv where ``half``, as its
     backward rounds it), bitwise determinism, and K1 as d_feats at the
-    other layers against the plain _subm_bwd d_feats; lines begin with
+    other layers against the plain _subm_bwd d_feats; without the bias's
+    gradient where the conv has no bias (``tp_view``); lines begin with
     ``tag``."""
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
     from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_bwd_plain,
@@ -769,12 +796,15 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
         g = torch.where(mask[:, None], g, 0.0).contiguous()
         if half and layer == 0:
             g = g.to(torch.bfloat16).float()
-        args = (feats, plan, g, mask)
-        got = subm_conv_rows_wgrad(*args)
-        want = subm_conv_rows_wgrad_plain(*args)
-        scale = subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask)
+        wb = conv.bias is not None
+        args = (feats, plan, g, mask, wb)
+        got = [t for t in subm_conv_rows_wgrad(*args) if t is not None]
+        want = [t for t in subm_conv_rows_wgrad_plain(*args) if t is not None]
+        scale = [t for t in subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask, wb)
+                 if t is not None]
         err = close_to_terms(got, want, scale, TOL["subm_conv_rows_wgrad"], "K4")
-        check_bitwise(lambda: subm_conv_rows_wgrad(*args), f"K4 layer {layer}")
+        check_bitwise(lambda: [t for t in subm_conv_rows_wgrad(*args) if t is not None],
+                      f"K4 layer {layer}")
         if layer > 0:
             weight = conv.weight.detach()
             w_t = transposed_kernel(weight)
@@ -802,12 +832,14 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
         grids = grid_times_ms(lambda: subm_conv_rows_wgrad(*args))
         plain_ms = graph_time_ms(lambda: subm_conv_rows_wgrad_plain(*args))
         library_ms = graph_time_ms(lambda: (
-            torch.mm(torch.index_select(padded, 0, idx).view(n, kk * cin).t(), g), g.sum(0)))
+            torch.mm(torch.index_select(padded, 0, idx).view(n, kk * cin).t(), g),
+            g.sum(0) if wb else None))
         needed = int(((plan >= 0) & mask[:, None]).sum())
         n_real = int(mask.sum())
         # feats and g over the real rows (no padding row is listed or
         # summed), the plan and mask over all N, dW and db written once
-        n_bytes = 4 * (n_real * cin + n * kk + n_real * cout + kk * cin * cout + cout) + n
+        n_bytes = 4 * (n_real * cin + n * kk + n_real * cout + kk * cin * cout
+                       + (cout if wb else 0)) + n
         # on the card's fastest fp32-accurate units, as K1's bound: three
         # TF32 passes of 2·Cin·Cout per needed row-tap (db's n_real·Cout adds
         # are < 1e-4 of that and left out)
@@ -856,9 +888,9 @@ def check_subm_conv_rows_wgrad_adversarial(rng) -> float:
 
 
 def check_site_grouped_matmul_bwd(model, db, tag=""):
-    """K5 at the SubMPSD head (with its bias; C=8, F=50 at SubMPSD.json's
-    widths) on one chunk's slot layout, bitwise determinism included;
-    lines begin with ``tag``."""
+    """K5 at the SubMPSD head (with its bias's gradient, where the head has
+    a bias; C=8, F=50 at SubMPSD.json's widths) on one chunk's slot layout,
+    bitwise determinism included; lines begin with ``tag``."""
     from waveformml_tpu_torch.detector import NX, NY
     from waveformml_tpu_torch.ops.site_head import (site_grouped_matmul_bwd,
                                                     site_grouped_matmul_bwd_plain)
@@ -874,12 +906,14 @@ def check_site_grouped_matmul_bwd(model, db, tag=""):
     take, ev, site = db["plan_site_take"], db["plan_site_ev"], db["plan_site_s"]
     n_events = db["labels"].shape[0]
     d_out = torch.randn(n_events, f, device="cuda", generator=gen) / n_events
-    args = (d_out, rows, k3, take, ev, site, n_events)
-    got = site_grouped_matmul_bwd(*args)
-    want = site_grouped_matmul_bwd_plain(*args)
-    scale = site_grouped_matmul_bwd_plain(d_out.abs(), rows.abs(), k3.abs(), *args[3:])
+    wb = head.bias is not None
+    args = (d_out, rows, k3, take, ev, site, n_events, wb)
+    got = [t for t in site_grouped_matmul_bwd(*args) if t is not None]
+    want = [t for t in site_grouped_matmul_bwd_plain(*args) if t is not None]
+    scale = [t for t in site_grouped_matmul_bwd_plain(d_out.abs(), rows.abs(), k3.abs(),
+                                                      *args[3:]) if t is not None]
     err = close_to_terms(got, want, scale, TOL["site_grouped_matmul_bwd"], "K5")
-    check_bitwise(lambda: site_grouped_matmul_bwd(*args), "K5")
+    check_bitwise(lambda: [t for t in site_grouped_matmul_bwd(*args) if t is not None], "K5")
     g, m = take.shape
     take_flat = take.reshape(-1).long()
     evs = ev.reshape(-1).long()
@@ -900,7 +934,7 @@ def check_site_grouped_matmul_bwd(model, db, tag=""):
                                   .view(-1, c))
         rs = torch.index_select(rows_pad, 0, take_flat).view(g, m, c)
         d_k3.zero_().index_add_(0, sg, torch.bmm(rs.transpose(1, 2), d_rowlog))
-        return d_out.sum(0)
+        return d_out.sum(0) if wb else None
 
     ms = graph_time_ms(lambda: site_grouped_matmul_bwd(*args))
     ms_run = graph_time_ms(lambda: site_grouped_matmul_bwd(*args), calls=RUN_CALLS)
@@ -913,9 +947,10 @@ def check_site_grouped_matmul_bwd(model, db, tag=""):
     # d_out, the live slots' rows, k3 and the layout read once; d_rows, d_k3
     # and d_bias written once
     n_bytes = 4 * (n_events * f + rows_read * c + c * s * f + 2 * g * m + g
-                   + n * c + c * s * f + f)
+                   + n * c + c * s * f + (f if wb else 0))
     # two products of 2·C·F FLOP per live slot (d_rows, d_k3) and the bias sum
-    b_ms, by, fp32_ms = head_bound_ms(n_bytes, 4.0 * c * f * n_live, c, f, n_events * f)
+    b_ms, by, fp32_ms = head_bound_ms(n_bytes, 4.0 * c * f * n_live, c, f,
+                                      n_events * f if wb else 0)
     print(f"{tag}K5 site_grouped_matmul_bwd: groups={g} MAX={m} live={n_live} C={c} F={f} "
           f"B={n_events} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
           f"bound_ms={b_ms:.6f} ({by}; with the products in fp32 {fp32_ms:.6f}) "
@@ -3039,33 +3074,43 @@ torch.backends.cudnn.allow_tf32 = False
 device = torch.device(job["devices"][rank])
 sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 initialize_distributed(job["init_method"], world, rank, backend=job["backend"], device=device)
-# every all-reduce timed on the host clock, the card synchronised before and
-# after it; those of the training epoch (bucket agreement, BatchNorm sums
-# forward and backward, the weight, the gradients) summed by step
-spent = {"train_s_by_step": [], "train_calls": 0, "all_s": 0.0, "all_calls": 0}
+# every all-reduce and all-gather timed on the host clock, the card
+# synchronised before and after it; those of the training epoch (bucket
+# agreement, BatchNorm sums forward and backward, the weight, the gradients,
+# under tp the column blocks' gathers and d_feats' sums) summed by step, and
+# by the group they ran over
+spent = {"train_s_by_step": [], "train_calls": 0, "all_s": 0.0, "all_calls": 0,
+         "train_s_by_group": {}}
 in_train = [False]
-all_reduce = dist.all_reduce
+groups = {}
 
 
-def timed_all_reduce(*args, **kwargs):
-    sync()
-    t0 = time.perf_counter()
-    out = all_reduce(*args, **kwargs)
-    sync()
-    dt = time.perf_counter() - t0
-    spent["all_s"] += dt
-    spent["all_calls"] += 1
-    if in_train[0]:
-        spent["train_s_by_step"][-1] += dt
-        spent["train_calls"] += 1
-    return out
+def timed(collective):
+    def call(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = collective(*args, **kwargs)
+        sync()
+        dt = time.perf_counter() - t0
+        spent["all_s"] += dt
+        spent["all_calls"] += 1
+        if in_train[0]:
+            spent["train_s_by_step"][-1] += dt
+            spent["train_calls"] += 1
+            label = groups.get(id(kwargs.get("group")), "world")
+            spent["train_s_by_group"][label] = spent["train_s_by_group"].get(label, 0.0) + dt
+        return out
+    return call
 
 
-dist.all_reduce = timed_all_reduce
+dist.all_reduce = timed(dist.all_reduce)
+dist.all_gather_into_tensor = timed(dist.all_gather_into_tensor)
 cfg = Config(job["config"])
 task = retrieve_class(cfg.run_config.run_class)(cfg, device)
 task.model.load_state_dict(job["state"])
-trainer = Trainer(cfg, task, device=device, max_epochs=1)
+trainer = Trainer(cfg, task, device=device, max_epochs=1, tp=job.get("tp", 1))
+if trainer.mesh is not None:
+    groups = {id(trainer.mesh.data_group): "data", id(trainer.mesh.model_group): "model"}
 train_epoch = trainer._train_epoch
 
 
@@ -3098,10 +3143,14 @@ metrics = trainer.fit(BlockDataModule(job["train"], job["val"]))
 sync()
 wall = time.perf_counter() - t0
 launches = {fn.__name__: fn.launches for fn in kernels}
-torch.save({k: v.cpu() for k, v in task.model.state_dict().items()},
-           f"{job_path}.rank{rank}.pt")
+state = {k: v.cpu() for k, v in trainer.model_state_dict().items()}
+torch.save(state, f"{job_path}.rank{rank}.pt")
+blocks = ({k: list(task.model.state_dict()[k].shape) for k in trainer.tensor_parallel.specs}
+          if trainer.tensor_parallel is not None else {})
 dist.destroy_process_group()
 print(json.dumps({"rank": trainer.rank, "world_size": trainer.world_size,
+                  "mesh": trainer.mesh.shape if trainer.mesh is not None else None,
+                  "blocks": blocks,
                   "launches": launches, "step_losses": trainer.step_losses,
                   "metrics": metrics, "fit_wall_s": wall,
                   "step_wall_s": [p["wall_s"] for p in trainer.step_phases],
@@ -3217,22 +3266,13 @@ def run_dp_nccl(cfg, train, val) -> None:
               flush=True)
 
 
-def run_dp_ranks(cfg, state, train, val, devices, backend: str, tag: str) -> None:
-    """Data-parallel ranks, one a device of ``devices`` (phase 8c (b): two
-    ranks sharing the card over Gloo, which stages CUDA tensors through the
-    host; ``--dp-ranks N``: N cards over NCCL), each started as a process
-    of its own (``DP_RANK_SCRIPT``), each on its share of the events of
-    each of DP_STEPS 4096-event blocks (``split_block_for_devices``; the
-    Trainer reads the shards round-robin) and of the validation block,
-    against this process (``make_trainer``, the kernels) on the whole
-    blocks, from the same weights: every step's loss and the final weights
-    and running statistics within the DP tolerances, the ranks' losses
-    equal; each rank's K1, K2, K4 and K5 launches equal to
-    ``training_launches`` of its steps and validation; prints each rank's
-    launches, its step wall and the all-reduces' share of it."""
-    from waveformml_tpu_torch.config import to_dict
+def dp_reference(cfg, state, train, val) -> dict:
+    """The one-process run that the ranks of phases 8c (b) and 8d are held
+    to: ``make_trainer`` (the kernels) fitting DP_STEPS 4096-event blocks
+    and the validation block from ``state``, its launches asserted; and the
+    same with each event's rows reordered, whose readings against it are
+    float32 rounding alone."""
     from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
-    from waveformml_tpu_torch.parallel.mesh import split_block_for_devices
 
     blocks, vblock = train[:DP_STEPS], val[:1]
     zero_counts()
@@ -3247,25 +3287,56 @@ def run_dp_ranks(cfg, state, train, val, devices, backend: str, tag: str) -> Non
     reordered = make_trainer(cfg, state, plain=False, max_epochs=1)
     reordered.fit(BlockDataModule([reorder_rows(b, SEED + 82) for b in blocks], vblock))
     init = {k: v.detach().cpu() for k, v in state.items()}
-    rounding = delta_reading({k: v.detach().cpu() for k, v in
-                              reordered.task.model.state_dict().items()}, one_state, init)
-    rounding_loss = loss_reading(reordered.step_losses, one.step_losses)
+    return {"blocks": blocks, "vblock": vblock, "metrics": one_metrics, "want": want,
+            "state": one_state, "init": init, "losses": one.step_losses,
+            "step_ms": [round(p["wall_s"] * 1e3, 3) for p in one.step_phases],
+            "rounding": delta_reading({k: v.detach().cpu() for k, v in
+                                       reordered.task.model.state_dict().items()},
+                                      one_state, init),
+            "rounding_loss": loss_reading(reordered.step_losses, one.step_losses)}
+
+
+def run_dp_ranks(cfg, state, train, val, devices, backend: str, tag: str, ref=None,
+                 tp: int = 1, root: str = ROOT, check: bool = True) -> dict:
+    """Data-parallel ranks, one a device of ``devices`` (phase 8c (b): two
+    ranks sharing the card over Gloo, which stages CUDA tensors through the
+    host; ``--dp-ranks N``: N cards over NCCL), each started as a process
+    of its own (``DP_RANK_SCRIPT``, importing the port from ``root``), each
+    on its share of the events of each of DP_STEPS 4096-event blocks
+    (``split_block_for_devices``; the Trainer reads the shards round-robin)
+    and of the validation block, against ``dp_reference`` (``ref``, made
+    here where not given) on the whole blocks, from the same weights: every
+    step's loss and the final weights and running statistics within the DP
+    tolerances, the ranks' losses equal; each rank's K1, K2, K4 and K5
+    launches equal to ``training_launches`` of its steps and validation;
+    prints each rank's launches, its step wall and the collectives' share
+    of it. With ``tp > 1`` the ranks form a (len / tp, tp) grid (phase 8d):
+    the blocks are split over the data ranks only, and each rank prints
+    its blocks' shapes and the collectives' time by group. ``check=False``
+    asserts nothing of the readings (a planted fault's run). Returns the
+    readings: ``delta`` (the worst rank's) and ``loss``."""
+    from waveformml_tpu_torch.config import to_dict
+    from waveformml_tpu_torch.parallel.mesh import split_block_for_devices
+
+    ref = ref or dp_reference(cfg, state, train, val)
+    blocks, vblock, init, one_state = ref["blocks"], ref["vblock"], ref["init"], ref["state"]
     n = len(devices)
-    shards = [split_block_for_devices(b, n) for b in blocks]
-    assert all(h.labels.shape[0] == EVENTS_PER_CHUNK // n for hs in shards for h in hs)
+    dp = n // tp
+    shards = [split_block_for_devices(b, dp) for b in blocks]
+    assert all(h.labels.shape[0] == EVENTS_PER_CHUNK // dp for hs in shards for h in hs)
     with tempfile.TemporaryDirectory() as tmp:
         job = os.path.join(tmp, "job")
         with open(job, "wb") as f:
             pickle.dump({"init_method": f"file://{tmp}/rendezvous", "devices": list(devices),
-                         "backend": backend, "config": to_dict(cfg),
+                         "backend": backend, "config": to_dict(cfg), "tp": tp,
                          "state": {k: v.detach().cpu() for k, v in state.items()},
                          "train": [h for hs in shards for h in hs],
-                         "val": split_block_for_devices(vblock[0], n)}, f)
+                         "val": split_block_for_devices(vblock[0], dp)}, f)
         env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, "-c", DP_RANK_SCRIPT, job, str(r), str(n)],
-                                  cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  cwd=root, env=env, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
                  for r in range(n)]
         outs = []
@@ -3284,34 +3355,42 @@ def run_dp_ranks(cfg, state, train, val, devices, backend: str, tag: str) -> Non
         ranks = [json.loads([ln for ln in so.splitlines() if ln.startswith("{")][-1])
                  for so, _ in outs]
         states = [torch.load(f"{job}.rank{r}.pt", weights_only=True) for r in range(n)]
-    print(f"phase {tag}: {n} ranks over {backend} on {sorted(set(devices))}, {DP_STEPS} steps "
-          f"of {EVENTS_PER_CHUNK // n} events a rank, in {wall:.2f} s (wall, host clock, the "
-          f"processes' start and the kernels' loading included)", flush=True)
+    grid = f" on a ({dp}, {tp}) grid" if tp > 1 else ""
+    print(f"phase {tag}: {n} ranks{grid} over {backend} on {sorted(set(devices))}, {DP_STEPS} "
+          f"steps of {EVENTS_PER_CHUNK // dp} events a rank, in {wall:.2f} s (wall, host clock, "
+          f"the processes' start and the kernels' loading included)", flush=True)
     deltas = [delta_reading(st, one_state, init) for st in states]
-    loss_err = loss_reading(ranks[0]["step_losses"], one.step_losses)
+    loss_err = loss_reading(ranks[0]["step_losses"], ref["losses"])
     # the readings first, so that a run that fails shows them
-    print(f"phase {tag}: against one process on the whole blocks (metrics {one_metrics}): "
+    print(f"phase {tag}: against one process on the whole blocks (metrics {ref['metrics']}): "
           f"the change of the weights and running statistics over {DP_STEPS} steps at "
           f"{max(deltas):.3g} of one process's (worst tensor, L2; limit {DP_DELTA_LIMIT}), the "
           f"losses at {loss_err:.3g} (relative; limit {DP_LOSS_RTOL}); one process with each "
-          f"event's rows reordered: {rounding:.3g} and {rounding_loss:.3g}; one process's "
-          f"steps {[round(p['wall_s'] * 1e3, 3) for p in one.step_phases]} ms", flush=True)
+          f"event's rows reordered: {ref['rounding']:.3g} and {ref['rounding_loss']:.3g}; one "
+          f"process's steps {ref['step_ms']} ms", flush=True)
     for r, info in enumerate(ranks):
         steps, reduced = info["step_wall_s"], info["train_s_by_step"]
         assert len(reduced) == len(steps), (reduced, steps)
         median_ms = statistics.median(steps[1:]) * 1e3
+        by_group = "; ".join(f"{g} {t * 1e3:.3f} ms ({t / sum(steps):.1%})"
+                             for g, t in sorted(info["train_s_by_group"].items()))
         # the first step holds the group's first exchanges: its own line
-        print(f"phase {tag} rank {r} ({devices[r]}): launches {info['launches']}; change at "
-              f"{deltas[r]:.3g} of one process's; step walls "
-              f"{[round(t * 1e3, 3) for t in steps]} ms (median of steps 1-{len(steps) - 1} "
-              f"{median_ms:.3f} ms); all-reduces a step {[round(t * 1e3, 3) for t in reduced]} "
-              f"ms ({info['train_calls']} calls in the training epoch, each timed between two "
-              f"synchronisations of the card), {sum(reduced[1:]) / sum(steps[1:]):.1%} of "
-              f"steps 1-{len(steps) - 1}'s wall; fit {info['fit_wall_s']:.3f} s with "
-              f"{info['all_calls']} all-reduces taking {info['all_s'] * 1e3:.3f} ms; "
+        print(f"phase {tag} rank {r} ({devices[r]}, mesh {info['mesh']}): launches "
+              f"{info['launches']}; blocks {info['blocks']}; change at {deltas[r]:.3g} of one "
+              f"process's; step walls {[round(t * 1e3, 3) for t in steps]} ms (median of steps "
+              f"1-{len(steps) - 1} {median_ms:.3f} ms); collectives a step "
+              f"{[round(t * 1e3, 3) for t in reduced]} ms ({info['train_calls']} calls in the "
+              f"training epoch, each timed between two synchronisations of the card), "
+              f"{sum(reduced[1:]) / sum(steps[1:]):.1%} of steps 1-{len(steps) - 1}'s wall; by "
+              f"group over the epoch's steps: {by_group}; fit {info['fit_wall_s']:.3f} s with "
+              f"{info['all_calls']} collectives taking {info['all_s'] * 1e3:.3f} ms; "
               f"metrics {info['metrics']}", flush=True)
+    readings = {"delta": max(deltas), "loss": loss_err, "ranks": ranks}
+    if not check:
+        return readings
     assert all(r["step_losses"] == ranks[0]["step_losses"] for r in ranks), ranks
-    assert loss_err <= DP_LOSS_RTOL, (loss_err, ranks[0]["step_losses"], one.step_losses)
+    assert loss_err <= DP_LOSS_RTOL, (loss_err, ranks[0]["step_losses"], ref["losses"])
+    want = ref["want"]
     for r, info in enumerate(ranks):
         assert info["rank"] == r and info["world_size"] == n, info
         assert info["launches"] == {k: v for k, v in want.items() if k in info["launches"]}, (
@@ -3319,6 +3398,91 @@ def run_dp_ranks(cfg, state, train, val, devices, backend: str, tag: str) -> Non
         assert all(v > 0 for v in info["launches"].values()), info["launches"]
         assert deltas[r] <= DP_DELTA_LIMIT, (tag, r, deltas[r])
     print(f"phase {tag}: the ranks' losses equal, and match one process's", flush=True)
+    return readings
+
+
+# -- tensor-parallel training ----------------------------------------------------------
+
+#: phase 8d: the model degree, and the planted fault: copy_to_model's
+#: backward without its sum over the model group (the identity)
+TP = 2
+TP_FAULT = "        dist.all_reduce(total, group=ctx.mesh.model_group)\n"
+
+
+def tp_view(model, tp: int = TP, m: int = 0):
+    """The column blocks that rank ``m`` of a model group holds of
+    SubMPSD's sharded layers (``parallel.gspmd``'s rule: at SubMPSD.json's
+    widths the two k=3 convs and the head), as layers the kernel checks
+    take: the convs' ``stack`` and the head's ``head0``, each without its
+    bias, which the tensor-parallel layers add after the gather."""
+    from types import SimpleNamespace
+
+    from torch import nn
+
+    from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+    from waveformml_tpu_torch.parallel.gspmd import block_of, tp_specs
+
+    specs = tp_specs(model, tp)
+    convs = []
+    for name, conv in model.stack.named_children():
+        spec = specs.get(f"stack.{name}.weight")
+        if isinstance(conv, RowSubMConv2d) and spec is not None:
+            block = copy.deepcopy(conv)
+            block.weight = nn.Parameter(block_of(conv.weight.detach(), spec, tp, m))
+            block.bias = None
+            convs.append(block)
+    head = copy.deepcopy(model.head0)
+    head.weight = nn.Parameter(block_of(model.head0.weight.detach(), specs["head0.weight"],
+                                        tp, m))
+    head.features, head.bias = head.weight.shape[1], None
+    return SimpleNamespace(stack=nn.ModuleList(convs), head0=head)
+
+
+def run_tp(cfg, state, train, val, ref, model, db) -> tuple:
+    """Phase 8d: SubMPSD.json trained tensor-parallel (``Trainer(tp=2)``)
+    by ranks sharing the card over Gloo, on (a) a (1, 2) and (b) a (2, 2)
+    grid, each held to ``dp_reference`` by ``run_dp_ranks``; then the same
+    (1, 2) run from a copy of the port in which ``copy_to_model``'s backward
+    is the identity, whose readings must break a limit; then K1 (forward
+    and as d_feats), K4, K2 and K5 at the column blocks' widths
+    (``tp_view``) against their plain versions on ``db``. Returns the
+    kernel results by name and the launches of (b)'s rank 0."""
+    import shutil
+
+    for dp, tag in ((1, "8d (a)"), (2, "8d (b)")):
+        ranks = run_dp_ranks(cfg, state, train, val, ["cuda:0"] * (dp * TP), "gloo", tag,
+                             ref=ref, tp=TP)["ranks"]
+    launches = ranks[0]["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(ROOT, "waveformml_tpu_torch"),
+                        os.path.join(tmp, "waveformml_tpu_torch"))
+        # the kernels this run built, so that the copy builds none
+        shutil.copytree(os.path.join(ROOT, "build"), os.path.join(tmp, "build"))
+        path = os.path.join(tmp, "waveformml_tpu_torch", "parallel", "gspmd.py")
+        with open(path) as f:
+            source = f.read()
+        assert source.count(TP_FAULT) == 1
+        with open(path, "w") as f:
+            f.write(source.replace(TP_FAULT, ""))
+        fault = run_dp_ranks(cfg, state, train, val, ["cuda:0"] * TP, "gloo",
+                             "8d (planted fault)", ref=ref, tp=TP, root=tmp, check=False)
+    print(f"phase 8d (planted fault: copy_to_model's backward the identity): the change at "
+          f"{fault['delta']:.3g} (limit {DP_DELTA_LIMIT}), the losses at {fault['loss']:.3g} "
+          f"(limit {DP_LOSS_RTOL}): the check fails it", flush=True)
+    assert fault["delta"] > DP_DELTA_LIMIT or fault["loss"] > DP_LOSS_RTOL, fault
+    view = tp_view(model)
+    print(f"phase 8d kernels at the column blocks of model rank 0: convs "
+          f"{[tuple(c.weight.shape) for c in view.stack]}, head "
+          f"{tuple(view.head0.weight.shape)} (C={view.head0.cin}, F={view.head0.features}), "
+          f"no bias", flush=True)
+    results = {"subm_conv_rows": check_subm_conv_rows(view, db, db["feats"], tag="tp "),
+               "site_grouped_matmul": check_site_grouped_matmul(view, db, tag="tp ")}
+    results["subm_conv_rows_wgrad"], d_feats_err = check_subm_conv_rows_wgrad(
+        view, db, db["feats"], tag="tp ")
+    results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
+                                                   d_feats_err)
+    results["site_grouped_matmul_bwd"] = check_site_grouped_matmul_bwd(view, db, tag="tp ")
+    return results, launches
 
 
 # -- the prediction writers ------------------------------------------------------------
@@ -4386,11 +4550,12 @@ def seeded_submpsd(cfg):
     return model
 
 
-def dp_main(n: int, gloo: bool = False) -> int:
-    """``python3 chip_smoke.py --dp-ranks N [--gloo]``: the data-parallel
-    ranks of phase 8c (b) alone (``run_dp_ranks``), one a card over NCCL,
-    N cards needed, or with ``--gloo`` all N on card 0 over Gloo, as the
-    phase runs them; the same last line as ``main``."""
+def dp_main(n: int, gloo: bool = False, tp: int = 1) -> int:
+    """``python3 chip_smoke.py --dp-ranks N [--tp T] [--gloo]``: the
+    data-parallel ranks of phase 8c (b) alone (``run_dp_ranks``), or with
+    ``--tp T`` the tensor-parallel ranks of phase 8d on an (N / T, T) grid,
+    one a card over NCCL, N cards needed, or with ``--gloo`` all N on card
+    0 over Gloo, as the phases run them; the same last line as ``main``."""
     cards_needed = 1 if gloo else n
     if not torch.cuda.is_available() or torch.cuda.device_count() < cards_needed:
         print(f"chip_smoke --dp-ranks {n}: needs {cards_needed} CUDA card(s)", file=sys.stderr)
@@ -4416,11 +4581,12 @@ def dp_main(n: int, gloo: bool = False) -> int:
     train = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples)
              for _ in range(TRAIN_CHUNKS)]
     val = [labelled_block(train_rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
+    tag = f"--dp-ranks {n}" + (f" --tp {tp}" if tp > 1 else "")
     if gloo:
-        run_dp_ranks(cfg, state, train, val, ["cuda:0"] * n, "gloo", f"--dp-ranks {n} --gloo")
+        run_dp_ranks(cfg, state, train, val, ["cuda:0"] * n, "gloo", f"{tag} --gloo", tp=tp)
     else:
-        run_dp_ranks(cfg, state, train, val, [f"cuda:{r}" for r in range(n)], "nccl",
-                     f"--dp-ranks {n}")
+        run_dp_ranks(cfg, state, train, val, [f"cuda:{r}" for r in range(n)], "nccl", tag,
+                     tp=tp)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4711,8 +4877,13 @@ def main() -> int:
 
     # -- 8c. data-parallel training -------------------------------------------------
     run_dp_nccl(cfg, train, val)
-    run_dp_ranks(cfg, state, train, val, DP_DEVICES, "gloo", "8c (b)")
+    dp_ref = dp_reference(cfg, state, train, val)
+    run_dp_ranks(cfg, state, train, val, DP_DEVICES, "gloo", "8c (b)", ref=dp_ref)
     lap("data-parallel training (phase 8c)")
+
+    # -- 8d. tensor-parallel training ------------------------------------------------
+    tp_results, tp_launches = run_tp(cfg, state, train, val, dp_ref, task.model, db)
+    lap("tensor-parallel training (phase 8d)")
 
     # -- 9. the per-segment regressors -----------------------------------------
     z_train, z_val = run_z()
@@ -4805,6 +4976,19 @@ def main() -> int:
                             "ms": r["ms"], "plain_ms": r["plain_ms"],
                             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                             "library_ms": r["library_ms"]})
+    # K1, K4, K2 and K5 at the column blocks' widths, launched by phase 8d's
+    # (2, 2) rank 0
+    for name, label in (("subm_conv_rows", "tp=2: Cout 52 and 28"),
+                        ("subm_conv_rows_wgrad", "tp=2: Cout 52 and 28"),
+                        ("site_grouped_matmul", "tp=2: (C, F) = (8, 25)"),
+                        ("site_grouped_matmul_bwd", "tp=2: (C, F) = (8, 25)")):
+        route, source, replaces = sources[name]
+        r = tp_results[name]
+        kernels.append({"name": f"{name} ({label})", "route": route, "source": source,
+                        "replaces": replaces, "launches": tp_launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4815,5 +4999,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-ranks"]:
-        sys.exit(dp_main(int(sys.argv[2]), "--gloo" in sys.argv[3:]))
+        flags = sys.argv[3:]
+        sys.exit(dp_main(int(sys.argv[2]), "--gloo" in flags,
+                         int(flags[flags.index("--tp") + 1]) if "--tp" in flags else 1))
     sys.exit(main())

@@ -147,8 +147,12 @@ def test_load_best_without_checkpoint_raises(workdir):
         cli.main([path, "-lb", "--max_epochs", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["--distributed", "--parallel", "gspmd"], ["--tp", "2"]],
+@pytest.mark.parametrize("flags", [["--distributed", "--parallel", "gspmd", "--tp", "2",
+                                    "--coordinator", "localhost:1", "--num_processes", "3",
+                                    "--process_id", "0"], ["--tp", "2"]],
                          ids=lambda f: f[0].lstrip("-"))
 def test_flags_not_ported_raise(workdir, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
+    """``--tp 2`` over 3 processes, or without ``--distributed``, forms no
+    (data, model) grid: the CLI raises before any rendezvous."""
+    with pytest.raises(ValueError, match="cannot form a"):
         cli.main([workdir["config"], "--device", "cpu", *flags])

@@ -20,7 +20,9 @@ tolerance rtol 2e-3, atol 2e-4. Then ``fit`` + ``test`` on two ranks (odd
 loaders, padded by wrapping): equal metrics on both, one checkpoint, which
 a one-rank ``Trainer`` and ``InferenceModel`` load; the two-process CLI on
 synthetic HDF5 directories (one run directory, one ``run_info.json``, one
-checkpoint); ``parallel="gspmd"`` and ``tp > 1`` refused; and
+checkpoint); ``parallel="gspmd"`` and ``tp=2`` on the two ranks (the
+tensor-parallel engine itself is held in tests/test_torch_gspmd.py),
+``tp=2`` without a grid and ``parallel="pmap"`` refused; and
 ``steps_per_dispatch = 2`` equal to 1."""
 import copy
 import glob
@@ -193,7 +195,8 @@ def runs(tmp_path_factory):
     spawn of two ranks for all of them and the fit + test case)."""
     tmp = tmp_path_factory.mktemp("dp")
     out, job_cases = {}, {}
-    for name, (d, block) in _cases().items():
+    cases = _cases()
+    for name, (d, block) in cases.items():
         init, jax_losses, jax_state = _jax_trajectory(d, block)
         trainer, fit, state = _one_rank(d, init, [block] * STEPS, [block])
         out[name] = {"jax_losses": jax_losses, "jax_state": jax_state,
@@ -201,6 +204,13 @@ def runs(tmp_path_factory):
         shards = split_block_for_devices(block, RANKS)
         job_cases[name] = {"config": d, "init": init, "train": shards * STEPS, "val": shards}
     job_cases["fit_test"] = _fit_test_case(tmp)
+    for name, kwargs in ENGINE_CASES.items():
+        case = dict(job_cases["SubMPSDNet"], trainer=kwargs)
+        if kwargs.get("tp") == 2:
+            # a (1, 2) grid: both ranks read the whole block
+            block = cases["SubMPSDNet"][1]
+            case.update(train=[block] * STEPS, val=[block])
+        job_cases[name] = case
     job = str(tmp / "job")
     with open(job, "wb") as f:
         pickle.dump({"init_method": f"file://{tmp}/rendezvous", "cases": job_cases}, f)
@@ -214,6 +224,9 @@ def runs(tmp_path_factory):
 
 
 CASES = ["SubMPSDNet", "one_event", "graph", "graph_cached_edges", "dsl_flax_batchnorm"]
+#: the SubMPSDNet case again under the GSPMD engine's flags
+ENGINE_CASES = {"gspmd": {"parallel": "gspmd"}, "tp": {"tp": 2},
+                "gspmd_tp": {"parallel": "gspmd", "tp": 2}}
 
 
 def test_cases_hold_what_they_claim():
@@ -339,13 +352,49 @@ def test_two_process_cli(tmp_path):
     assert len(glob.glob(str(run_dir / "*tfevents*"))) == 1
 
 
-@pytest.mark.parametrize("kwargs", [{"parallel": "gspmd"}, {"tp": 2}],
-                         ids=["gspmd", "tp"])
-def test_gspmd_engine_raises(kwargs):
+@pytest.mark.parametrize("name", ENGINE_CASES)
+def test_gspmd_engine_constructs_on_two_ranks(runs, name):
+    """``parallel="gspmd"`` and ``tp=2`` construct under a 2-rank group: with
+    ``tp = 1`` the data-parallel engine (its results those of the default
+    engine), with ``tp = 2`` a (1, 2) grid whose steps are one rank's."""
+    kwargs = ENGINE_CASES[name]
+    one = runs["one"]["SubMPSDNet"]
+    for r, rank in enumerate(runs["ranks"]):
+        got = rank[name]
+        tp = kwargs.get("tp", 1)
+        assert got["mesh"] == ({"data": 1, "model": 2} if tp == 2 else None)
+        assert (got["data_index"], got["model_index"]) == ((0, r) if tp == 2 else (r, 0))
+        if tp == 1:
+            assert got["step_losses"] == rank["SubMPSDNet"]["step_losses"]
+        np.testing.assert_allclose(got["step_losses"], one["losses"], rtol=RTOL, atol=ATOL)
+        for k, v in one["state"].items():
+            np.testing.assert_allclose(got["state"][k], v, rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("world", [None, 3], ids=["no_group", "world_of_3"])
+def test_tp_refused_without_a_grid(world, monkeypatch):
+    """``tp=2`` with no process group, or over a world of 3 ranks, raises
+    ValueError: the ranks cannot form the grid."""
     jcfg, _ = make_cfg_block()
     cfg = Config(_config_dict(jcfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
-        Trainer(cfg, retrieve_class("LitPSD")(cfg, "cpu"), device="cpu", **kwargs)
+    if world is None:
+        with pytest.raises(ValueError, match="cannot form a"):
+            Trainer(cfg, retrieve_class("LitPSD")(cfg, "cpu"), device="cpu", tp=2)
+        return
+    with pytest.raises(ValueError, match="3 devices cannot form a"):
+        Trainer.check_engine("gspmd", 2, world)
+    import torch.distributed as dist
+
+    from waveformml_tpu_torch.parallel.gspmd import make_mesh_2d
+
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: world)
+    with pytest.raises(ValueError, match=r"3 devices cannot form a \(1, 2\) mesh"):
+        make_mesh_2d(tp=2)
+
+
+def test_pmap_engine_raises():
+    jcfg, _ = make_cfg_block()
+    cfg = Config(_config_dict(jcfg))
     with pytest.raises(ValueError, match="shard_map"):
         Trainer(cfg, retrieve_class("LitPSD")(cfg, "cpu"), device="cpu", parallel="pmap")
 

@@ -69,7 +69,7 @@ torch's).
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -120,6 +120,77 @@ def _kernel_to_flax(module_path: str, arr: np.ndarray) -> np.ndarray:
     if arr.ndim >= 4:
         return np.ascontiguousarray(np.moveaxis(arr, (0, 1), (-2, -1)))
     return arr.T if _DENSE.match(name) else arr
+
+
+def _kernel_layout(module_path: str, shape: Tuple[int, ...]) -> Tuple[Tuple[int, ...], int]:
+    """``_kernel_to_flax``'s flax shape of a kernel of the port's ``shape``,
+    and the port axis that holds flax's last axis."""
+    name = _leaf_module(module_path)
+    view = np.broadcast_to(np.float32(0), shape)     # a shape without storage
+    if _CONV.match(name) and len(shape) >= 3:
+        return np.moveaxis(view, (0, 1), (-1, -2)).shape, 0
+    if len(shape) >= 4:
+        return np.moveaxis(view, (0, 1), (-2, -1)).shape, 1
+    if _DENSE.match(name):
+        return tuple(reversed(shape)), 0
+    return tuple(shape), len(shape) - 1
+
+
+class FlaxLayout(NamedTuple):
+    """Where a parameter of the port's ``state_dict`` sits in flax: the
+    flax names it carries, the flax shape of each, and the port axis that
+    holds flax's last axis, in ``blocks`` equal blocks (a recurrent
+    layer's gates, each a flax Dense of its own; 1 elsewhere)."""
+    names: List[str]
+    shape: Tuple[int, ...]
+    axis: int
+    blocks: int
+
+
+def flax_layout(key: str, shapes: Dict[str, Tuple[int, ...]]) -> FlaxLayout:
+    """The ``FlaxLayout`` of the parameter ``key`` of a ``state_dict``
+    whose entries have ``shapes`` (all of them, in ``state_dict`` order:
+    a recurrent layer's gates and a weight norm's index are read from
+    its siblings), as ``state_dict_to_flax`` maps it."""
+    shape = tuple(shapes[key])
+    cell = _CELL_TORCH.match(key)
+    if cell:
+        hidden = shapes[f"{cell['cell']}.weight_hh_l0"][1]
+        gates = shape[0] // hidden
+        gi, gh = _GATES[gates]
+        path = "params/" + cell["cell"].replace(".", "/")
+        which = key[len(cell["cell"]) + 1:]
+        gate = gi if which.endswith("ih_l0") else gh
+        if which.startswith("weight"):
+            return FlaxLayout([f"{path}/{g}/kernel" for g in gate], (shape[1], hidden), 0,
+                              gates)
+        return FlaxLayout([f"{path}/{g}/bias" for g in gate], (hidden,), 0, gates)
+    if _WN in key:
+        conv_path, _, which = key.partition(_WN)
+        path = conv_path.replace(".", "/")
+        if which == "1":
+            flax_shape, axis = _kernel_layout(path, shape)
+            return FlaxLayout([f"params/{path}/kernel"], flax_shape, axis, 1)
+        parent, _, conv = path.rpartition("/")
+        keys = list(shapes)
+        # state_dict_to_flax numbers a parent's scales in state_dict order
+        j = sum(1 for k in keys[:keys.index(key)] if k.endswith(_WN + "0")
+                and k.partition(_WN)[0].rpartition(".")[0] == conv_path.rpartition(".")[0])
+        prefix = f"{parent}/" if parent else ""
+        return FlaxLayout([f"params/{prefix}WeightNorm_{j}/{conv}/kernel/scale"],
+                          (shape[0],), 0, 1)
+    module, _, leaf = key.rpartition(".")
+    path = module.replace(".", "/")
+    prefix = f"{path}/" if path else ""
+    if leaf == "bias" or leaf in _RAW:
+        return FlaxLayout([f"params/{prefix}{leaf}"], shape, len(shape) - 1, 1)
+    if leaf == "weight" and (key[:-len("weight")] + "running_mean" in shapes
+                             or _leaf_module(path).startswith("LayerNorm_")):
+        return FlaxLayout([f"params/{prefix}scale"], shape, len(shape) - 1, 1)
+    if leaf == "weight":
+        flax_shape, axis = _kernel_layout(path, shape)
+        return FlaxLayout([f"params/{prefix}kernel"], flax_shape, axis, 1)
+    raise KeyError(f"'{key}' is not a parameter flax carries")
 
 
 def _cells_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -33,8 +33,9 @@ flags, as the JAX ``Trainer``'s.
 
 Where ``torch.distributed`` has a process group (``parallel.mesh
 .initialize_distributed``), the Trainer is one rank of a data-parallel run,
-as the JAX ``shard_map`` step is one device of its mesh: each loader is
-read round-robin (``shard_loader_round_robin``: at step t, batch t·W + r);
+as the JAX ``shard_map`` step is one device of its mesh: it starts from
+rank 0's weights and statistics (a broadcast); each loader is read
+round-robin (``shard_loader_round_robin``: at step t, batch t·W + r);
 each step agrees the row and event buckets and the data-dependent dims
 (graph edge caps, the site layout's width) with the group's largest, runs
 its forward with the BatchNorm statistics summed over the ranks
@@ -46,6 +47,21 @@ batches sum their loss, weight and metrics the same way; each rank hands
 its own outputs to its evaluator. Rank 0 alone writes checkpoints (the
 others wait for it) and logs; dropout draws from a stream seeded with the
 seed and the rank.
+
+With ``tp > 1`` (the JAX package's GSPMD engine, ``parallel="gspmd"``) the
+ranks form a ``(dp, tp)`` grid (``parallel.gspmd.make_mesh_2d``): rank r
+at ``(data, model) = (r // tp, r % tp)``. The model's wide parameters are
+column-sharded over each model group (``parallel.gspmd.TensorParallel``),
+so a rank holds, steps and keeps optimizer state for its blocks only. Then
+the loaders go round-robin over the data index with ``dp``; the BatchNorm
+statistics, the weight, the gradients, the loss and the metrics are summed
+over the data group (the ranks of one model index), and the running
+statistics averaged over it; the buckets and shapes are still agreed over
+every rank; the global-norm clip counts each sharded gradient's blocks
+once, summed over the model group; dropout is seeded with the data index,
+so that a model group draws one mask; checkpoints hold the gathered
+one-rank state, written by rank 0, and a loaded one is sharded again;
+only model-index-0 ranks hand their outputs to the evaluator.
 """
 from __future__ import annotations
 
@@ -71,6 +87,8 @@ from waveformml_tpu_torch.nn.bn import synced_bn
 from waveformml_tpu_torch.nn.layers import _FlaxBatchNorm
 from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_scheduler,
                                         clip_by_global_norm_, set_learning_rate)
+from waveformml_tpu_torch.parallel.gspmd import (TensorParallel, block_of, gather_blocks,
+                                                 make_mesh_2d)
 from waveformml_tpu_torch.parallel.mesh import pad_to, shard_loader_round_robin
 from waveformml_tpu_torch.utils.profiler import SimpleProfiler
 
@@ -121,8 +139,10 @@ class Trainer:
     * ``steps_per_dispatch``: accepted for the JAX CLI's sake; eager
       PyTorch has no dispatch to amortise, so every K steps one batch at a
       time, with the results of K = 1;
-    * ``parallel``, ``tp``: ``"shard_map"`` (data parallelism) only; the
-      GSPMD engine (``parallel="gspmd"``, ``tp > 1``) is not ported.
+    * ``parallel``, ``tp``: ``"shard_map"`` or ``"gspmd"``; ``tp > 1``
+      shards the model over a ``(dp, tp)`` grid of the ranks (the module
+      docstring), which needs a process group whose size divides by
+      ``tp``; ``tp = 1`` is data parallelism whatever ``parallel`` says.
     """
 
     #: constructor arguments that a driver wires as objects, not CLI flags
@@ -141,19 +161,38 @@ class Trainer:
                  accumulate_grad_batches: int = 1,
                  seed: int = 0, logger=None, profiler: bool = False,
                  steps_per_dispatch: int = 1, parallel: str = "shard_map", tp: int = 1):
-        self.check_engine(parallel, tp)
-        self.config = config
-        self.task = task
-        self.device = resolve_device(device)
         #: the data-parallel process group (None: one device), this rank and
         #: the number of ranks
         self.group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
         self.rank = dist.get_rank() if self.group is not None else 0
         self.world_size = dist.get_world_size() if self.group is not None else 1
+        self.check_engine(parallel, tp, self.world_size)
+        self.parallel, self.tp = parallel, int(tp)
+        self.config = config
+        self.task = task
+        self.device = resolve_device(device)
         if self.rank != 0:
             logger = None
         task.device = self.device
         task.model.to(self.device)
+        if self.group is not None:
+            # every rank starts from rank 0's weights and statistics, as every
+            # JAX process initialises from one seed (a process's own draw
+            # here comes from an unseeded generator)
+            with torch.no_grad():
+                for t in task.model.state_dict().values():
+                    dist.broadcast(t, src=0, group=self.group)
+        #: under tp > 1 the (data, model) grid and the model's shards on it
+        self.mesh = make_mesh_2d(tp=self.tp) if self.tp > 1 else None
+        self.tensor_parallel = (TensorParallel(task.model, self.mesh)
+                                if self.mesh is not None else None)
+        #: the group the gradients, loss, metrics and BatchNorm statistics are
+        #: summed over, its size and this rank's index in it, and this rank's
+        #: index in its model group
+        self.data_group = self.mesh.data_group if self.mesh is not None else self.group
+        self.dp = self.mesh.dp if self.mesh is not None else self.world_size
+        self.data_index = self.mesh.data_index if self.mesh is not None else self.rank
+        self.model_index = self.mesh.model_index if self.mesh is not None else 0
         oc = config.optimize_config
         self.callbacks = list(callbacks) if callbacks is not None else [LoggingCallback()]
         self.logger = logger
@@ -169,10 +208,13 @@ class Trainer:
         self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.generator = torch.Generator(device=self.device).manual_seed(
-            _rank_seed(seed, self.rank))
+            _rank_seed(seed, self.data_index))
         task.generator = self.generator
         self.lr = oc.lr
         self.params = list(task.model.parameters())
+        #: for each of ``params``, whether it is a block of a sharded parameter
+        specs = self.tensor_parallel.specs if self.tensor_parallel is not None else {}
+        self._sharded = [name in specs for name, _ in task.model.named_parameters()]
         self.optimizer = build_optimizer(oc.optimizer_class, self.params, oc.lr,
                                          to_dict(getattr(oc, "optimizer_params", None) or {}))
         self.scheduler = build_scheduler(getattr(oc, "scheduler_class", None), oc.lr,
@@ -205,15 +247,20 @@ class Trainer:
         self.simple_profiler = SimpleProfiler() if profiler else None
 
     @staticmethod
-    def check_engine(parallel: str, tp: int) -> None:
-        """Raise for an engine the port does not run: ``parallel="gspmd"``
-        or ``tp > 1`` (NotImplementedError), or a name of none (ValueError)."""
-        if parallel == "gspmd" or int(tp) > 1:
-            raise NotImplementedError(
-                "the GSPMD dp x tp engine (parallel='gspmd', tp > 1) is not ported yet "
-                "(ROADMAP.md queue 1 item 13); parallel='shard_map' trains data-parallel")
-        if parallel != "shard_map":
+    def check_engine(parallel: str, tp: int, world: Optional[int] = None) -> None:
+        """Raise ValueError for an engine the port does not run: a
+        ``parallel`` other than ``"shard_map"`` and ``"gspmd"``, ``tp < 1``,
+        or ``tp > 1`` over ``world`` ranks (1 without a process group; None:
+        not known yet) that do not form a ``(world / tp, tp)`` grid."""
+        if parallel not in ("shard_map", "gspmd"):
             raise ValueError(f"parallel must be 'shard_map' or 'gspmd', not {parallel!r}")
+        tp = int(tp)
+        if tp < 1:
+            raise ValueError(f"tp must be 1 or more, not {tp}")
+        if tp > 1 and world is not None and world % tp:
+            raise ValueError(f"{world} devices cannot form a ({world // tp}, {tp}) mesh: "
+                             f"tp={tp} needs a process group (--distributed) whose size "
+                             f"divides by it")
 
     # -- argparse bridge --------------------------------------------------------------
     @classmethod
@@ -281,10 +328,10 @@ class Trainer:
         return t.tolist()
 
     def _sum_over_ranks(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each tensor summed over the ranks, by one all-reduce of a float32
-        buffer that holds them all."""
+        """Each tensor summed over the data group, by one all-reduce of a
+        float32 buffer that holds them all."""
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-        dist.all_reduce(flat, group=self.group)
+        dist.all_reduce(flat, group=self.data_group)
         out, pos = [], 0
         for t in tensors:
             out.append(flat[pos:pos + t.numel()].view(t.shape).to(t.dtype))
@@ -292,14 +339,14 @@ class Trainer:
         return out
 
     def _shard(self, loader):
-        """``loader``, or under a process group this rank's round-robin
-        share of it."""
+        """``loader``, or under a process group this data index's
+        round-robin share of it."""
         if self.group is None:
             return loader
-        sharded = shard_loader_round_robin(loader, self.world_size, self.rank)
+        sharded = shard_loader_round_robin(loader, self.dp, self.data_index)
         if len(sharded) == 0:
             raise RuntimeError(f"the loader has {len(loader)} batches for "
-                               f"{self.world_size} ranks; each needs one at least")
+                               f"{self.dp} data ranks; each needs one at least")
         return sharded
 
     def _barrier(self) -> None:
@@ -321,12 +368,13 @@ class Trainer:
         it did not step, until the next micro-step.
 
         Under a process group the forward sums its BatchNorm statistics over
-        the ranks, ``weight`` is the ranks' sum (clamped after the sum, so an
-        empty shard adds 0), and the gradients, the loss and the metrics are
-        summed over the ranks, the BatchNorm running statistics averaged,
-        before accumulation, clipping and the optimizer: every rank steps
-        with the whole batch's gradient, as the JAX step's ``psum``."""
-        with synced_bn(self.group):
+        the data group, ``weight`` is the group's sum (clamped after the sum,
+        so an empty shard adds 0), and the gradients, the loss and the
+        metrics are summed over the group, the BatchNorm running statistics
+        averaged, before accumulation, clipping and the optimizer: every rank
+        steps with the whole batch's gradient (of its blocks, under tp), as
+        the JAX step's ``psum``."""
+        with synced_bn(self.data_group):
             outputs = self.task.model_outputs(db, train=True)
         loss_sum, weight, metrics = self.task.loss_and_metrics(outputs, db)
         if self.group is not None:
@@ -344,12 +392,13 @@ class Trainer:
             metrics = dict(zip(keys, summed[len(grads) + 1:len(grads) + 1 + len(keys)]))
             with torch.no_grad():
                 for b, total in zip(stats, summed[len(grads) + 1 + len(keys):]):
-                    b.copy_(total / self.world_size)
+                    b.copy_(total / self.dp)
         if self.multi_steps is not None:
             grads = self.multi_steps.update(grads)
         if grads is not None:
             if self.gradient_clip_val:
-                clip_by_global_norm_(grads, float(self.gradient_clip_val))
+                clip_by_global_norm_(grads, float(self.gradient_clip_val), self._sharded,
+                                     self.mesh.model_group if self.mesh is not None else None)
             for p, g in zip(self.params, grads):
                 p.grad = g
             self.optimizer.step()
@@ -521,7 +570,9 @@ class Trainer:
         db_host, test_out)`` gets each batch's host arrays and its test
         outputs (numpy); a test pass records ``test_phases``. Under a
         process group each batch's loss sum, weight and metrics are summed
-        over the ranks; ``collect`` gets this rank's own batch and outputs."""
+        over the data group; ``collect`` gets this rank's own batch and
+        outputs, on model-index-0 ranks only (a model group computes one
+        batch)."""
         cuda = self.device.type == "cuda"
         loss_sum, weight = 0.0, 0.0
         agg: Dict[str, torch.Tensor] = {}
@@ -549,7 +600,7 @@ class Trainer:
                 self.simple_profiler.stop("evaluation_step")
             _accumulate(agg, metrics)
             copy_back_s = collect_s = 0.0
-            if collect is not None:
+            if collect is not None and self.model_index == 0:
                 n = (block.coords.shape[0] if self.task.output_unit == "row"
                      else self.task.n_events(block))
                 t0 = time.perf_counter()
@@ -595,7 +646,7 @@ class Trainer:
         failure to build it is a warning) gets each block through its
         ``add_batch``. Under a process group the test loader is read
         round-robin, as ``fit`` reads its loaders, and each rank collects
-        its own blocks."""
+        its own blocks (under tp, each model-index-0 rank)."""
         data_module.setup("test")
         evaluator = getattr(self.task, "evaluator", None)
         if evaluator is None:
@@ -625,7 +676,11 @@ class Trainer:
         (``device_batch``: its row and event buckets, its site capacity), with
         static shapes as the JAX export has, and takes a device batch dict
         of those shapes; the kernels are the nodes of their custom ops.
-        Reload it with ``load_exported``."""
+        Reload it with ``load_exported``. Under tp it raises: export from a
+        one-rank Trainer that loads the run's checkpoint (the one-rank file)."""
+        if self.tensor_parallel is not None:
+            raise ValueError("a tensor-parallel model holds column blocks: export from a "
+                             "one-rank Trainer that loads this run's checkpoint")
         # the program keeps its example inputs: on the card each leaf is a
         # view of one packed buffer, which torch.export.save cannot store
         db = {k: v.clone() for k, v in self.device_batch(sample_block)[0].items()}
@@ -643,19 +698,62 @@ class Trainer:
         return path
 
     # -- checkpoints ------------------------------------------------------------------
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's one-rank ``state_dict``: under tp its blocks gathered
+        (a collective of every rank)."""
+        state = self.task.model.state_dict()
+        if self.tensor_parallel is not None:
+            state = self.tensor_parallel.gather_params(state)
+        return state
+
+    def _per_param(self, tensors: List, whole: bool) -> List:
+        """``tensors``, one a parameter (the optimizer's state or the
+        accumulation's, in ``params`` order), with each block of a sharded
+        parameter gathered whole (``whole``) or each whole one cut to this
+        rank's block."""
+        if self.tensor_parallel is None:
+            return tensors
+        tp = self.tensor_parallel
+        out = []
+        for t, (name, p) in zip(tensors, self.task.model.named_parameters()):
+            spec = tp.specs.get(name)
+            if spec is not None and torch.is_tensor(t) and t.dim() > 0:
+                t = (gather_blocks(t, spec, tp.mesh) if whole
+                     else block_of(t, spec, tp.mesh.tp, tp.mesh.model_index))
+            out.append(t)
+        return out
+
+    def _optimizer_state(self, state: Dict[str, Any], whole: bool) -> Dict[str, Any]:
+        """An optimizer ``state_dict`` with each sharded parameter's tensors
+        gathered whole or cut to this rank's block (``_per_param``)."""
+        if self.tensor_parallel is None:
+            return state
+        n = len(self.params)
+        per = [state["state"].get(i, {}) for i in range(n)]
+        keys = sorted({k for d in per for k in d})
+        by_key = {k: self._per_param([d.get(k) for d in per], whole) for k in keys}
+        new = {i: {k: by_key[k][i] for k in per[i]} for i in range(n) if per[i]}
+        return {**state, "state": new}
+
     def save_checkpoint(self, path: str) -> None:
         """One ``torch.save`` file: the model's ``state_dict``, the
         optimizer's, the scheduler's and the gradient accumulation's state,
         the epoch, the micro-step count and the best validation loss. Under
         a process group every rank calls it, rank 0 writes the file and the
-        others wait for it."""
+        others wait for it. Under tp the file holds the one-rank state
+        (every parameter, its optimizer state and accumulation gathered
+        whole): the file a one-rank run writes."""
+        state = self.model_state_dict()
+        optimizer = self._optimizer_state(self.optimizer.state_dict(), whole=True)
+        multi_steps = None
+        if self.multi_steps is not None:
+            multi_steps = self.multi_steps.state_dict()
+            multi_steps["acc"] = self._per_param(multi_steps["acc"], whole=True)
         if self.rank == 0:
-            torch.save({"state_dict": self.task.model.state_dict(),
-                        "optimizer": self.optimizer.state_dict(),
+            torch.save({"state_dict": state, "optimizer": optimizer,
                         "scheduler": (self.scheduler.state_dict()
                                       if self.scheduler is not None else None),
-                        "multi_steps": (self.multi_steps.state_dict()
-                                        if self.multi_steps is not None else None),
+                        "multi_steps": multi_steps,
                         "epoch": self.current_epoch, "step": self.global_step,
                         "best_val_loss": self.best_val_loss}, path)
         self._barrier()
@@ -664,16 +762,22 @@ class Trainer:
         """Load a checkpoint's weights; with ``restore_training`` also the
         optimizer, the scheduler, the gradient accumulation, the epoch, the
         micro-step count and the best validation loss, so that ``fit``
-        resumes at the saved epoch."""
+        resumes at the saved epoch. Under tp the checkpoint (a one-rank
+        file) is cut to this rank's blocks."""
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
-        self.task.model.load_state_dict(ckpt["state_dict"])
+        state = ckpt["state_dict"]
+        if self.tensor_parallel is not None:
+            state = self.tensor_parallel.shard_params(state)
+        self.task.model.load_state_dict(state)
         if not restore_training:
             return
-        self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.optimizer.load_state_dict(self._optimizer_state(ckpt["optimizer"], whole=False))
         if self.scheduler is not None and ckpt.get("scheduler") is not None:
             self.scheduler.load_state_dict(ckpt["scheduler"])
         if self.multi_steps is not None and ckpt.get("multi_steps") is not None:
-            self.multi_steps.load_state_dict(ckpt["multi_steps"])
+            multi_steps = dict(ckpt["multi_steps"])
+            multi_steps["acc"] = self._per_param(multi_steps["acc"], whole=False)
+            self.multi_steps.load_state_dict(multi_steps)
         self.current_epoch = ckpt["epoch"]
         self.global_step = ckpt.get("step", 0)
         self.best_val_loss = ckpt.get("best_val_loss", math.inf)
@@ -800,9 +904,10 @@ def _bn_running_stats(model: torch.nn.Module) -> List[torch.Tensor]:
 
 
 def _rank_seed(seed: int, rank: int) -> int:
-    """The dropout stream's seed of a rank: ``seed`` on rank 0 (so that a
-    group of one draws what one device draws), else one drawn from
-    ``(seed, rank)``, as the JAX step folds the device index into its key."""
+    """The dropout stream's seed of a data rank (under tp, of every rank of
+    its model group): ``seed`` on rank 0 (so that a group of one draws what
+    one device draws), else one drawn from ``(seed, rank)``, as the JAX
+    step folds the device index into its key."""
     if rank == 0:
         return seed
     return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)

@@ -29,8 +29,13 @@ resumes.
 torchrun's environment), one process per GPU: rank 0 picks the run
 directory and sends it to the others, and alone writes ``run_info.json``,
 the TensorBoard scalars and the checkpoint; the group is left at the end.
-With ``-oc`` it is refused. ``--parallel gspmd`` and ``--tp`` > 1 (the
-GSPMD engine, not ported) raise before anything starts.
+With ``-oc`` it is refused. ``--parallel gspmd --tp N`` under
+``--distributed`` runs the JAX package's GSPMD engine as tensor
+parallelism: the ranks form a ``(world / N, N)`` grid of (data, model)
+ranks, and the model's wide parameters are column-sharded over each model
+group (``parallel.gspmd``); the checkpoint is the one-rank file. ``--tp``
+> 1 without ``--distributed``, or over a ``--num_processes`` that does not
+divide by it, raises before anything starts.
 
 ``--device`` (default ``cuda``) picks the device: the card (under
 ``--distributed``, ``cuda:<local rank>``), or ``cpu`` for the plain
@@ -89,8 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="apply the optimizer every k batches")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--distributed", action="store_true",
-                   help="data-parallel training, one process per GPU (torchrun's "
-                        "environment, or --coordinator)")
+                   help="data-parallel (with --tp N, data x tensor-parallel) training, one "
+                        "process per GPU (torchrun's environment, or --coordinator)")
     p.add_argument("--coordinator", default=None,
                    help="rendezvous address host:port, or a file:// URL")
     p.add_argument("--num_processes", type=int, default=None)
@@ -220,7 +225,8 @@ def main(argv: Optional[list] = None) -> int:
                          "local device); drop --distributed for -oc runs")
     from waveformml_tpu_torch.engineering.trainer import Trainer
 
-    Trainer.check_engine(args.parallel, args.tp)
+    Trainer.check_engine(args.parallel, args.tp,
+                         (args.num_processes if args.distributed else 1))
     apply_num_threads(args.num_threads)
     config = load_config(args.config, validate=args.config_validation is None)
     if args.config_validation:

@@ -23,6 +23,7 @@ from waveformml_tpu_torch.models.schedules import get_frame_contraction, get_fra
 from waveformml_tpu_torch.nn.bn import all_reduce_sum, get_bn_group
 from waveformml_tpu_torch.ops.site_head import SiteGroupedMatmul
 from waveformml_tpu_torch.ops.sparse import SparseBatch
+from waveformml_tpu_torch.parallel.gspmd import copy_to_model, gather_from_model
 
 
 def lecun_normal_(tensor: torch.Tensor, fan_in: int,
@@ -177,7 +178,15 @@ class FoldedSiteLinear(nn.Module):
     slot layout in ``batch.plans`` (kernel K2, its gradient kernel K5).
     ``plain = True`` runs the plain PyTorch versions of both whatever the
     device, as a reference on the card.
+
+    Under tensor parallelism (``tp``, a ``parallel.gspmd.Mesh2D`` that
+    ``TensorParallel`` sets) the weight is this rank's column block ``[C·S,
+    F/tp]``: K2 runs on it without the bias, the blocks are gathered over
+    the model group and the whole bias is added; in the backward K5's
+    d_rows of the block is summed over the group.
     """
+
+    tp = None
 
     def __init__(self, cin: int, features: int,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -195,10 +204,15 @@ class FoldedSiteLinear(nn.Module):
             raise ValueError("FoldedSiteLinear needs the host site layout in "
                              "batch.plans (site_take/site_ev/site_s); build "
                              "batches with TaskBase.prepare_block")
-        k3 = self.weight.view(self.cin, NX * NY, self.features)
-        return SiteGroupedMatmul.apply(rows, k3, self.bias, plans["site_take"],
-                                       plans["site_ev"], plans["site_s"], batch.n_events,
-                                       self.plain)
+        k3 = self.weight.view(self.cin, NX * NY, -1)
+        if self.tp is None:
+            return SiteGroupedMatmul.apply(rows, k3, self.bias, plans["site_take"],
+                                           plans["site_ev"], plans["site_s"], batch.n_events,
+                                           self.plain)
+        out = SiteGroupedMatmul.apply(copy_to_model(rows, self.tp), k3, None,
+                                      plans["site_take"], plans["site_ev"], plans["site_s"],
+                                      batch.n_events, self.plain)
+        return gather_from_model(out, self.tp) + self.bias
 
 
 class TemporalBlock(nn.Module):

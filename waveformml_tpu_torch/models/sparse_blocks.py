@@ -30,6 +30,7 @@ from waveformml_tpu_torch.ops.sparse import (SparseBatch, gather_from_dense, occ
 from waveformml_tpu_torch.ops.sparse_conv import (MaskedBatchNorm, SparseConv2d,
                                                   SparseGrid, SparseInverseConv2d,
                                                   SubMConv2d, batch_to_grid, dropout)
+from waveformml_tpu_torch.parallel.gspmd import copy_to_model, gather_from_model
 
 # layer specs: ("conv", cin, cout, k, s, p, d) / ("conv_keyed", cin, cout, k,
 # s, p, d, key) / ("subm", cin, cout, k, p, key) / ("inv", cin, cout, k, key)
@@ -55,7 +56,16 @@ class RowSubMConv2d(nn.Module):
     n_t samples), bias ``[Cout]``; forward K1, backward K1 and K4
     (``SubMConvRows``), over the plan ``batch.plans[self.plan_key]``.
     ``plain = True`` runs the plain PyTorch versions of the forward and the
-    backward whatever the device, as a reference on the card."""
+    backward whatever the device, as a reference on the card.
+
+    Under tensor parallelism (``tp``, a ``parallel.gspmd.Mesh2D`` that
+    ``TensorParallel`` sets) the weight is this rank's column block
+    ``[K², Cin, Cout/tp]``: K1 runs on it without the bias, the blocks are
+    gathered over the model group, and the whole bias and the row mask
+    follow; in the backward d_feats of the block is summed over the group
+    and K4 gives the block's weight gradient."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -72,7 +82,13 @@ class RowSubMConv2d(nn.Module):
 
     def forward(self, feats: torch.Tensor, plan: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        return SubMConvRows.apply(feats, plan, self.weight, self.bias, mask, self.plain)
+        if self.tp is None:
+            return SubMConvRows.apply(feats, plan, self.weight, self.bias, mask, self.plain)
+        out = SubMConvRows.apply(copy_to_model(feats, self.tp), plan, self.weight, None,
+                                 mask, self.plain)
+        out = gather_from_model(out, self.tp) + self.bias
+        return torch.where(mask[:, None], out, torch.zeros((), dtype=out.dtype,
+                                                           device=out.device))
 
 
 class _SpecNet(nn.Module):

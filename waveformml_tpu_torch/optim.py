@@ -24,7 +24,7 @@ of the optimizer for ``gradient_clip_val`` and ``accumulate_grad_batches``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -132,12 +132,28 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None,
+                         group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: ``g / ‖g‖ · max_norm`` for every
     gradient where the global norm ‖g‖ (over all of them) is at least
     ``max_norm``, else ``g`` as it is. Returns the global norm (a device
-    scalar: nothing waits for the device)."""
-    norm = torch.sqrt(sum(g.pow(2).sum() for g in grads))
+    scalar: nothing waits for the device).
+
+    Under tensor parallelism ``sharded[i]`` says that ``grads[i]`` is this
+    rank's block of a gradient sharded over the model group ``group``: the
+    blocks' squares are summed over the group, so that each sharded
+    gradient counts once whole, and each replicated one once."""
+    if group is None:
+        norm = torch.sqrt(sum(g.pow(2).sum() for g in grads))
+    else:
+        import torch.distributed as dist
+
+        squares = [g.pow(2).sum() for g in grads]
+        blocks = torch.stack([s for s, b in zip(squares, sharded) if b] or
+                             [grads[0].new_zeros(())]).sum()
+        dist.all_reduce(blocks, group=group)
+        norm = torch.sqrt(blocks + sum(s for s, b in zip(squares, sharded) if not b))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
