@@ -11,7 +11,8 @@ order, it:
    all at once), printing the time and each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the serving path and times it, the plain version and, where
-   one exists, a PyTorch library composition computing the same function;
+   one exists, a PyTorch library composition computing the same function
+   (for K1 and K4 the fastest of a few, each printed);
    K1 also on adversarial plans (full 3×3 clusters, duplicate sites, a
    ragged row count, 5→3 and 56→200 channels, single-site events with no
    off-centre tap) with the row-taps it computes, as it counts them,
@@ -247,6 +248,12 @@ order, it:
 with N ranks over NCCL, one a card (``dp_main``; N cards needed, e.g. a
 4-card machine), and ends with the same last line; ``--dp-ranks N --tp
 T`` runs phase 8d's check on an (N / T, T) grid the same way.
+``python3 chip_smoke.py --tap-designs`` times K1 and K4 at 27 taps in both
+designs, through their launchers, beside the library candidates
+(``tap_designs_main``; one card), and ends with the same last line.
+``python3 chip_smoke.py --ab-k1 DIR`` times K1 at the 9-tap and 1-tap
+d_feats shapes against K1 of another checkout at DIR, A, B, B, A
+(``ab_k1_main``; one card), and ends with the same last line.
 
 Any failure raises, so the script exits non-zero without the last line.
 Without CUDA, or outside a checkout, it exits non-zero before printing any
@@ -257,6 +264,7 @@ replay, printed as the timing floor; K2 is also timed 20 calls to a graph).
 import ast
 import contextlib
 import copy
+import ctypes
 import importlib.util
 import io
 import json
@@ -333,6 +341,13 @@ TF32_FLOPS_PER_S = 495e12
 K3_OPS_PER_SAMPLE = 49
 # computed row-taps of a k=3 layer may be at most this multiple of those needed
 K1_MAX_COMPUTED_RATIO = 1.5
+# the 27-tap instantiations' times in the tiles design, as PERF.md's kernel
+# table keeps them (NVIDIA H100 80GB HBM3, 700.00 W), printed beside the
+# taps design's
+TILES_27_TAPS_MS = {"subm_conv_rows": 0.06290, "subm_conv_rows d_feats": 0.05604,
+                    "subm_conv_rows_wgrad": 2.73904}
+# (Cin, Cout) at which --tap-designs times K1 and K4 at 27 taps in both designs
+TAP_DESIGN_WIDTHS = ((2, 8), (8, 8), (16, 16))
 # sample counts of the detector's waveforms
 K3_SAMPLE_COUNTS = (59, 65, 130, 150)
 
@@ -510,6 +525,114 @@ def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def row_conv_ops(kk: int, cin: int, cout: int, needed: int) -> tuple:
+    """(FLOP, peak FLOP/s) of a K1 or K4 call over ``needed`` row-taps in
+    the design that takes its shape (ops/row_conv.py row_design): three
+    TF32 passes of 2·Cin·Cout a row-tap on the tensor cores (tiles), or
+    2·Cin·Cout in fp32 FFMA (taps)."""
+    from waveformml_tpu_torch.ops.row_conv import row_design
+
+    if row_design(kk, cin, cout) == "taps":
+        return 2.0 * cin * cout * needed, FP32_FLOPS_PER_S
+    return 3 * 2.0 * cin * cout * needed, TF32_FLOPS_PER_S
+
+
+def fastest_library_ms(candidates: dict, label: str = "", profile: bool = False) -> float:
+    """library_ms of a kernel's line: the fastest of ``candidates`` (name →
+    a computation of the kernel's function in PyTorch library calls), each
+    timed by graph replay of one call; with ``label``, a line of every
+    candidate's time, and with ``profile`` its device time by kernel
+    (torch.profiler)."""
+    times = {name: graph_time_ms(fn) for name, fn in candidates.items()}
+    if label:
+        parts = [f"{name} {ms:.5f}" + (f" [{grid_line(grid_times_ms(candidates[name]))}]"
+                                       if profile else "") for name, ms in times.items()]
+        print(f"{label} library candidates (ms; the fastest is library_ms): "
+              + "; ".join(parts), flush=True)
+    return min(times.values())
+
+
+def k1_library(feats, plan, kernel, bias, mask) -> dict:
+    """K1's function (gather through the plan, GEMM, bias, row mask) in
+    PyTorch library calls, for ``library_ms``: index_select, then addmm
+    (mm without a bias) in K1's [N, Cout] layout, or linear with the weight
+    transposed and contiguous, or addmm in the transposed [Cout, N] layout;
+    embedding, indexing or gather (an element a thread) as the gather, then
+    addmm; index_select along the rows of the channel-major feats [Cin, N +
+    1] through the tap-major plan, then addmm in the [Cout, N] layout (the
+    operands' layouts made outside the timed calls)."""
+    n, cin = feats.shape
+    kk, _, cout = kernel.shape
+    padded = torch.cat([feats, feats.new_zeros(1, cin)])
+    idx = torch.where(plan >= 0, plan, n).long()
+    flat = idx.reshape(-1)
+    w2 = kernel.reshape(kk * cin, cout)
+    w2t = w2.t().contiguous()
+    maskf = mask[:, None].float()
+    mask_t = maskf.t().contiguous()
+    bias_t = None if bias is None else bias[:, None].contiguous()
+
+    def gemm(a, w, b):
+        return torch.mm(a, w) if b is None else torch.addmm(b, a, w)
+
+    def gathered():
+        return torch.index_select(padded, 0, flat).view(n, kk * cin)
+
+    each = flat[:, None].expand(-1, cin)
+    padded_t = padded.t().contiguous()
+    flat_t = idx.t().reshape(-1)
+    w_ck = kernel.permute(2, 1, 0).reshape(cout, cin * kk)
+    return {"index_select + addmm": lambda: gemm(gathered(), w2, bias).mul_(maskf),
+            "index_select [Cin, N] + addmm [Cout, N]": lambda: gemm(
+                w_ck, torch.index_select(padded_t, 1, flat_t).view(cin * kk, n),
+                bias_t).mul_(mask_t),
+            "indexing + addmm": lambda: gemm(padded[flat].view(n, kk * cin), w2,
+                                             bias).mul_(maskf),
+            "gather + addmm": lambda: gemm(torch.gather(padded, 0, each).view(n, kk * cin),
+                                           w2, bias).mul_(maskf),
+            "index_select + linear": lambda: torch.nn.functional.linear(
+                gathered(), w2t, bias).mul_(maskf),
+            "index_select + addmm [Cout, N]": lambda: gemm(
+                w2t, gathered().t(), bias_t).mul_(mask_t),
+            "embedding + addmm": lambda: gemm(torch.nn.functional.embedding(
+                idx, padded).view(n, kk * cin), w2, bias).mul_(maskf)}
+
+
+def k4_library(feats, plan, g, mask, with_bias: bool) -> dict:
+    """K4's function (the gathered feats contracted against the masked g
+    over the rows, and g's column sums) in PyTorch library calls, for
+    ``library_ms``; g is masked already: index_select, then mm in K4's
+    [K²·Cin, Cout] layout or in the transposed [Cout, K²·Cin] one;
+    embedding, indexing or gather (an element a thread) as the gather, then
+    mm; index_select along the rows of the channel-major feats [Cin, N + 1]
+    through the tap-major plan, then mm in the [Cout, Cin·K²] layout (the
+    operands' layouts made outside the timed calls). ``sum`` gives db."""
+    n, cin = feats.shape
+    kk = plan.shape[1]
+    padded = torch.cat([feats, feats.new_zeros(1, cin)])
+    idx = torch.where(plan >= 0, plan, n).long()
+    flat = idx.reshape(-1)
+
+    def gathered():
+        return torch.index_select(padded, 0, flat).view(n, kk * cin)
+
+    def db():
+        return g.sum(0) if with_bias else None
+
+    each = flat[:, None].expand(-1, cin)
+    padded_t = padded.t().contiguous()
+    flat_t = idx.t().reshape(-1)
+    return {"index_select + mm": lambda: (torch.mm(gathered().t(), g), db()),
+            "index_select [Cin, N] + mm [Cout, Cin·K²]": lambda: (torch.mm(
+                g.t(), torch.index_select(padded_t, 1, flat_t).view(cin * kk, n).t()), db()),
+            "indexing + mm": lambda: (torch.mm(padded[flat].view(n, kk * cin).t(), g), db()),
+            "gather + mm": lambda: (torch.mm(torch.gather(padded, 0, each).view(
+                n, kk * cin).t(), g), db()),
+            "index_select + mm [Cout, K²·Cin]": lambda: (torch.mm(g.t(), gathered()), db()),
+            "embedding + mm": lambda: (torch.mm(torch.nn.functional.embedding(
+                idx, padded).view(n, kk * cin).t(), g), db())}
+
+
 def head_bound_ms(n_bytes: float, products: float, c: int, f: int, other_flops: float = 0.0):
     """bound_ms of K2 or K5 doing ``products`` FLOP of slot products: in
     fp32 at the (8, 50) head, which has an instantiation of its own, and in
@@ -569,8 +692,8 @@ def check_subm_conv_rows(model, db, feats0, tag=""):
     to the model, widened to float32), the others random; without the bias
     where the conv has none (``tp_view``'s column blocks); lines begin
     with ``tag``."""
-    from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_plain,
-                                                   take_row_taps)
+    from waveformml_tpu_torch.ops.row_conv import (row_design, subm_conv_rows,
+                                                   subm_conv_rows_plain, take_row_taps)
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -578,7 +701,7 @@ def check_subm_conv_rows(model, db, feats0, tag=""):
     n = mask.shape[0]
     convs = [m for m in model.stack.modules() if isinstance(m, RowSubMConv2d)]
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  bytes=0.0, flops=0.0, max_abs_err=0.0)
+                  bytes=0.0, ops_s=0.0, max_abs_err=0.0)
     for layer, conv in enumerate(convs):
         kk, cin, cout = conv.weight.shape
         plan = db[f"plan_{conv.plan_key}"]
@@ -595,33 +718,35 @@ def check_subm_conv_rows(model, db, feats0, tag=""):
         want = subm_conv_rows_plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err([got], [want], TOL["subm_conv_rows"])
-        padded = torch.cat([feats, feats.new_zeros(1, cin)])
-        idx = torch.where(plan >= 0, plan, n).long().reshape(-1)
-        w2 = conv.weight.detach().reshape(kk * cin, cout)
-        maskf = mask[:, None].float()
         ms = graph_time_ms(lambda: subm_conv_rows(*args))
         plain_ms = graph_time_ms(lambda: subm_conv_rows_plain(*args))
-        gathered = lambda: torch.index_select(padded, 0, idx).view(n, kk * cin)  # noqa: E731
-        library_ms = graph_time_ms(lambda: (torch.mm(gathered(), w2) if bias is None else
-                                            torch.addmm(bias, gathered(), w2)).mul_(maskf))
-        n_bytes = 4 * (n * cin + n * kk + kk * cin * cout + (cout if bias is not None else 0)
-                       + n * cout) + n
+        lib_ms = fastest_library_ms(k1_library(*args), f"{tag}K1 layer {layer}",
+                                    profile=kk == 27)
+        n_real = int(mask.sum())
+        # the real rows' plan and feats (a real row's plan names only real
+        # rows; the mask zeroes every other row), the mask, W and the bias
+        # read once, the output written once over all N
+        n_bytes = 4 * (n_real * cin + n_real * kk + kk * cin * cout
+                       + (cout if bias is not None else 0) + n * cout) + n
         needed = int(((plan >= 0) & mask[:, None]).sum())
-        # three TF32 passes over the row-taps the data needs
-        flops = 3 * 2.0 * cin * cout * needed
-        b_ms, by = bound_ms(n_bytes, flops, TF32_FLOPS_PER_S)
+        # the row-taps the data needs, in the design's arithmetic
+        flops, rate = row_conv_ops(kk, cin, cout, needed)
+        b_ms, by = bound_ms(n_bytes, flops, rate)
         print(f"{tag}K1 subm_conv_rows layer {layer}: N={n} K²={kk} {cin}->{cout} "
-              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-              f"bound_ms={b_ms:.5f} ({by}) max_abs_err={err:.3g} row-taps needed "
-              f"{needed} of {n * kk}, computed {computed} as the kernel counted them "
-              f"({computed / max(needed, 1):.3f}x)", flush=True)
-        if kk > 1:
+              f"({row_design(kk, cin, cout)} design) ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} bound_ms={b_ms:.5f} ({by}) max_abs_err={err:.3g} "
+              f"real rows {n_real}, row-taps needed {needed} of {n * kk}, computed {computed} "
+              f"as the kernel counted them ({computed / max(needed, 1):.3f}x)", flush=True)
+        if row_design(kk, cin, cout) == "taps":
+            assert computed == needed, (computed, needed)
+        elif kk > 1:
             assert computed <= K1_MAX_COMPUTED_RATIO * needed, (computed, needed)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bound_ms", b_ms), ("bytes", n_bytes), ("flops", flops)):
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", b_ms), ("bytes", n_bytes), ("ops_s", flops / rate)):
             totals[key] += val
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
-    totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"], TF32_FLOPS_PER_S)[1]
+    totals["bound_by"] = "bytes" if totals["bytes"] / HBM_BYTES_PER_S >= totals["ops_s"] \
+        else "operations"
     return totals
 
 
@@ -780,7 +905,7 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
     mask = db["mask"]
     n = mask.shape[0]
     convs = [m for m in model.stack.modules() if isinstance(m, RowSubMConv2d)]
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0,
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, ops_s=0.0,
                   max_abs_err=0.0, ms_run=0.0)
     d_feats_err = 0.0
     d_feats_ms = d_feats_bound = 0.0
@@ -814,10 +939,11 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
             e = max_abs_err([d_feats], [d_want], TOL["subm_conv_rows"])
             d_ms = graph_time_ms(lambda: subm_conv_rows(g, plan, w_t, None, mask))
             needed = int(((plan >= 0) & mask[:, None]).sum())
-            # g over the real rows (a plan names no padding row), plan, mask
-            # and W read once, d_feats written once over all N
-            d_bytes = 4 * (int(mask.sum()) * cout + n * kk + kk * cin * cout + n * cin) + n
-            d_bound = bound_ms(d_bytes, 3 * 2.0 * cin * cout * needed, TF32_FLOPS_PER_S)[0]
+            n_real = int(mask.sum())
+            # g and the plan over the real rows (a plan names no padding
+            # row), mask and W read once, d_feats written once over all N
+            d_bytes = 4 * (n_real * cout + n_real * kk + kk * cin * cout + n * cin) + n
+            d_bound = bound_ms(d_bytes, *row_conv_ops(kk, cout, cin, needed))[0]
             print(f"{tag}K1 as d_feats, layer {layer}: N={n} K²={kk} {cout}->{cin} "
                   f"ms={d_ms:.5f} bound_ms={d_bound:.5f} max_abs_err={e:.3g}; grids: "
                   f"{grid_line(grid_times_ms(lambda: subm_conv_rows(g, plan, w_t, None, mask)))}",
@@ -825,37 +951,35 @@ def check_subm_conv_rows_wgrad(model, db, feats0, half=False, tag=""):
             d_feats_err = max(d_feats_err, e)
             d_feats_ms += d_ms
             d_feats_bound += d_bound
-        padded = torch.cat([feats, feats.new_zeros(1, cin)])
-        idx = torch.where(plan >= 0, plan, n).long().reshape(-1)
         ms = graph_time_ms(lambda: subm_conv_rows_wgrad(*args))
         ms_run = graph_time_ms(lambda: subm_conv_rows_wgrad(*args), calls=RUN_CALLS)
         grids = grid_times_ms(lambda: subm_conv_rows_wgrad(*args))
         plain_ms = graph_time_ms(lambda: subm_conv_rows_wgrad_plain(*args))
-        library_ms = graph_time_ms(lambda: (
-            torch.mm(torch.index_select(padded, 0, idx).view(n, kk * cin).t(), g),
-            g.sum(0) if wb else None))
+        lib_ms = fastest_library_ms(k4_library(*args), f"{tag}K4 layer {layer}",
+                                    profile=kk == 27)
         needed = int(((plan >= 0) & mask[:, None]).sum())
         n_real = int(mask.sum())
-        # feats and g over the real rows (no padding row is listed or
-        # summed), the plan and mask over all N, dW and db written once
-        n_bytes = 4 * (n_real * cin + n * kk + n_real * cout + kk * cin * cout
+        # feats, g and the plan over the real rows (no padding row is listed
+        # or summed), the mask over all N, dW and db written once
+        n_bytes = 4 * (n_real * cin + n_real * kk + n_real * cout + kk * cin * cout
                        + (cout if wb else 0)) + n
-        # on the card's fastest fp32-accurate units, as K1's bound: three
-        # TF32 passes of 2·Cin·Cout per needed row-tap (db's n_real·Cout adds
-        # are < 1e-4 of that and left out)
-        flops = 3 * 2.0 * cin * cout * needed
-        b_ms, by = bound_ms(n_bytes, flops, TF32_FLOPS_PER_S)
+        # in the design's arithmetic, as K1's bound: three TF32 passes of
+        # 2·Cin·Cout per needed row-tap on the tensor cores (tiles), or fp32
+        # FFMA (taps); db's n_real·Cout adds are left out
+        flops, rate = row_conv_ops(kk, cin, cout, needed)
+        b_ms, by = bound_ms(n_bytes, flops, rate)
         print(f"{tag}K4 subm_conv_rows_wgrad layer {layer}: N={n} K²={kk} {cin}x{cout} ms={ms:.5f} "
-              f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
+              f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
               f"max_abs_err={err:.3g} real rows {n_real}, row-taps {needed}, bitwise equal "
               f"over two runs; in a graph of {RUN_CALLS} calls: ms={ms_run:.5f}; grids: "
               f"{grid_line(grids)}", flush=True)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bound_ms", b_ms), ("bytes", n_bytes), ("flops", flops),
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", b_ms), ("bytes", n_bytes), ("ops_s", flops / rate),
                          ("ms_run", ms_run)):
             totals[key] += val
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
-    totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"], TF32_FLOPS_PER_S)[1]
+    totals["bound_by"] = "bytes" if totals["bytes"] / HBM_BYTES_PER_S >= totals["ops_s"] \
+        else "operations"
     print(f"{tag}K4 over the {len(convs)} convs: ms={totals['ms']:.5f}, in graphs of {RUN_CALLS} "
           f"calls {totals['ms_run']:.5f}, bound_ms={totals['bound_ms']:.5f}; K1 as d_feats at "
           f"layers 1-{len(convs) - 1}: ms={d_feats_ms:.5f} bound_ms={d_feats_bound:.5f}",
@@ -1076,12 +1200,17 @@ def training_launches(model, steps: int, evals: int) -> dict:
     validation batches of a model: its row convs' and site head's."""
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+    from waveformml_tpu_torch.ops.row_conv import k1_grids
 
     convs = [m for m in model.modules() if isinstance(m, RowSubMConv2d)]
     heads = sum(isinstance(m, FoldedSiteLinear) for m in model.modules())
-    k1_fwd = sum(1 if m.kernel_size == 1 else 2 for m in convs)
-    # d_feats: K1 again for every conv but the first (its input is the data)
-    k1_bwd = sum(1 if m.kernel_size == 1 else 2 for m in convs[1:])
+    # K1's grids a call by its design (ops/row_conv.py row_design): one for
+    # K² = 1 and the 27-tap design, two for the tiles design's other taps
+    k1_fwd = sum(k1_grids(*m.weight.shape) for m in convs)
+    # d_feats: K1 again for every conv but the first (its input is the
+    # data), with Cin and Cout swapped
+    k1_bwd = sum(k1_grids(m.weight.shape[0], m.weight.shape[2], m.weight.shape[1])
+                 for m in convs[1:])
     return {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
             "site_grouped_matmul": (steps + evals) * 2 * heads,
             "waveform_features": 0,
@@ -1283,6 +1412,7 @@ def run_w128(chunks, train, val):
     from waveformml_tpu_torch.inference.model import InferenceModel
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
+    from waveformml_tpu_torch.ops.row_conv import k1_grids
 
     cfg = load_config(CONFIG_W128)
     assert cfg.system_config.half_precision
@@ -1336,9 +1466,9 @@ def run_w128(chunks, train, val):
     eager, replayed = read_counts(), server.replay_launches()
     launches = {k: eager[k] + replayed[k] for k in eager}
     new_graphs = len(server.graphs) - graphs_before
-    k1_grids = sum(1 if m.kernel_size == 1 else 2 for m in convs)
     per_chunk = dict.fromkeys(launches, 0)
-    per_chunk.update(subm_conv_rows=k1_grids, site_grouped_matmul=2)
+    per_chunk.update(subm_conv_rows=sum(k1_grids(*m.weight.shape) for m in convs),
+                     site_grouped_matmul=2)
     assert sum(g.replays for g in server.graphs.values()) == N_CHUNKS
     assert replayed == {k: v * N_CHUNKS for k, v in per_chunk.items()}, replayed
     assert eager == {k: v * new_graphs for k, v in per_chunk.items()}, eager
@@ -2223,6 +2353,210 @@ def conv3d_times(stack, grid, tag) -> dict:
     return out
 
 
+def forced_tap_designs() -> dict:
+    """K1 and K4 in each design, through their launchers directly (the ops
+    run the one ops/row_conv.py row_design picks): ``{design: (k1, k4)}``,
+    ``k1(feats, plan, kernel, bias, mask)`` → out, ``k4(feats, plan, g,
+    mask)`` → (dW, db), on the current stream."""
+    from waveformml_tpu_torch.ops import native
+    from waveformml_tpu_torch.ops import row_conv as rc
+
+    k1_lib = native.load("row_conv", rc._FUNCTIONS)
+    k4_lib = native.load("row_conv_wgrad", rc._WGRAD_FUNCTIONS)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def k1(launch):
+        def run(feats, plan, kernel, bias, mask):
+            (n, cin), (kk, _, cout) = feats.shape, kernel.shape
+            out = torch.empty((n, cout), device=feats.device)
+            native.check_launch(k1_lib, launch(
+                feats.data_ptr(), plan.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), n, cin, cout, kk, stream()), "K1")
+            return out
+        return run
+
+    def k4(taps: bool):
+        def run(feats, plan, g, mask):
+            (n, cin), kk, cout = feats.shape, plan.shape[1], g.shape[1]
+            dw = torch.empty((kk, cin, cout), device=feats.device)
+            db = torch.empty(cout, device=feats.device)
+            floats = ctypes.c_longlong()
+            if taps:
+                blocks, rows = ctypes.c_int(), ctypes.c_int()
+                native.check_launch(k4_lib, k4_lib.subm_conv_rows_wgrad_taps_scratch(
+                    n, cin, cout, ctypes.byref(blocks), ctypes.byref(rows),
+                    ctypes.byref(floats)), "K4 scratch")
+                partial = torch.empty(floats.value, device=feats.device)
+                err = k4_lib.subm_conv_rows_wgrad_taps(
+                    feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), db.data_ptr(), n, cin, cout, kk,
+                    stream())
+            else:
+                ints = ctypes.c_longlong()
+                k4_lib.subm_conv_rows_wgrad_scratch(n, cin, cout, kk, ctypes.byref(floats),
+                                                    ctypes.byref(ints))
+                partial = torch.empty(floats.value, device=feats.device)
+                lists = torch.empty(ints.value, dtype=torch.int32, device=feats.device)
+                err = k4_lib.subm_conv_rows_wgrad(
+                    feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
+                    partial.data_ptr(), lists.data_ptr(), dw.data_ptr(), db.data_ptr(), n,
+                    cin, cout, kk, stream())
+            native.check_launch(k4_lib, err, "K4")
+            return dw, db
+        return run
+
+    return {"taps": (k1(k1_lib.subm_conv_rows_taps_fwd), k4(True)),
+            "tiles": (k1(k1_lib.subm_conv_rows_fwd), k4(False))}
+
+
+#: (K², Cin, Cout) of the d_feats convs --ab-k1 times: SubMPSD.json's
+#: layers 1-2 (56→104, 8→56) and OPs3ns_SCNet.json's layer 1 (8→32)
+AB_K1_SHAPES = ((9, 56, 104), (1, 8, 56), (9, 8, 32))
+
+
+def ab_k1_main(other: str) -> int:
+    """``python3 chip_smoke.py --ab-k1 DIR``: K1 of this checkout against K1
+    of the checkout at DIR (another commit, built there by its own
+    ``ops/native.py``), at AB_K1_SHAPES, where every commit runs K1's tiles
+    design, on one 4096-event SubMPSD.json chunk (its plans built on the
+    host): each shape held to the plain version with both libraries, then
+    timed by graph replay in the order A, B, B, A (A this checkout). The
+    same last line as ``main``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --ab-k1: CUDA is not available", file=sys.stderr)
+        return 1
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+    from waveformml_tpu_torch.ops import native
+    from waveformml_tpu_torch.ops import row_conv as rc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    built = subprocess.run(
+        [sys.executable, "-c", "from waveformml_tpu_torch.ops import native; "
+         "native.build(['row_conv']); print(native.library_path('row_conv'))"],
+        cwd=other, capture_output=True, text=True, check=True, timeout=600)
+    other_lib = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
+    argtypes = rc._FUNCTIONS["subm_conv_rows_fwd"]
+    other_lib.subm_conv_rows_fwd.argtypes = argtypes
+    other_lib.subm_conv_rows_fwd.restype = ctypes.c_int
+    libs = {"A": native.load("row_conv", rc._FUNCTIONS), "B": other_lib}
+    cfg = load_config(CONFIG)
+    db = prepared(LitPSD(cfg), labelled_block(np.random.default_rng(SEED), EVENTS_PER_CHUNK,
+                                              cfg.system_config.n_samples))
+    mask = db["mask"]
+    n = mask.shape[0]
+    coords, mask_np = db["coords"].cpu().numpy(), mask.cpu().numpy()
+    plans = {k * k: torch.from_numpy(rc.host_neighbor_plan(coords, mask_np,
+                                                           db["labels"].shape[0], k)).cuda()
+             for k in (1, 3)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 126)
+    for kk, cin, cout in AB_K1_SHAPES:
+        g = torch.where(mask[:, None], torch.randn(n, cin, device="cuda", generator=gen),
+                        0.0).contiguous()
+        kernel = torch.randn(kk, cin, cout, device="cuda", generator=gen) / (kk * cin) ** 0.5
+        plan = plans[kk]
+        want = rc.subm_conv_rows_plain(g, plan, kernel, None, mask)
+
+        def call(lib, plan=plan, g=g, kernel=kernel, kk=kk, cin=cin, cout=cout):
+            out = torch.empty((n, cout), device="cuda")
+            native.check_launch(libs["A"], lib.subm_conv_rows_fwd(
+                g.data_ptr(), plan.data_ptr(), kernel.data_ptr(), None, mask.data_ptr(),
+                out.data_ptr(), n, cin, cout, kk, torch.cuda.current_stream().cuda_stream),
+                "K1")
+            return out
+
+        for side, lib in libs.items():
+            got = call(lib)
+            torch.cuda.synchronize()
+            max_abs_err([got], [want], TOL["subm_conv_rows"])
+        times = [(side, graph_time_ms(lambda lib=libs[side]: call(lib))) for side in "ABBA"]
+        print(f"--ab-k1 K²={kk} {cin}->{cout} N={n} (ms, graph replays of one call; A this "
+              f"checkout, B {other}): " + ", ".join(f"{side} {ms:.5f}" for side, ms in times),
+              flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def tap_designs_main() -> int:
+    """``python3 chip_smoke.py --tap-designs``: K1 and K4 at 27 taps in both
+    designs (``forced_tap_designs``) over phase 11's plan (SCNet3D.json's
+    first 4096-event chunk, as its task buckets it), at each of
+    TAP_DESIGN_WIDTHS (Cin, Cout) on random operands: each against its
+    plain version (K1 within TOL, K4 within TOL of its terms' magnitudes)
+    and timed (graph replays of one call) beside the library candidates,
+    each with its device time by kernel: the measurements behind
+    ops/row_conv.py row_design and the library lines. The same last line
+    as ``main``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --tap-designs: CUDA is not available", file=sys.stderr)
+        return 1
+    from waveformml_tpu_torch.config import load_config
+    from waveformml_tpu_torch.datasets.synthetic import labelled_block_3d
+    from waveformml_tpu_torch.engineering.tasks import LitPSD
+    from waveformml_tpu_torch.ops import native
+    from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows_plain,
+                                                   subm_conv_rows_wgrad_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    native.build()
+    cfg = load_config(CONFIG_3D)
+    n_t = cfg.system_config.n_samples
+    task = LitPSD(cfg)
+    block = labelled_block_3d(np.random.default_rng(SEED + 120), EVENTS_PER_CHUNK, n_t)
+    db = prepared(task, block)
+    mask = db["mask"]
+    plan = torch.from_numpy(host_neighbor_plan(db["coords"].cpu().numpy(), mask.cpu().numpy(),
+                                               db["labels"].shape[0], 3, n_t)).cuda()
+    n = mask.shape[0]
+    print(f"--tap-designs: plan {tuple(plan.shape)}, real rows {int(mask.sum())}, row-taps "
+          f"{int(((plan >= 0) & mask[:, None]).sum())}", flush=True)
+    designs = forced_tap_designs()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 125)
+    for cin, cout in TAP_DESIGN_WIDTHS:
+        feats = torch.where(mask[:, None], torch.randn(n, cin, device="cuda", generator=gen),
+                            0.0).contiguous()
+        g = torch.where(mask[:, None], torch.randn(n, cout, device="cuda", generator=gen),
+                        0.0).contiguous()
+        kernel = torch.randn(27, cin, cout, device="cuda", generator=gen) / (27 * cin) ** 0.5
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        args = (feats, plan, kernel, bias, mask)
+        want = subm_conv_rows_plain(*args)
+        wgrad_want = subm_conv_rows_wgrad_plain(feats, plan, g, mask)
+        scale = subm_conv_rows_wgrad_plain(feats.abs(), plan, g.abs(), mask)
+        times = {}
+        for design, (k1, k4) in designs.items():
+            got, wgrad = k1(*args), k4(feats, plan, g, mask)
+            torch.cuda.synchronize()
+            max_abs_err([got], [want], TOL["subm_conv_rows"])
+            close_to_terms(wgrad, wgrad_want, scale, TOL["subm_conv_rows_wgrad"],
+                           f"K4 {design} {cin}x{cout}")
+            times[f"K1 {design}"] = graph_time_ms(lambda: k1(*args))
+            times[f"K4 {design}"] = graph_time_ms(lambda: k4(feats, plan, g, mask))
+        tag = f"--tap-designs {cin}->{cout}"
+        times["K1 library"] = fastest_library_ms(k1_library(*args), f"{tag} K1", profile=True)
+        times["K4 library"] = fastest_library_ms(k4_library(feats, plan, g, mask, True),
+                                                 f"{tag} K4", profile=True)
+        print(f"{tag} (ms, graph replays of one call; both designs against the plain "
+              f"versions): " + ", ".join(f"{k} {v:.5f}" for k, v in times.items()), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
     """SCNet3D.json's sparse section (SubM 2→8, BatchNorm, ReLU, ToDense)
     in row space, ``DSLSpecNet(n_t=16)`` (K1 forward, K4 in the backward,
@@ -2233,16 +2567,18 @@ def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
     read just after (asserted against the count the code derives), held to
     the plain versions on the card; K1 (2→8) and K4 (Cin + 1 = 3) against
     their plain versions with their times, bounds and library times, K1
-    also as the d_feats of a second conv, 8→8, beside cuDNN's conv3d of
-    the same layer over the dense grid. Returns K1's and K4's numbers and
-    the launches of the forward and backward."""
+    also as the d_feats of a second conv, 8→8, K1 in both and K4 bitwise
+    equal over two runs, beside cuDNN's conv3d of the same layer over the
+    dense grid and the tiles design's times (PERF.md). Returns K1's and
+    K4's numbers and the launches of the forward and backward."""
     from types import SimpleNamespace
 
     from waveformml_tpu_torch.engineering.tasks import LitPSD
     from waveformml_tpu_torch.models.algorithm import dsl_to_row_specs, split_algorithm
     from waveformml_tpu_torch.models.sparse_blocks import DSLSpecNet
     from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows,
-                                                   subm_conv_rows_bwd_plain, transposed_kernel)
+                                                   subm_conv_rows_bwd_plain,
+                                                   subm_conv_rows_plain, transposed_kernel)
     from waveformml_tpu_torch.ops.sparse import SparseBatch, occupancy_mask_3d
     from waveformml_tpu_torch.ops.sparse_conv import batch_to_grid_3d
 
@@ -2333,32 +2669,55 @@ def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
                                                       tag=f"{tag} ")}
     results["subm_conv_rows_wgrad"], _ = check_subm_conv_rows_wgrad(
         SimpleNamespace(stack=net), kdb, feats0, tag=f"{tag} ")
+    # K1 at 27 taps gives the same bits twice (the taps design has no atomics)
+    check_bitwise(lambda: [subm_conv_rows(feats0, plan, net.l0.weight.detach(),
+                                          net.l0.bias.detach(), db["mask"])],
+                  f"{tag} K1 2->8")
     # K1 as the feature gradient of a second conv, 8→8 (the reversed,
     # transposed kernel) against the plain _subm_bwd d_feats
     gen = torch.Generator(device="cuda").manual_seed(SEED + 123)
     mask = db["mask"]
+    n = mask.shape[0]
     weight = torch.randn(27, cout, cout, device="cuda", generator=gen) / (27 * cout) ** 0.5
-    x8 = torch.where(mask[:, None], torch.relu(torch.randn(mask.shape[0], cout, device="cuda",
+    x8 = torch.where(mask[:, None], torch.relu(torch.randn(n, cout, device="cuda",
                                                            generator=gen)), 0.0).contiguous()
-    g8 = torch.where(mask[:, None], torch.randn(mask.shape[0], cout, device="cuda",
+    g8 = torch.where(mask[:, None], torch.randn(n, cout, device="cuda",
                                                 generator=gen), 0.0).contiguous()
     w_t = transposed_kernel(weight)
     d_feats = subm_conv_rows(g8, plan, w_t, None, mask)
     d_want = subm_conv_rows_bwd_plain(x8, plan, weight, mask, g8)[0]
     torch.cuda.synchronize()
     d_err = max_abs_err([d_feats], [d_want], TOL["subm_conv_rows"])
-    d_ms = graph_time_ms(lambda: subm_conv_rows(g8, plan, w_t, None, mask))
-    print(f"{tag} K1 as d_feats of a second conv {cout}->{cout} at 27 taps: ms={d_ms:.5f} "
-          f"max_abs_err={d_err:.3g} against the plain d_feats", flush=True)
+    check_bitwise(lambda: [subm_conv_rows(g8, plan, w_t, None, mask)], f"{tag} K1 d_feats")
+    needed = int(((plan >= 0) & mask[:, None]).sum())
+    n_real = int(mask.sum())
+    # g and the plan over the real rows, mask and W read once, d_feats
+    # written once over all N
+    d_bytes = 4 * (n_real * cout + n_real * 27 + 27 * cout * cout + n * cout) + n
+    d_bound, d_by = bound_ms(d_bytes, *row_conv_ops(27, cout, cout, needed))
+    d_args = (g8, plan, w_t, None, mask)
+    d_feats_r = dict(
+        ms=graph_time_ms(lambda: subm_conv_rows(*d_args)),
+        plain_ms=graph_time_ms(lambda: subm_conv_rows_plain(*d_args)),
+        library_ms=fastest_library_ms(k1_library(*d_args),
+                                      f"{tag} K1 as d_feats {cout}->{cout}", profile=True),
+        bound_ms=d_bound, bound_by=d_by, max_abs_err=d_err)
+    print(f"{tag} K1 as d_feats of a second conv {cout}->{cout} at 27 taps: "
+          f"ms={d_feats_r['ms']:.5f} max_abs_err={d_err:.3g} against the plain d_feats, "
+          f"bitwise equal over two runs", flush=True)
     results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
                                                    d_err)
     dense_ms = conv3d_times(stack, grid, tag)
-    for name, r in results.items():
+    for name, r in (("subm_conv_rows", results["subm_conv_rows"]),
+                    ("subm_conv_rows d_feats", d_feats_r),
+                    ("subm_conv_rows_wgrad", results["subm_conv_rows_wgrad"])):
+        kernel = name.split()[0]
         print(f"{tag} {name} at 27 taps: ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.5f} library_ms="
-              f"{r['library_ms']:.5f} max_abs_err={r['max_abs_err']:.3g}; launches of the "
-              f"forward and backward {launches[name]}; beside it cuDNN's conv3d over the dense "
-              f"grid: {dense_ms['forward' if name == 'subm_conv_rows' else 'weight gradient']}",
+              f"{r['library_ms']:.5f} max_abs_err={r['max_abs_err']:.3g}; the tiles design "
+              f"{TILES_27_TAPS_MS[name]:.5f} (PERF.md); launches of the forward "
+              f"and backward {launches[kernel]}; beside it cuDNN's conv3d over the dense "
+              f"grid: {dense_ms['weight gradient' if kernel.endswith('wgrad') else 'forward']}",
               flush=True)
     return results, launches
 
@@ -4608,7 +4967,7 @@ def main() -> int:
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
     from waveformml_tpu_torch.ops import native
-    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows
+    from waveformml_tpu_torch.ops.row_conv import k1_grids
     from waveformml_tpu_torch.ops.site_head import site_grouped_matmul
     from waveformml_tpu_torch.ops.waveform_features import waveform_features
 
@@ -4717,13 +5076,15 @@ def main() -> int:
           f"({new_graphs} captured in this run), {replays} replays; launches {launches}, "
           f"of which from replays {replayed}", flush=True)
     # K1: one grid per conv for the centre tap, one more for a K² > 1 conv's
-    # other taps; K2: one grid writes the head's bias into the event rows,
-    # one adds the slots' products. Each chunk is one replay; a layout new
-    # in this run also ran once eagerly before its capture.
-    k1_grids = sum(1 if m.kernel_size == 1 else 2 for m in task.model.stack.modules()
-                   if isinstance(m, RowSubMConv2d))
+    # other taps (the tiles design, every 9-tap conv); K2: one grid writes
+    # the head's bias into the event rows, one adds the slots' products.
+    # Each chunk is one replay; a layout new in this run also ran once
+    # eagerly before its capture.
     per_chunk = dict.fromkeys(launches, 0)
-    per_chunk.update(subm_conv_rows=k1_grids, site_grouped_matmul=2)
+    per_chunk.update(subm_conv_rows=sum(k1_grids(*m.weight.shape)
+                                        for m in task.model.stack.modules()
+                                        if isinstance(m, RowSubMConv2d)),
+                     site_grouped_matmul=2)
     assert replays == N_CHUNKS, replays
     assert replayed == {k: v * N_CHUNKS for k, v in per_chunk.items()}, replayed
     assert eager == {k: v * new_graphs for k, v in per_chunk.items()}, eager
@@ -4998,6 +5359,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tap-designs"]:
+        sys.exit(tap_designs_main())
+    if sys.argv[1:2] == ["--ab-k1"]:
+        sys.exit(ab_k1_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-ranks"]:
         flags = sys.argv[3:]
         sys.exit(dp_main(int(sys.argv[2]), "--gloo" in flags,

@@ -1,6 +1,7 @@
 """The five kernels as ``torch.library`` custom ops (``waveformml::*``), on
-the CPU: ``torch.library.opcheck`` passes for each at narrow sizes (its
-schema, fake kernel and compiled-graph tests); each public wrapper gives its
+the CPU: ``torch.library.opcheck`` passes for each at narrow sizes, K1 and
+K4 also at a 27-tap shape, their taps design's (its schema, fake kernel
+and compiled-graph tests); each public wrapper gives its
 plain version's tensors bitwise; the fake kernel gives the CPU
 implementation's shapes, dtypes and strides (K2's rows padded to
 ``output_stride(F)`` on every device); ``torch.export`` of a module that calls
@@ -35,6 +36,23 @@ def _wgrad_args(seed, with_bias=True):
     return [feats, plan, g, mask, with_bias]
 
 
+def _tap_args(seed, with_bias=True):
+    """K1's operands over a 27-tap plan (n_t = 4), Cin 2, Cout 8: the taps
+    design's shape on the card."""
+    from test_torch_row_conv import tap_case
+
+    feats, plan, kernel, bias, mask, _ = tap_case(seed, 2, 8)
+    return [torch.from_numpy(feats), torch.from_numpy(plan), torch.from_numpy(kernel),
+            torch.from_numpy(bias) if with_bias else None, torch.from_numpy(mask)]
+
+
+def _tap_wgrad_args(seed, with_bias=True):
+    from test_torch_row_conv import tap_case
+
+    feats, plan, _, _, mask, g = tap_case(seed, 2, 8)
+    return [torch.from_numpy(a) for a in (feats, plan, g, mask)] + [with_bias]
+
+
 def _site_args(seed, c, f, with_bias=True):
     """K2's operands at head width (C, F) over 10 events (+1 empty)."""
     rng = np.random.default_rng(seed)
@@ -60,8 +78,10 @@ CASES = [
     ("subm_conv_rows", "k3-bias", lambda: _conv_args(1)),
     ("subm_conv_rows", "k3-nobias", lambda: _conv_args(2, with_bias=False)),
     ("subm_conv_rows", "k1-bias", lambda: _conv_args(3, k=1)),
+    ("subm_conv_rows", "k27-bias", lambda: _tap_args(12)),
     ("subm_conv_rows_wgrad", "bias", lambda: _wgrad_args(4)),
     ("subm_conv_rows_wgrad", "nobias", lambda: _wgrad_args(5, with_bias=False)),
+    ("subm_conv_rows_wgrad", "k27-bias", lambda: _tap_wgrad_args(13)),
     ("site_grouped_matmul", "8x50-bias", lambda: _site_args(6, 8, 50)),
     ("site_grouped_matmul", "16x24-nobias", lambda: _site_args(7, 16, 24, with_bias=False)),
     ("site_grouped_matmul_bwd", "8x50-bias", lambda: _site_bwd_args(8, 8, 50)),

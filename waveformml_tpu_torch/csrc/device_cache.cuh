@@ -1,7 +1,8 @@
 // A host-side cache of one value per CUDA device, for the launch functions.
 //
-// A kernel's dynamic shared-memory limit (cudaFuncSetAttribute) and the
-// opt-in shared-memory size of a block are properties of a device. A process
+// A kernel's dynamic shared-memory limit (cudaFuncSetAttribute), the
+// opt-in shared-memory size of a block and the SM count are properties of
+// a device. A process
 // may launch on several devices, and from several host threads, so each
 // launch function keeps what it has set or read in a DeviceCache, keyed by
 // cudaGetDevice() and guarded by a mutex.
@@ -41,18 +42,23 @@ cudaError_t raise_per_device(DeviceCache& cache, size_t need, Set set) {
   return err;
 }
 
-// The current device's opt-in shared memory per block, read once a device.
-inline cudaError_t optin_smem(DeviceCache& cache, size_t* bytes) {
+// The current device's attribute `attr`, read once a device.
+inline cudaError_t device_attribute(DeviceCache& cache, cudaDeviceAttr attr, size_t* value) {
   int device = 0;
   cudaError_t err = current_device(&device);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(cache.mu);
   if (cache.value[device] == 0) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    int read = 0;
+    err = cudaDeviceGetAttribute(&read, attr, device);
     if (err != cudaSuccess) return err;
-    cache.value[device] = static_cast<size_t>(optin);
+    cache.value[device] = static_cast<size_t>(read);
   }
-  *bytes = cache.value[device];
+  *value = cache.value[device];
   return cudaSuccess;
+}
+
+// The current device's opt-in shared memory per block, read once a device.
+inline cudaError_t optin_smem(DeviceCache& cache, size_t* bytes) {
+  return device_attribute(cache, cudaDevAttrMaxSharedMemoryPerBlockOptin, bytes);
 }

@@ -1,35 +1,56 @@
-// Row-space submanifold convolution, forward: a gather-fused GEMM over the
-// row-taps the data has, on the tensor cores in TF32 with a 3-pass split.
+// Row-space submanifold convolution, forward, in two designs: a gather-fused
+// GEMM on the tensor cores (TF32, 3-pass split) over the row-taps the data
+// has, for 2D windows (K² = 1, 9) and wide channels ("tiles"), and a one-pass
+// gather in FFMA, a row a thread, for the 3x3x3 window at narrow channels
+// ("taps").
 //
-// Replaces waveformml_tpu/ops/row_conv.py:subm_conv_rows (_masked_gather +
-// _gather_gemm, :189-242), which XLA ran on the TPU as a gather into an
-// [N, K², Cin] operand followed by one GEMM:
+// Both replace waveformml_tpu/ops/row_conv.py:subm_conv_rows (_masked_gather
+// + _gather_gemm, :189-242), and the d_feats of _subm_bwd (:250-256) through
+// the reversed, transposed kernel, which XLA ran on the TPU as a gather into
+// an [N, K², Cin] operand followed by one GEMM:
 //
 //   out[r] = mask[r] · (Σ_k feats[plan[r, k]] @ W[k] + bias),  plan = -1 → 0
 //
-// Bound on the H100: bytes. A real row has its centre tap and ~0.1 of its 8
-// other taps at detector occupancy, so the data needs ~1/8 of the dense-tap
-// work, 2·Cin·Cout FLOP per present row-tap; three TF32 passes of that at
-// 495 TFLOP/s take less time than reading feats and writing out at 3.35 TB/s.
-// What keeps a kernel from that bound here is work the data does not need
-// and time per step: W[k] has to reach a block for every (block, tap) pair
-// it computes, and a block of few rows does little work per W slice.
+// Dispatch (ops/row_conv.py row_design, on the host): K² = 27 with Cin ≤ 16
+// and Cout ≤ 16 runs "taps" (subm_conv_rows_taps_fwd); every other shape
+// runs "tiles" (subm_conv_rows_fwd), the 9-tap convs of every 2D config
+// among them. Measured on the card at 27 taps (PERF.md): the taps
+// design at 2→8, 8→8 and 16→16 against the tiles design at the same
+// shapes; wider channels at 27 taps are untried and stay on "tiles".
 //
-// Design:
+// Bound on the H100: bytes, in both. Tiles, 2D: a real row has its centre
+// tap and ~0.1 of its 8 other taps at detector occupancy, so the data needs
+// ~1/8 of the dense-tap work, 2·Cin·Cout FLOP per present row-tap; three
+// TF32 passes of that at 495 TFLOP/s take less time than reading feats and
+// writing out at 3.35 TB/s. Taps, 3D: the plan is the largest operand (108
+// bytes a row: 10.5 MB of ~14.5 at SCNet3D.json's 4096 events, ~97k rows,
+// against 0.78 MB of feats at 2 channels and 3.1 MB of out at 8), ~4.3 µs;
+// its ~295k row-taps at 2→8 are 9.4 MFLOP, ~0.14 µs in fp32.
+//
+// Design "tiles":
 // * Two launches. The first gives each block BM = 32 rows and the centre
 //   tap (present for every real row), and writes out = mask·(centre +
 //   bias); 32-row blocks measured faster than 64 (more blocks in flight).
 //   The second gives each block SPARSE_ROWS rows and one other tap, and
-//   adds its products into out with fp32 atomics: an off-centre tap is
-//   present for ~1 real row in 100 at detector occupancy, so one block per
-//   256 rows reads W[k] once where per-tile blocks would read it for every
-//   tile that has the tap, and rounds its rows up to a group once. A row
-//   takes at most one atomic add per tap; a row with two or more other
-//   taps can differ in its last bits from run to run. The second launch is
-//   a programmatic dependent launch: its blocks compact, load and multiply
-//   while the first grid still runs, and wait for it (griddepcontrol.wait)
-//   only before their first add; block 0 waits even with nothing to add,
-//   so that the second grid always ends after the first.
+//   adds its products into out with fp32 atomics: in 2D an off-centre tap
+//   is present for ~1 real row in 100 at detector occupancy (it holds for
+//   the 3x3 windows of the SubMPSD, SegQuantifier and SCNet stacks; in the
+//   3x3x3 window the two dt = ±1 taps are present for ~90% of the rows), so
+//   one block per 256 rows reads W[k] once where per-tile blocks would read
+//   it for every tile that has the tap, and rounds its rows up to a group
+//   once. A row takes at most one atomic add per tap; a row with two or
+//   more other taps can differ in its last bits from run to run. The
+//   second launch is a programmatic dependent launch: its blocks compact,
+//   load and multiply while the first grid still runs, and wait for it
+//   (griddepcontrol.wait) only before their first add; block 0 waits even
+//   with nothing to add, so that the second grid always ends after the
+//   first.
+// * Why it loses at 27 taps and narrow channels: each of the 26 off-centre
+//   taps gets its own blocks, each reading one int32 column of the 108-byte
+//   plan rows; a 32-channel slice of which 2 are real is staged, 16 output
+//   channels computed for 8; and the dense dt = ±1 taps add ~86k rows × 8
+//   channels each with fp32 atomics (0.06290 ms on an H100 against a
+//   library line of 0.05862; PERF.md).
 // * Compaction. Each block lists, in shared memory, its rows whose tap is
 //   present and whose mask is on (warp ballot + one shared counter), and
 //   multiplies only those rows, in groups of 8: the gathered rows are the N
@@ -60,6 +81,28 @@
 //   passes each cover all of a warp's independent accumulators before the
 //   next; a segment of one group spreads its passes and k-steps over the
 //   accumulators the other groups would use.
+//
+// Design "taps" (one launch, no atomics on the output):
+// * A block owns TAP_ROWS = 128 consecutive rows, a thread one row. The
+//   block reads its rows' plan [128, 27] once, coalesced (16-byte loads
+//   where aligned), into shared memory, and W [27, Cin, Cout] (1.7 KB at
+//   2→8, 6.9 KB at 8→8), zero-padded to [27, CI, CO] with CI, CO template
+//   widths, so that the products need no bound checks.
+// * Each thread walks the 27 taps in order, in groups of TG (14 at Cin 2,
+//   4 at 8: at most 32 gathered floats a thread) whose gathers it issues
+//   together, so that a row waits for L2 once a group; a group, or a tap,
+//   that no row of the warp has is skipped by the whole warp
+//   (__any_sync), so the ~1% sparse taps cost little. A present tap's Cin
+//   features come from L2 (feats, 0.78 MB at 2 channels, stays resident)
+//   in one 8- or 16-byte load where aligned, and the Cout sums accumulate
+//   in registers in fp32 FFMA, with W read as warp-wide broadcasts from
+//   shared memory.
+// * mask·(sum + bias) goes through shared memory (odd row stride: no bank
+//   conflicts) and out in coalesced stores, written once.
+// * A row's sum runs over its taps in a fixed order with no atomics, so
+//   two runs give the same bits (ROADMAP's "K1's fp32 atomics" holds for
+//   the tiles design only). The row-taps it computes are those needed; each
+//   block adds their count to the same device counter as the tiles design.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -505,6 +548,158 @@ int channel_tiles(int cout) {
   return ((cout + col_tiles - 1) / col_tiles + 15) / 16;
 }
 
+// -- design "taps": K² = 27, Cin and Cout up to TAP_MAX --------------------
+
+constexpr int TAPS = 27;          // the 3x3x3 window
+constexpr int TAP_ROWS = 128;     // rows per block, one a thread
+constexpr int TAP_MAX = 16;       // widest Cin and Cout the design takes
+
+// Taps whose rows a thread gathers at once: as many as keep the gathered
+// values within 32 registers
+__host__ __device__ constexpr int tap_group(int ci) {
+  return ci >= 16 ? 2 : ci >= 8 ? 4 : ci >= 4 ? 8 : ci >= 2 ? 14 : 27;
+}
+
+// Row src's CI features into a (zero past cin, or where src < 0): one
+// 16- or 8-byte load where vec_f says the row allows it, else cin loads.
+template <int CI>
+__device__ __forceinline__ void gather_row(float (&a)[CI], const float* __restrict__ feats,
+                                           int src, int cin, int vec_f) {
+#pragma unroll
+  for (int c = 0; c < CI; ++c) a[c] = 0.f;
+  if (src < 0) return;
+  const float* f = feats + (int64_t)src * cin;
+  if constexpr (CI % 4 == 0) {
+    if (vec_f == 4) {
+#pragma unroll
+      for (int c = 0; c < CI; c += 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(f + c));
+        a[c] = v.x; a[c + 1] = v.y; a[c + 2] = v.z; a[c + 3] = v.w;
+      }
+      return;
+    }
+  }
+  if constexpr (CI % 2 == 0) {
+    if (vec_f == 2) {
+#pragma unroll
+      for (int c = 0; c < CI; c += 2) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(f + c));
+        a[c] = v.x; a[c + 1] = v.y;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CI; ++c) a[c] = c < cin ? __ldg(f + c) : 0.f;
+}
+
+// CI, CO: Cin and Cout rounded up to a template width (W is zero past them
+// in shared memory). vec_plan: the plan is 16-byte aligned. vec_f: floats
+// of one gather load (4 or 2 where Cin == CI is a multiple and feats is
+// aligned, else 1).
+template <int CI, int CO>
+__global__ void __launch_bounds__(TAP_ROWS)
+subm_conv_rows_taps_kernel(const float* __restrict__ feats,
+                           const int32_t* __restrict__ plan,
+                           const float* __restrict__ weight,
+                           const float* __restrict__ bias,
+                           const uint8_t* __restrict__ mask,
+                           float* __restrict__ out,
+                           int n, int cin, int cout, int vec_plan, int vec_f) {
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                                            // [27, CI, CO]
+  int* plan_s = reinterpret_cast<int*>(w_s + TAPS * CI * CO);   // [TAP_ROWS, 27]
+  float* out_s = reinterpret_cast<float*>(plan_s);              // [TAP_ROWS, os], after the taps
+  __shared__ int taps_s;
+
+  const int t = threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * TAP_ROWS;
+  const int rows = n - row0 < TAP_ROWS ? static_cast<int>(n - row0) : TAP_ROWS;
+  if (t == 0) taps_s = 0;
+  for (int i = t; i < TAPS * CI * CO; i += TAP_ROWS) {
+    const int o = i % CO, c = (i / CO) % CI, k = i / (CO * CI);
+    w_s[i] = c < cin && o < cout ? __ldg(weight + ((int64_t)k * cin + c) * cout + o) : 0.f;
+  }
+  // the block's plan rows, read once, coalesced (row0·27 ints is a multiple
+  // of 4, so a 16-byte aligned plan stays aligned at every block)
+  const int words = rows * TAPS;
+  const int32_t* plan_b = plan + row0 * TAPS;
+  int head = 0;
+  if (vec_plan) {
+    head = words / 4 * 4;
+    const int4* src4 = reinterpret_cast<const int4*>(plan_b);
+    int4* dst4 = reinterpret_cast<int4*>(plan_s);
+    for (int i = t; i < words / 4; i += TAP_ROWS) dst4[i] = __ldg(src4 + i);
+  }
+  for (int i = head + t; i < words; i += TAP_ROWS) plan_s[i] = __ldg(plan_b + i);
+  const bool on = t < rows && mask[row0 + t] != 0;
+  __syncthreads();
+
+  float acc[CO];
+#pragma unroll
+  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
+  int present = 0;
+  const int* taps = plan_s + t * TAPS;        // row stride 27 words: no bank conflicts
+  // TG taps at a time: their gathers are issued together, so that a row
+  // waits for L2 once a group rather than once a tap
+  constexpr int TG = tap_group(CI);
+#pragma unroll 1
+  for (int k0 = 0; k0 < TAPS; k0 += TG) {
+    int src[TG];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < TG; ++j) {
+      src[j] = on && k0 + j < TAPS ? taps[k0 + j] : -1;
+      any |= src[j] >= 0;
+    }
+    // every lane takes part: the rows past n and the masked rows with -1
+    if (!__any_sync(0xffffffffu, any)) continue;
+    float a[TG][CI];
+#pragma unroll
+    for (int j = 0; j < TG; ++j) gather_row<CI>(a[j], feats, src[j], cin, vec_f);
+#pragma unroll
+    for (int j = 0; j < TG; ++j) {
+      if (!__any_sync(0xffffffffu, src[j] >= 0)) continue;
+      present += src[j] >= 0;
+      const float* w = w_s + (k0 + j) * CI * CO;
+#pragma unroll
+      for (int c = 0; c < CI; ++c)
+#pragma unroll
+        for (int o = 0; o < CO; ++o) acc[o] = fmaf(a[j][c], w[c * CO + o], acc[o]);
+    }
+  }
+  if (present) atomicAdd(&taps_s, present);
+  __syncthreads();                            // plan_s is read: it holds out_s now
+
+  const int os = cout | 1;                    // odd row stride: no bank conflicts
+  if (t < rows) {
+#pragma unroll
+    for (int o = 0; o < CO; ++o)
+      if (o < cout) out_s[t * os + o] = on ? acc[o] + (bias != nullptr ? __ldg(bias + o) : 0.f)
+                                          : 0.f;
+  }
+  __syncthreads();
+  float* out_b = out + row0 * cout;
+  for (int i = t; i < rows * cout; i += TAP_ROWS) out_b[i] = out_s[(i / cout) * os + i % cout];
+  if (t == 0 && taps_s > 0) atomicAdd(&row_taps_computed, (unsigned long long)taps_s);
+}
+
+template <int CI, int CO>
+int launch_taps(const float* feats, const int32_t* plan, const float* weight,
+                const float* bias, const uint8_t* mask, float* out, int n, int cin,
+                int cout, cudaStream_t stream) {
+  // W and the plan rows (the output rows reuse the plan's words): at most
+  // 41.5 KB at CI = CO = 16, under the 48 KB a launch may take unasked
+  const size_t smem = sizeof(float) * ((size_t)TAPS * CI * CO + (size_t)TAP_ROWS * TAPS);
+  const int vec_plan = reinterpret_cast<uintptr_t>(plan) % 16 == 0;
+  const int vec_f = cin == CI ? copy_width(cin, feats) : 1;
+  subm_conv_rows_taps_kernel<CI, CO><<<(n + TAP_ROWS - 1) / TAP_ROWS, TAP_ROWS, smem, stream>>>(
+      feats, plan, weight, bias, mask, out, n, cin, cout, vec_plan, vec_f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tap_width(int c) { return c <= 1 ? 1 : c <= 2 ? 2 : c <= 4 ? 4 : c <= 8 ? 8 : 16; }
+
 }  // namespace
 
 extern "C" {
@@ -527,6 +722,33 @@ int subm_conv_rows_fwd(const float* feats, const int32_t* plan,
     case 7: return launch<7>(feats, plan, weight, bias, mask, out, n, cin, cout, kk, st);
     default: return launch<8>(feats, plan, weight, bias, mask, out, n, cin, cout, kk, st);
   }
+}
+
+// The 27-tap design (K² = 27, 0 ≤ Cin ≤ 16, 0 ≤ Cout ≤ 16; any other shape
+// returns cudaErrorInvalidValue and launches nothing): one launch on
+// `stream` (none without rows or outputs), the same operands as
+// subm_conv_rows_fwd; returns the launch's cudaError_t without
+// synchronising.
+int subm_conv_rows_taps_fwd(const float* feats, const int32_t* plan,
+                            const float* weight, const float* bias,
+                            const uint8_t* mask, float* out, int n, int cin,
+                            int cout, int kk, void* stream) {
+  if (kk != TAPS || cin < 0 || cin > TAP_MAX || cout < 0 || cout > TAP_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || cout == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TAPS_CASE(CI, CO) \
+  case CI * 100 + CO: \
+    return launch_taps<CI, CO>(feats, plan, weight, bias, mask, out, n, cin, cout, st);
+  switch (tap_width(cin) * 100 + (cout <= 4 ? 4 : cout <= 8 ? 8 : 16)) {
+    TAPS_CASE(1, 4) TAPS_CASE(1, 8) TAPS_CASE(1, 16)
+    TAPS_CASE(2, 4) TAPS_CASE(2, 8) TAPS_CASE(2, 16)
+    TAPS_CASE(4, 4) TAPS_CASE(4, 8) TAPS_CASE(4, 16)
+    TAPS_CASE(8, 4) TAPS_CASE(8, 8) TAPS_CASE(8, 16)
+    TAPS_CASE(16, 4) TAPS_CASE(16, 8) TAPS_CASE(16, 16)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TAPS_CASE
 }
 
 // Store the row-taps the kernel computed since the last call into *count

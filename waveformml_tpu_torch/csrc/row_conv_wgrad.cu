@@ -1,23 +1,34 @@
-// Row-space submanifold convolution, weight and bias gradient: the centre
-// tap as a split-K GEMM on the tensor cores (TF32, 3-pass split, fp32
-// accuracy), the other taps over the row-taps the data has, and a fixed-order
-// reduction, so that two runs give the same bits.
+// Row-space submanifold convolution, weight and bias gradient, in two
+// designs, both with a fixed-order reduction and no float atomics, so that
+// two runs give the same bits: the centre tap as a split-K GEMM on the
+// tensor cores (TF32, 3-pass split, fp32 accuracy) and the other taps over
+// listed row pairs, for 2D windows and wide channels ("tiles"); and a
+// row-chunked FFMA pass over all 27 taps of the 3x3x3 window at narrow
+// channels ("taps").
 //
-// Replaces d_kernel and d_bias of waveformml_tpu/ops/row_conv.py:_subm_bwd
+// Both replace d_kernel and d_bias of waveformml_tpu/ops/row_conv.py:_subm_bwd
 // (:257-268), which XLA ran on the TPU as a gather into an [N, K², Cin]
 // operand contracted against the masked cotangent g over the rows:
 //
 //   dW[k] = Σ_r mask[r] · feats[plan[r, k]]ᵀ g[r]      (plan = -1 → 0)
 //   db    = Σ_r mask[r] · g[r]
 //
-// Bound on the H100: bytes. At the SubMPSD training shapes (N = 12288 rows,
-// ~10^4 real, Cin·Cout = 130·104, 104·56, 56·8) the centre tap, present for
-// every real row, holds ~91% of the row-taps; three TF32 passes of its
-// 2·Cin·Cout FLOP per row at 495 TFLOP/s take less time than reading feats
-// and g once at 3.35 TB/s. So the design reads each operand once and keeps
-// the partial sums small.
+// Dispatch (ops/row_conv.py row_design, on the host, the same rule as K1's):
+// K² = 27 with Cin ≤ 16 and Cout ≤ 16 runs "taps"
+// (subm_conv_rows_wgrad_taps); every other shape runs "tiles"
+// (subm_conv_rows_wgrad), the 9-tap convs of every 2D config among them.
 //
-// Design:
+// Bound on the H100: bytes, in both. Tiles, 2D: at the SubMPSD training
+// shapes (N = 12288 rows, ~10^4 real, Cin·Cout = 130·104, 104·56, 56·8) the
+// centre tap, present for every real row, holds ~91% of the row-taps;
+// three TF32 passes of its 2·Cin·Cout FLOP per row at 495 TFLOP/s take less
+// time than reading feats and g once at 3.35 TB/s. So the design reads
+// each operand once and keeps the partial sums small. Taps, 3D: the plan
+// (108 bytes a row, 10.5 MB at SCNet3D.json's ~97k rows of 4096 events)
+// and g (3.1 MB at 8 channels) are read once, feats (0.78 MB) gathered:
+// ~4-5 µs; the ~295k row-taps at Cin 2, Cout 8 are 9.4 MFLOP.
+//
+// Design "tiles":
 // * Grid 1, the centre tap as split-K: M = Cin + 1, N = Cout, K = rows.
 //   Block x owns the contiguous rows [x·cr, x·cr + cr) (cr chosen so that
 //   ~128 blocks fill the card) and, at every width up to 143 + 1 input and
@@ -57,18 +68,60 @@
 //   partials in cluster order into dW[centre] and db, and gives each
 //   (other tap, 32x32 channel tile) a block that gathers the tap's pairs
 //   from the lists in block order (a prefix over the blocks' counts) and
-//   accumulates their products in FFMA (each tap ~1% of the row-taps).
-//   The kernel keeps no state between calls, so calls on several streams
-//   may run at once. The tap blocks could start on a count of grid 1's
-//   blocks whose lists are out: a count shared by all calls saved ~10% but
-//   is unsafe across streams, and one in the call's scratch needs a memset
-//   first, which cost most of that gain on the card. A last-block ticket
-//   for the centre sum was not taken: one block would then read every
-//   partial alone.
+//   accumulates their products in FFMA (each tap ~1% of the row-taps in
+//   2D). The kernel keeps no state between calls, so calls on several
+//   streams may run at once. The tap blocks could start on a count of grid
+//   1's blocks whose lists are out: a count shared by all calls saved ~10%
+//   but is unsafe across streams, and one in the call's scratch needs a
+//   memset first, which cost most of that gain on the card. A last-block
+//   ticket for the centre sum was not taken: one block would then read
+//   every partial alone.
 // * Measured on the card, the centre grid is what sets the time: its fixed
 //   steps (plan and mask loads, the lists, the merge, the cluster sum),
 //   the operand loads and the 3-pass mma each take a comparable share of
 //   it at layer 0, and overlap little, with one or two blocks on an SM.
+// * Why it loses at 27 taps and narrow channels: the dt = ±1 taps are
+//   present for ~86k rows each of SCNet3D's ~97k, not ~1%. Their tap
+//   blocks (one per 32x32 channel tile: 26 blocks on 132 SMs at Cin 2,
+//   Cout 8) each walk 86k pairs alone, ~675 steps of 128 pairs with two
+//   barriers and a binary search a pair, 16 of each tile's 1024 products
+//   real; and grid 1 writes a [26, cr] pair list for every row block,
+//   ~20 MB of scratch (2.73904 ms on an H100 against a library line of
+//   0.08066; PERF.md).
+//
+// Design "taps" (two grids, no pair lists):
+// * Grid 1: 512-thread blocks of at most 64 registers a thread, two an SM
+//   (the SMs read from the device: 264 blocks in one wave on an H100;
+//   fewer where a partial is large), sized in C
+//   (subm_conv_rows_wgrad_taps_scratch gives the host the scratch), each owning
+//   a run of rows (384 at SCNet3D's ~97k) staged TAP_CH = 384 at a time:
+//   plan rows [384, 27] (16-byte loads where aligned), g rows [384, CO] and
+//   the mask, coalesced, by loads that do not wait for one another; then g
+//   is zeroed where the mask is off, and the plan is read through the mask.
+// * A thread owns an item: a (tap, input channel) pair, or db's pair of
+//   ones, and a row lane; at Cin 2 the 55 pairs take 9 row lanes, at 16 the
+//   433 pairs one. It walks its lane's rows TAP_U = 4 at a time: gathers
+//   feats[plan[r, tap], c] from L2 (0.78 MB at 2 channels, stays resident)
+//   for the 4 rows, then adds each times the row's g into CO fp32 registers
+//   (FFMA). An absent tap reads nothing; items are pair-major, so a warp
+//   holds few taps, and a step that no row of its taps has is skipped by
+//   the whole warp.
+// * The block sums its row lanes in lane order in shared memory and writes
+//   one partial [(27·Cin + 1)·Cout] to scratch, entry-major ([entry,
+//   block]) so that grid 2 reads it coalesced.
+// * Grid 2, a programmatic dependent launch triggered when grid 1's blocks
+//   end (triggered at their start, its waiting blocks held SMs grid 1
+//   used), gives each output a warp: lane l sums blocks l, l + 32, ... in
+//   order, then a butterfly of shuffles; it waits for grid 1 with
+//   griddepcontrol.wait before reading. Every sum has a fixed order, so two
+//   runs give the same bits.
+// * Measured at SCNet3D's shape (Cin 2, Cout 8; PERF.md): grid 1
+//   sets the time, and it scales with a block's rows, not with the
+//   gathers or the products (turning either off moved it <10%). Tried and
+//   slower or no faster: 256-thread blocks of two items a thread (2 blocks
+//   an SM at 88 registers: two waves), 8 rows a step, and gathering each
+//   chunk's features into shared memory before the products (more integer
+//   work than it saved); 384-row staging gained ~10% over 128.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -552,6 +605,195 @@ int dispatch_mt(const Geometry& geo, const float* feats, const int32_t* plan, co
 #undef WGRAD_MT
 }
 
+// -- design "taps": K² = 27, Cin and Cout up to TAP_MAX --------------------
+
+constexpr int TAPS = 27;          // the 3x3x3 window
+constexpr int TAP_MAX = 16;       // widest Cin and Cout the design takes
+constexpr int TAP_THREADS = 512;  // grid 1: an item a thread
+constexpr int TAP_BLOCK_ROWS = 128;  // the rows a block owns are a multiple of this
+constexpr int TAP_CH = 384;       // rows staged at a time (a multiple of 4)
+constexpr int TAP_U = 4;          // rows a thread gathers before it multiplies
+constexpr int SUM_THREADS = 256;  // grid 2: a warp an output
+constexpr long long TAP_PARTIAL_FLOATS = 1 << 19;  // scratch the partials aim at
+
+// Items: pairs = 27·Cin + 1 (tap, channel) pairs, the last db's ones, times
+// lanes = TAP_THREADS / pairs row lanes (9 at Cin 2, 1 at 16); item i is
+// row lane i % lanes of pair i / lanes, so that a warp's items hold few
+// taps and a warp whose taps no row of a step has skips the step.
+__host__ __device__ inline int tap_pairs(int cin) { return TAPS * cin + 1; }
+__host__ __device__ inline int tap_lanes(int cin) { return TAP_THREADS / tap_pairs(cin); }
+
+// Grid 1. Block x: rows [x·rows_per_block, ...) (rows_per_block a multiple
+// of TAP_BLOCK_ROWS); writes partial[e · blocks + x] for each entry e of the
+// flattened (dW [27, Cin, Cout], db [Cout]). vec_plan: the plan is 16-byte
+// aligned. At most 64 registers, so that two blocks (32 warps) share an SM.
+template <int CO>
+__global__ void __launch_bounds__(TAP_THREADS, 2)
+wgrad_taps_kernel(const float* __restrict__ feats, const int32_t* __restrict__ plan,
+                  const float* __restrict__ g, const uint8_t* __restrict__ mask,
+                  float* __restrict__ partial, int n, int cin, int cout, int blocks,
+                  int rows_per_block, int vec_plan) {
+  extern __shared__ __align__(16) float smem[];
+  float* g_s = smem;                                            // [TAP_CH, CO], 0 where masked
+  int* plan_s = reinterpret_cast<int*>(g_s + TAP_CH * CO);      // [TAP_CH, 27]
+  float* red_s = smem;                                          // [pairs, lanes, CO], then
+  __shared__ uint8_t msk_s[TAP_CH];
+
+  const int t = threadIdx.x;
+  const int pairs = tap_pairs(cin), lanes = tap_lanes(cin);
+  const bool live = t < pairs * lanes;
+  const int lane = t % lanes, p = t / lanes;
+  // the item's tap (TAPS: none; -1: db's ones) and input channel
+  const int k = !live ? TAPS : p < TAPS * cin ? p / cin : -1;
+  const int c = p < TAPS * cin ? p % cin : 0;
+  float acc[CO];
+#pragma unroll
+  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
+
+  const int64_t first = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t last = first + rows_per_block < n ? first + rows_per_block : (int64_t)n;
+#pragma unroll 1
+  for (int64_t r0 = first; r0 < last; r0 += TAP_CH) {
+    const int rows = last - r0 < TAP_CH ? static_cast<int>(last - r0) : TAP_CH;
+    __syncthreads();                           // the last chunk's readers are done
+    // the chunk's plan rows, g rows and mask, every load independent of the
+    // others (r0·27 ints is a multiple of 4: an aligned plan stays aligned)
+    const int32_t* plan_c = plan + r0 * TAPS;
+    const int words = rows * TAPS;
+    int head = 0;
+    if (vec_plan) {
+      head = words / 4 * 4;
+      const int4* src4 = reinterpret_cast<const int4*>(plan_c);
+      int4* dst4 = reinterpret_cast<int4*>(plan_s);
+      for (int i = t; i < words / 4; i += TAP_THREADS) dst4[i] = __ldg(src4 + i);
+    }
+    for (int i = head + t; i < words; i += TAP_THREADS) plan_s[i] = __ldg(plan_c + i);
+    for (int i = t; i < rows * CO; i += TAP_THREADS) {
+      const int r = i / CO, o = i % CO;
+      g_s[i] = o < cout ? __ldg(g + (r0 + r) * cout + o) : 0.f;
+    }
+    if (t < rows) msk_s[t] = mask[r0 + t];
+    __syncthreads();
+    // g is 0 where the mask is off (db and every product of the row then
+    // add 0, whatever g holds there); the plan is read through the mask
+    for (int i = t; i < rows * CO; i += TAP_THREADS)
+      if (msk_s[i / CO] == 0) g_s[i] = 0.f;
+    __syncthreads();
+    // the lane's rows, TAP_U at a time; every thread of a warp takes the
+    // same steps (the __any_sync), those past the items with nothing to add
+#pragma unroll 1
+    for (int r = lane; r - lane < rows; r += lanes * TAP_U) {
+      float a[TAP_U];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < TAP_U; ++u) {
+        const int rr = r + u * lanes;
+        if (k < 0) {
+          a[u] = rr < rows ? 1.f : 0.f;        // db: g_s is 0 where the mask is off
+        } else {
+          const int src = k < TAPS && rr < rows && msk_s[rr] != 0 ? plan_s[rr * TAPS + k] : -1;
+          a[u] = src >= 0 ? __ldg(feats + (int64_t)src * cin + c) : 0.f;
+          any |= src >= 0;
+        }
+      }
+      // a step that no item of the warp has a tap in adds nothing
+      if (!__any_sync(0xffffffffu, any || k < 0)) continue;
+#pragma unroll
+      for (int u = 0; u < TAP_U; ++u) {
+        const int rr = min(r + u * lanes, rows - 1);   // a[u] is 0 past the rows
+        const float4* gr = reinterpret_cast<const float4*>(g_s + rr * CO);
+#pragma unroll
+        for (int q = 0; q < CO / 4; ++q) {
+          const float4 v = gr[q];
+          acc[4 * q] = fmaf(a[u], v.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(a[u], v.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(a[u], v.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(a[u], v.w, acc[4 * q + 3]);
+        }
+      }
+    }
+  }
+  __syncthreads();                             // the staged rows are read: red_s takes them
+  if (live) {
+#pragma unroll
+    for (int o = 0; o < CO; ++o) red_s[t * CO + o] = acc[o];
+  }
+  __syncthreads();
+  // the row lanes summed in lane order
+  for (int e = t; e < pairs * cout; e += TAP_THREADS) {
+    const int q = e / cout, o = e - q * cout;
+    float v = red_s[q * lanes * CO + o];
+    for (int l = 1; l < lanes; ++l) v += red_s[(q * lanes + l) * CO + o];
+    partial[(int64_t)e * blocks + blockIdx.x] = v;
+  }
+  // the sum's grid may start now (launched earlier, its blocks would wait
+  // on SMs this grid uses); it waits for this grid before reading
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Grid 2, a programmatic dependent launch: warp e sums entry e over the
+// blocks' partials (lane l: blocks l, l + 32, ..., then a butterfly), into
+// dW or db. With no row (blocks = 0) it writes zeros.
+__global__ void __launch_bounds__(SUM_THREADS)
+wgrad_taps_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                      float* __restrict__ db, int cin, int cout, int blocks) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int e = (blockIdx.x * SUM_THREADS + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  const int dw_n = TAPS * cin * cout;
+  if (e >= dw_n + cout) return;                // whole warps
+  const float* src = partial + (int64_t)e * blocks;
+  float v = 0.f;
+#pragma unroll 4
+  for (int b = lane; b < blocks; b += 32) v += __ldcg(src + b);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane != 0) return;
+  if (e < dw_n)
+    dw[e] = v;
+  else if (db != nullptr)
+    db[e - dw_n] = v;
+}
+
+template <int CO>
+int launch_taps(const float* feats, const int32_t* plan, const float* g, const uint8_t* mask,
+                float* partial, int n, int cin, int cout, int blocks, int rows_per_block,
+                cudaStream_t stream) {
+  // the staged rows (66 KB at CO 16), or the items' sums (at most 32 KB:
+  // 512 items x 16)
+  const int items = tap_pairs(cin) * tap_lanes(cin);
+  const size_t smem = sizeof(float) * std::max(items * CO, TAP_CH * (CO + TAPS));
+  static DeviceCache allowed;   // dynamic shared memory allowed so far, per device
+  const cudaError_t err = raise_per_device(allowed, smem, [smem] {
+    return cudaFuncSetAttribute(wgrad_taps_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_plan = reinterpret_cast<uintptr_t>(plan) % 16 == 0;
+  wgrad_taps_kernel<CO><<<blocks, TAP_THREADS, smem, stream>>>(
+      feats, plan, g, mask, partial, n, cin, cout, blocks, rows_per_block, vec_plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Grid 1's geometry over n rows on the current device: two blocks an SM
+// (one wave), fewer where the partials ((27·Cin + 1)·Cout floats a block)
+// would pass TAP_PARTIAL_FLOATS, never under one an SM; rows a block a
+// multiple of TAP_BLOCK_ROWS, no block empty. 0 and 0 for no row.
+cudaError_t taps_geometry(int n, int cin, int cout, int* blocks, int* rows) {
+  *blocks = *rows = 0;
+  if (n <= 0) return cudaSuccess;
+  static DeviceCache sm_cache;   // SMs, per device
+  size_t sms = 0;
+  const cudaError_t err = device_attribute(sm_cache, cudaDevAttrMultiProcessorCount, &sms);
+  if (err != cudaSuccess) return err;
+  const long long per = std::max(1LL, (long long)tap_pairs(cin) * cout);
+  const long long target =
+      std::max((long long)sms, std::min(2LL * (long long)sms, TAP_PARTIAL_FLOATS / per));
+  const long long per_block = (n + target - 1) / target;
+  *rows = static_cast<int>((per_block + TAP_BLOCK_ROWS - 1) / TAP_BLOCK_ROWS * TAP_BLOCK_ROWS);
+  *blocks = (n + *rows - 1) / *rows;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -620,6 +862,61 @@ int subm_conv_rows_wgrad(const float* feats, const int32_t* plan, const float* g
                                              (const float*)partial, (const int2*)lists,
                                              (const int*)counts, dw, db, cin, cout, kk,
                                              clusters, blocks, geo.cr, sum_blocks, tiles_o));
+}
+
+// The 27-tap design's grid 1 over n rows on the current device (*blocks
+// row blocks of *rows rows, a multiple of 128; 0 and 0 for no row) and the
+// scratch its launch needs: *floats floats, one (27·Cin + 1)·Cout partial
+// a block. Returns a CUDA error where the device cannot be read.
+int subm_conv_rows_wgrad_taps_scratch(int n, int cin, int cout, int* blocks, int* rows,
+                                      long long* floats) {
+  const cudaError_t err = taps_geometry(n, cin, cout, blocks, rows);
+  *floats = err == cudaSuccess ? (long long)*blocks * tap_pairs(cin) * cout : 0;
+  return static_cast<int>(err);
+}
+
+// The 27-tap design (K² = 27, 0 ≤ Cin ≤ 16, 0 ≤ Cout ≤ 16; any other shape
+// returns cudaErrorInvalidValue and launches nothing). partial is scratch
+// of the size above, for the same n, cin, cout and device. dw [27, cin,
+// cout] and db [cout] (may be null) are written in full. Launches two
+// grids on `stream` (the second alone when there is no row, none without
+// outputs) and returns the first launch error (0 on success) without
+// synchronising.
+int subm_conv_rows_wgrad_taps(const float* feats, const int32_t* plan, const float* g,
+                              const uint8_t* mask, float* partial, float* dw, float* db, int n,
+                              int cin, int cout, int kk, void* stream) {
+  if (kk != TAPS || cin < 0 || cin > TAP_MAX || cout < 0 || cout > TAP_MAX || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((int64_t)TAPS * cin * cout + (db != nullptr ? cout : 0) == 0) return 0;
+  int blocks = 0, rows_per_block = 0;
+  const cudaError_t geo_err = taps_geometry(n, cin, cout, &blocks, &rows_per_block);
+  if (geo_err != cudaSuccess) return static_cast<int>(geo_err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    const int co = cout <= 4 ? 4 : cout <= 8 ? 8 : 16;
+    const int err =
+        co == 4 ? launch_taps<4>(feats, plan, g, mask, partial, n, cin, cout, blocks,
+                                 rows_per_block, st)
+        : co == 8 ? launch_taps<8>(feats, plan, g, mask, partial, n, cin, cout, blocks,
+                                   rows_per_block, st)
+                  : launch_taps<16>(feats, plan, g, mask, partial, n, cin, cout, blocks,
+                                    rows_per_block, st);
+    if (err != 0) return err;
+  }
+  const int outputs = TAPS * cin * cout + cout;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((outputs * 32 + SUM_THREADS - 1) / SUM_THREADS);
+  config.blockDim = dim3(SUM_THREADS);
+  config.dynamicSmemBytes = 0;
+  config.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&config, wgrad_taps_sum_kernel,
+                                             (const float*)partial, dw, db, cin, cout,
+                                             n > 0 ? blocks : 0));
 }
 
 const char* wf_cuda_error_string(int err) {

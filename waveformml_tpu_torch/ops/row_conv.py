@@ -8,7 +8,9 @@ K×K×K window over (x, y, t). It depends on coords only, so the host
 builds it once per batch with numpy and every conv of the stack shares it.
 The conv itself is the custom op ``waveformml::subm_conv_rows``: kernel K1
 (``csrc/row_conv.cu``) for CUDA tensors, ``subm_conv_rows_plain`` for CPU
-tensors, the dispatcher choosing by device.
+tensors, the dispatcher choosing by device. K1 and K4 each have two designs,
+picked by ``row_design`` from the conv's shape: "taps" for the 3x3x3 window
+at narrow channels, "tiles" for every other shape.
 
 Its gradient (``SubMConvRows``, an autograd Function) follows the JAX
 package's custom VJP (waveformml_tpu/ops/row_conv.py:_subm_bwd): the
@@ -103,15 +105,42 @@ def subm_conv_rows_plain(feats: torch.Tensor, plan: torch.Tensor,
                                                        device=out.device))
 
 
+#: the taps design's window (3x3x3) and widest Cin and Cout
+#: (``csrc/row_conv.cu``, ``csrc/row_conv_wgrad.cu``)
+TAP_KK, TAP_MAX = 27, 16
+
+
+def row_design(kk: int, cin: int, cout: int) -> str:
+    """The design of K1 and K4 that takes a conv of ``kk`` taps, ``cin``
+    input and ``cout`` output channels (K1 as d_feats: the two swapped):
+    ``"taps"`` for the 3x3x3 window with both widths at most 16 (one pass,
+    a row a thread in K1; row chunks over every (tap, channel) pair in K4),
+    ``"tiles"`` for every other shape (the tensor-core designs, every 9-tap
+    conv among them). The source notes of ``csrc/row_conv.cu`` and
+    ``csrc/row_conv_wgrad.cu`` give the measurements behind it."""
+    return "taps" if kk == TAP_KK and cin <= TAP_MAX and cout <= TAP_MAX else "tiles"
+
+
+def k1_grids(kk: int, cin: int, cout: int) -> int:
+    """Grids one K1 call launches where it has rows and outputs: one for
+    the taps design and for K² = 1; the centre tap's and the other taps'
+    for the tiles design."""
+    return 1 if kk == 1 or row_design(kk, cin, cout) == "taps" else 2
+
+
 _FUNCTIONS = {"subm_conv_rows_fwd":
+              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+              "subm_conv_rows_taps_fwd":
               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
               "subm_conv_rows_take_row_taps": [ctypes.POINTER(ctypes.c_longlong)]}
 
 
 def take_row_taps() -> int:
-    """Row-taps kernel K1 computed on the card since the last call (for each
-    block, its rows that have its tap, rounded up to whole mma groups), as
-    the kernel counted them; restarts the count. Synchronises the device."""
+    """Row-taps kernel K1 computed on the card since the last call (tiles
+    design: for each block, its rows that have its tap, rounded up to whole
+    mma groups; taps design: the present row-taps of the rows whose mask is
+    on), as the kernel counted them; restarts the count. Synchronises the
+    device."""
     lib = native.load("row_conv", _FUNCTIONS)
     count = ctypes.c_longlong()
     torch.cuda.synchronize()
@@ -147,21 +176,22 @@ def _check(feats, plan, kernel, bias, mask) -> None:
 
 def subm_conv_rows_cuda(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor,
                         bias: Optional[torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel of the op: K1's launch on operands that ``_check``
-    has passed."""
+    """The CUDA kernel of the op: K1's launch, in the design ``row_design``
+    picks, on operands that ``_check`` has passed."""
     n, cin = feats.shape
     kk, _, cout = kernel.shape
     out = torch.empty((n, cout), dtype=torch.float32, device=feats.device)
     lib = native.load("row_conv", _FUNCTIONS)
-    err = lib.subm_conv_rows_fwd(
+    launch = (lib.subm_conv_rows_taps_fwd if row_design(kk, cin, cout) == "taps"
+              else lib.subm_conv_rows_fwd)
+    err = launch(
         feats.data_ptr(), plan.data_ptr(), kernel.data_ptr(),
         bias.data_ptr() if bias is not None else None, mask.data_ptr(),
         out.data_ptr(), n, cin, cout, kk,
         torch.cuda.current_stream(feats.device).cuda_stream)
     native.check_launch(lib, err, "subm_conv_rows")
     if n and cout:
-        # the centre tap's grid, and for K² > 1 the other taps' grid
-        native.count_launches(subm_conv_rows, 1 if kk == 1 else 2)
+        native.count_launches(subm_conv_rows, k1_grids(kk, cin, cout))
     return out
 
 
@@ -192,12 +222,15 @@ def subm_conv_rows(feats: torch.Tensor, plan: torch.Tensor, kernel: torch.Tensor
     ``[-1, N)``.
 
     On the H100 it is bound by bytes. K1 fuses the gather into its operand
-    loads (no [N, K², Cin] operand in memory) and multiplies only the rows
-    that have a tap, in groups of 8, on the tensor cores in TF32 with a
-    3-pass split that keeps fp32 accuracy: one launch writes the centre tap,
-    bias and mask per 32-row tile, a second adds the other taps per 256-row
-    block with fp32 atomics, so a row with two or more off-centre taps can
-    differ in its last bits from run to run (the note in
+    loads (no [N, K², Cin] operand in memory). Its tiles design multiplies
+    only the rows that have a tap, in groups of 8, on the tensor cores in
+    TF32 with a 3-pass split that keeps fp32 accuracy: one launch writes the
+    centre tap, bias and mask per 32-row tile, a second adds the other taps
+    per 256-row block with fp32 atomics, so a row with two or more
+    off-centre taps can differ in its last bits from run to run. Its taps
+    design (27 taps, Cin and Cout ≤ 16: ``row_design``) is one launch, a row
+    a thread, the present taps' features gathered and summed in fp32 FFMA
+    in tap order, so two runs give the same bits (the note in
     ``csrc/row_conv.cu`` has the details).
     """
     _check(feats, plan, kernel, bias, mask)
@@ -248,7 +281,12 @@ def subm_conv_rows_bwd_plain(feats: torch.Tensor, plan: torch.Tensor, kernel: to
 _WGRAD_FUNCTIONS = {"subm_conv_rows_wgrad":
                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                     "subm_conv_rows_wgrad_scratch":
-                    [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2}
+                    [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2,
+                    "subm_conv_rows_wgrad_taps_scratch":
+                    [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+                    + [ctypes.POINTER(ctypes.c_longlong)],
+                    "subm_conv_rows_wgrad_taps":
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
 
 def _check_wgrad(feats, plan, g, mask) -> None:
@@ -279,26 +317,39 @@ def _subm_conv_rows_wgrad_cpu(feats, plan, g, mask, with_bias):
 def subm_conv_rows_wgrad_cuda(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tensor,
                               mask: torch.Tensor, with_bias: bool
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel of the op: K4's launch on operands that
-    ``_check_wgrad`` has passed (d_bias ``[0]`` without the bias)."""
+    """The CUDA kernel of the op: K4's launch, in the design ``row_design``
+    picks, on operands that ``_check_wgrad`` has passed (d_bias ``[0]``
+    without the bias)."""
     n, cin = feats.shape
     kk, cout = plan.shape[1], g.shape[1]
     lib = native.load("row_conv_wgrad", _WGRAD_FUNCTIONS)
-    floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.subm_conv_rows_wgrad_scratch(n, cin, cout, kk, ctypes.byref(floats), ctypes.byref(ints))
     dev = feats.device
-    partial = torch.empty(floats.value, dtype=torch.float32, device=dev)
-    lists = torch.empty(ints.value, dtype=torch.int32, device=dev)
     d_kernel = torch.empty((kk, cin, cout), dtype=torch.float32, device=dev)
     d_bias = torch.empty(cout if with_bias else 0, dtype=torch.float32, device=dev)
-    err = lib.subm_conv_rows_wgrad(
-        feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
-        partial.data_ptr(), lists.data_ptr(), d_kernel.data_ptr(),
-        d_bias.data_ptr() if with_bias else None, n, cin, cout, kk,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    db = d_bias.data_ptr() if with_bias else None
+    if row_design(kk, cin, cout) == "taps":
+        blocks, rows, floats = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+        native.check_launch(lib, lib.subm_conv_rows_wgrad_taps_scratch(
+            n, cin, cout, ctypes.byref(blocks), ctypes.byref(rows), ctypes.byref(floats)),
+            "subm_conv_rows_wgrad_taps_scratch")
+        partial = torch.empty(floats.value, dtype=torch.float32, device=dev)
+        err = lib.subm_conv_rows_wgrad_taps(
+            feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
+            partial.data_ptr(), d_kernel.data_ptr(), db, n, cin, cout, kk, stream)
+    else:
+        floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
+        lib.subm_conv_rows_wgrad_scratch(n, cin, cout, kk, ctypes.byref(floats),
+                                         ctypes.byref(ints))
+        partial = torch.empty(floats.value, dtype=torch.float32, device=dev)
+        lists = torch.empty(ints.value, dtype=torch.int32, device=dev)
+        err = lib.subm_conv_rows_wgrad(
+            feats.data_ptr(), plan.data_ptr(), g.data_ptr(), mask.data_ptr(),
+            partial.data_ptr(), lists.data_ptr(), d_kernel.data_ptr(), db, n, cin, cout, kk,
+            stream)
     native.check_launch(lib, err, "subm_conv_rows_wgrad")
-    # where there are outputs: the centre tap's grid where there are rows,
-    # and the reduction's grid
+    # where there are outputs, in both designs: the partials' grid where
+    # there are rows, and the reduction's grid
     if kk * cin * cout + (cout if with_bias else 0) > 0:
         native.count_launches(subm_conv_rows_wgrad, int(n > 0 and cout > 0) + 1)
     return d_kernel, d_bias
@@ -333,17 +384,22 @@ def subm_conv_rows_wgrad(feats: torch.Tensor, plan: torch.Tensor, g: torch.Tenso
     gives an empty d_bias for ``with_bias=False``. Plan entries must lie in
     ``[-1, N)``.
 
-    K4 takes the centre tap, present for every real row, as a split-K GEMM
-    on the tensor cores (TF32 with a 3-pass split, fp32 accuracy): each
-    block owns a range of rows and the whole (Cin + 1, Cout) tile, so feats
-    and g are read once, and db is row Cin of the product (a column of ones
-    where the mask is on). Clusters of 8 blocks sum their tiles through
-    distributed shared memory in rank order; a second grid, programmatically
-    dependent, sums the clusters' partials in order and multiplies the other
-    taps' row pairs, which the first grid listed from one coalesced read of
-    the plan. There are no float atomics, so two runs give the same bits;
-    the sums run in another order than the plain version's, so the two
-    differ by a few ulp of the sum of the magnitudes of each output's terms.
+    K4's tiles design takes the centre tap, present for every real row, as
+    a split-K GEMM on the tensor cores (TF32 with a 3-pass split, fp32
+    accuracy): each block owns a range of rows and the whole (Cin + 1,
+    Cout) tile, so feats and g are read once, and db is row Cin of the
+    product (a column of ones where the mask is on). Clusters of 8 blocks
+    sum their tiles through distributed shared memory in rank order; a
+    second grid, programmatically dependent, sums the clusters' partials in
+    order and multiplies the other taps' row pairs, which the first grid
+    listed from one coalesced read of the plan. Its taps design (27 taps,
+    Cin and Cout ≤ 16: ``row_design``) gives each block row chunks whose
+    plan and g it stages once, and each thread a (tap, channel) pair and a
+    row lane, summed in FFMA; each block writes one partial, and a second
+    grid, programmatically dependent, sums them in block order. There are
+    no float atomics in either, so two runs give the same bits; the sums
+    run in another order than the plain version's, so the two differ by a
+    few ulp of the sum of the magnitudes of each output's terms.
     """
     _check_wgrad(feats, plan, g, mask)
     d_kernel, d_bias = subm_conv_rows_wgrad_op(feats, plan, g, mask, with_bias)
