@@ -1,0 +1,8 @@
+"""device_idle_pct.train: the share of the traced window in which no kernel,
+memcpy or memset ran on the card, in %, from the ``torch.profiler``
+trace (``trace.py``). It moves ``train_events_per_s``."""
+from portbench.metrics._read import idle_pct
+
+
+def read(r):
+    return idle_pct(r, "train")
