@@ -566,6 +566,7 @@ def test_concurrent_fetches_lose_no_update(setup, monkeypatch):
 
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.inference import model as model_module
+    from waveformml_tpu_torch.utils import tracing
 
     cfg_path, _, port_ckpt = setup["models"]["irn"]
     server = model_module.InferenceModel(load_config(cfg_path), port_ckpt, device="cpu")
@@ -578,7 +579,8 @@ def test_concurrent_fetches_lose_no_update(setup, monkeypatch):
         local.t = getattr(local, "t", 0.0) + 1.0
         return local.t
 
-    monkeypatch.setattr(model_module, "time", types.SimpleNamespace(perf_counter=clock))
+    # fetch times itself with a span of the tracer, which reads this clock
+    monkeypatch.setattr(tracing, "time", types.SimpleNamespace(perf_counter=clock))
     server.dispatch_phases["fetch_s"] = 0.0
     n_threads, rounds = min(32, 2 * (os.cpu_count() or 1) + 1), 10
     interval = sys.getswitchinterval()

@@ -19,7 +19,6 @@ after it runs in float32.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -35,6 +34,7 @@ from waveformml_tpu_torch.ops.site_head import MIN_CAP, host_site_layout
 from waveformml_tpu_torch.ops.sparse import (SparseBatch, bucket_size, occupancy_mask,
                                              pad_sparse, scatter_to_dense)
 from waveformml_tpu_torch.registry import retrieve_class
+from waveformml_tpu_torch.utils import tracing
 
 #: a packed batch's layout: (key, shape, numpy dtype string, byte offset,
 #: bytes) per leaf, sorted by key
@@ -220,35 +220,35 @@ class TaskBase:
         ``edges_w<d>`` with their ``edge_mask_*``. Where the block carries
         them already (a ``GraphDataset`` cache), its live edges are
         re-padded to this batch's bucket. Adds the build's host-clock
-        seconds to ``edge_build_s``."""
+        seconds (span ``task.edge_build``) to ``edge_build_s``."""
         if not self.is_graph:
             return
-        t0 = time.perf_counter()
-        coords = block.coords
-        n = coords.shape[0]
-        pos = coords[:, :2].astype(np.float64)
-        batch_col = coords[:, -1].astype(np.int64)
-        extras = block.extras or {}
-        seen = set()
-        for req in self.model.edge_requirements():
-            key = f"knn{req[1]}" if req[0] == "knn" else f"w{req[1]}"
-            if key in seen:
-                continue
-            seen.add(key)
-            cached = extras.get(f"edges_{key}")
-            cached_mask = extras.get(f"edge_mask_{key}")
-            if cached is not None and cached_mask is not None:
-                edges = np.asarray(cached)[:, np.asarray(cached_mask, dtype=bool)]
-            elif n == 0:
-                edges = np.zeros((2, 0), np.int64)
-            elif req[0] == "knn":
-                edges = knn_graph(pos, req[1], batch_col, loop=req[2])
-            else:
-                edges = window_edges(coords[:, :2], batch_col, max_dist=req[1],
-                                     self_loops=req[2])
-            out[f"edges_{key}"], out[f"edge_mask_{key}"] = pad_edges(
-                edges, bucket_size(max(1, edges.shape[1])))
-        self.edge_build_s += time.perf_counter() - t0
+        with tracing.span("task.edge_build") as built:
+            coords = block.coords
+            n = coords.shape[0]
+            pos = coords[:, :2].astype(np.float64)
+            batch_col = coords[:, -1].astype(np.int64)
+            extras = block.extras or {}
+            seen = set()
+            for req in self.model.edge_requirements():
+                key = f"knn{req[1]}" if req[0] == "knn" else f"w{req[1]}"
+                if key in seen:
+                    continue
+                seen.add(key)
+                cached = extras.get(f"edges_{key}")
+                cached_mask = extras.get(f"edge_mask_{key}")
+                if cached is not None and cached_mask is not None:
+                    edges = np.asarray(cached)[:, np.asarray(cached_mask, dtype=bool)]
+                elif n == 0:
+                    edges = np.zeros((2, 0), np.int64)
+                elif req[0] == "knn":
+                    edges = knn_graph(pos, req[1], batch_col, loop=req[2])
+                else:
+                    edges = window_edges(coords[:, :2], batch_col, max_dist=req[1],
+                                         self_loops=req[2])
+                out[f"edges_{key}"], out[f"edge_mask_{key}"] = pad_edges(
+                    edges, bucket_size(max(1, edges.shape[1])))
+        self.edge_build_s += built.seconds
 
     def add_row_plans(self, out: Dict[str, np.ndarray], n_events: int) -> None:
         """Host-build the plans the model requires (they depend on coords

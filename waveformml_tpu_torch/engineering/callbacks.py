@@ -10,10 +10,11 @@ renders the task's evaluator at the end of the test pass.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+from waveformml_tpu_torch.utils import tracing
 
 
 class EarlyStopping:
@@ -61,7 +62,7 @@ class LoggingCallback:
     figure and the evaluator's ``dump()`` (given the trainer's logger where
     it has none). Nothing is logged without a logger; a failed confusion
     figure is a warning. ``dump_seconds`` is the wall of the last
-    ``dump()``."""
+    ``dump()`` (span ``callbacks.dump``)."""
 
     def __init__(self, class_names=None):
         self.log = logging.getLogger(__name__)
@@ -89,9 +90,9 @@ class LoggingCallback:
         if evaluator is not None:
             if getattr(evaluator, "logger", None) is None and trainer.logger:
                 evaluator.logger = trainer.logger
-            t0 = time.perf_counter()
-            evaluator.dump()
-            self.dump_seconds = time.perf_counter() - t0
+            with tracing.span("callbacks.dump") as dump:
+                evaluator.dump()
+            self.dump_seconds = dump.seconds
 
     def _log_confusion(self, logger, confusion: np.ndarray, tag: str, step: int) -> None:
         try:

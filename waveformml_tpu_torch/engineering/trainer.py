@@ -15,7 +15,18 @@ gives them. ``device=None`` means the card.
 Each step's host-clock phases and, on the card, the device time of its
 forward, backward and optimizer step (CUDA events, read once per epoch so
 that no step waits for the device) are kept in ``step_phases``, and each
-test batch's in ``test_phases``. ``test`` builds the task's evaluator and
+test batch's in ``test_phases``. Every phase is a ``utils.tracing`` span
+(``trainer.fit_start``, ``trainer.epoch``, ``trainer.host_prep``,
+``trainer.h2d``, ``trainer.step`` with ``trainer.forward``,
+``trainer.backward`` and ``trainer.optimizer``, ``trainer.loss_read``,
+``trainer.epoch_end``; in a validation or test pass ``trainer.val`` or
+``trainer.test``, ``trainer.copy_back`` and ``trainer.collect``), whose
+request id is the step's ``global_step``. While tracing is active (a
+``torch.profiler`` session records) the spans sit in the profiler's trace
+and the tracer's store, and on the card each training step adds the device
+spans ``trainer.h2d``, ``trainer.forward``, ``trainer.backward`` and
+``trainer.optimizer``, bounded by events before the copy in, around the
+step and after its forward and its backward. ``test`` builds the task's evaluator and
 feeds it every test batch; the default callback (``LoggingCallback``)
 renders it at the end of the pass. ``profiler=True`` times the JAX
 ``Trainer``'s named sections (``utils.profiler.SimpleProfiler``, the
@@ -71,7 +82,6 @@ import logging
 import math
 import os
 import socket
-import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
@@ -90,6 +100,7 @@ from waveformml_tpu_torch.optim import (MultiSteps, build_optimizer, build_sched
 from waveformml_tpu_torch.parallel.gspmd import (TensorParallel, block_of, gather_blocks,
                                                  make_mesh_2d)
 from waveformml_tpu_torch.parallel.mesh import pad_to, shard_loader_round_robin
+from waveformml_tpu_torch.utils import tracing
 from waveformml_tpu_torch.utils.profiler import SimpleProfiler
 
 log = logging.getLogger(__name__)
@@ -245,6 +256,9 @@ class Trainer:
         self._epoch_wall: List[float] = []
         self._epoch_rows: List[float] = []
         self.simple_profiler = SimpleProfiler() if profiler else None
+        #: the device marks after the last training step's forward and
+        #: backward (``utils.tracing``: None unless tracing on the card)
+        self._step_marks: Tuple = (None, None)
 
     @staticmethod
     def check_engine(parallel: str, tp: int, world: Optional[int] = None) -> None:
@@ -298,11 +312,19 @@ class Trainer:
         and copy it to the device; returns the device batch, the host batch
         it was copied from, and the seconds of the two phases (host prep,
         copy in) on the host clock."""
-        t0 = time.perf_counter()
-        db_host = self._loop_batch(block)
-        t1 = time.perf_counter()
-        db = self.task.to_device(db_host)
-        return db, db_host, t1 - t0, time.perf_counter() - t1
+        db, db_host, prep, h2d, _ = self._device_batch(block)
+        return db, db_host, prep.seconds, h2d.seconds
+
+    def _device_batch(self, block: FileBlock, id=None):
+        """``device_batch``'s batches, its two spans (``trainer.host_prep``,
+        ``trainer.h2d``, request id ``id``) and the device mark before the
+        copy in (``tracing.device_event``)."""
+        with tracing.span("trainer.host_prep", id=id) as prep:
+            db_host = self._loop_batch(block)
+        mark = tracing.device_event(self.device)
+        with tracing.span("trainer.h2d", id=id) as h2d:
+            db = self.task.to_device(db_host)
+        return db, db_host, prep, h2d, mark
 
     def _loop_batch(self, block: FileBlock) -> Dict[str, np.ndarray]:
         """A loop's host batch: ``prepare_block`` at the block's buckets, or
@@ -373,15 +395,33 @@ class Trainer:
         metrics are summed over the group, the BatchNorm running statistics
         averaged, before accumulation, clipping and the optimizer: every rank
         steps with the whole batch's gradient (of its blocks, under tp), as
-        the JAX step's ``psum``."""
-        with synced_bn(self.data_group):
-            outputs = self.task.model_outputs(db, train=True)
-        loss_sum, weight, metrics = self.task.loss_and_metrics(outputs, db)
-        if self.group is not None:
-            weight = self._sum_over_ranks([weight])[0]
-        loss = loss_sum / weight.clamp(min=1e-12)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        the JAX step's ``psum``.
+
+        The step is span ``trainer.step`` (request id: ``global_step``)
+        over ``trainer.forward``, ``trainer.backward`` and
+        ``trainer.optimizer``; the device marks after the forward and the
+        backward are kept in ``_step_marks``."""
+        with tracing.span("trainer.step", id=self.global_step):
+            with tracing.span("trainer.forward"):
+                with synced_bn(self.data_group):
+                    outputs = self.task.model_outputs(db, train=True)
+                loss_sum, weight, metrics = self.task.loss_and_metrics(outputs, db)
+                if self.group is not None:
+                    weight = self._sum_over_ranks([weight])[0]
+                loss = loss_sum / weight.clamp(min=1e-12)
+            forward_done = tracing.device_event(self.device)
+            with tracing.span("trainer.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            self._step_marks = (forward_done, tracing.device_event(self.device))
+            with tracing.span("trainer.optimizer"):
+                loss, metrics = self._optimizer_step(loss, metrics)
+        self.global_step += 1
+        return loss, metrics
+
+    def _optimizer_step(self, loss: torch.Tensor, metrics: Dict[str, torch.Tensor]):
+        """``training_step``'s part after the backward: the sums over the
+        data group, accumulation, clipping and the optimizer's step."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
         if self.group is not None:
@@ -402,7 +442,6 @@ class Trainer:
             for p, g in zip(self.params, grads):
                 p.grad = g
             self.optimizer.step()
-        self.global_step += 1
         return loss, metrics
 
     # -- loops ------------------------------------------------------------------------
@@ -417,30 +456,31 @@ class Trainer:
         return min(len(loader), int(limit))
 
     def fit(self, data_module) -> Dict[str, float]:
-        data_module.setup("fit")
-        train_loader = self._shard(data_module.train_dataloader())
-        data_module.setup("test")
-        val_loader = self._shard(data_module.val_dataloader())
-        if self.overfit_batches:
-            self.limit_train_batches = self.overfit_batches
-            self.limit_val_batches = self.overfit_batches
-        # the JAX Trainer draws the training loader's first batch to build
-        # its state: a shuffling loader's first order is drawn here too, so
-        # that both train on the same batches in the same order
-        for _ in _take(train_loader, 1):
-            pass
-        # the profile goes where the run logs, with or without a TensorBoard
-        # logger (tensorboardX may not be installed)
-        log_dir = getattr(self.logger, "log_dir", None) or self.checkpoint_dir
-        trace = None
-        if self.simple_profiler and log_dir:
-            from torch.profiler import ProfilerActivity, profile
+        with tracing.span("trainer.fit_start"):
+            data_module.setup("fit")
+            train_loader = self._shard(data_module.train_dataloader())
+            data_module.setup("test")
+            val_loader = self._shard(data_module.val_dataloader())
+            if self.overfit_batches:
+                self.limit_train_batches = self.overfit_batches
+                self.limit_val_batches = self.overfit_batches
+            # the JAX Trainer draws the training loader's first batch to build
+            # its state: a shuffling loader's first order is drawn here too, so
+            # that both train on the same batches in the same order
+            for _ in _take(train_loader, 1):
+                pass
+            # the profile goes where the run logs, with or without a
+            # TensorBoard logger (tensorboardX may not be installed)
+            log_dir = getattr(self.logger, "log_dir", None) or self.checkpoint_dir
+            trace = None
+            if self.simple_profiler and log_dir:
+                from torch.profiler import ProfilerActivity, profile
 
-            activities = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            trace = profile(activities=activities)
-            trace.start()
+                activities = [ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                trace = profile(activities=activities)
+                trace.start()
         try:
             metrics = self._fit_epochs(train_loader, val_loader)
         finally:
@@ -469,39 +509,49 @@ class Trainer:
         pruning hook, early stopping and the scheduler's step."""
         metrics: Dict[str, float] = {}
         while self.current_epoch < self.max_epochs:
-            t0 = time.perf_counter()
             epoch_metrics = self._train_epoch(train_loader)
             metrics.update(epoch_metrics)
-            val_ran = (self.current_epoch + 1) % self.validation_freq == 0
-            if val_ran:
-                val_metrics = self._eval_epoch(val_loader, "val", self.limit_val_batches)
-                metrics.update(val_metrics)
-                epoch_metrics.update(val_metrics)
-                self._maybe_checkpoint(val_metrics)
-                for cb in self.callbacks:
-                    if hasattr(cb, "on_validation_end"):
-                        cb.on_validation_end(self, val_metrics, self.current_epoch)
-                if self.trial_prune_check(val_metrics):
-                    break
-                if self.early_stopping.update(val_metrics):
-                    log.info("early stopping at epoch %d", self.current_epoch)
-                    break
-            if self.scheduler is not None:
-                # a plateau scheduler sees only a fresh validation loss
-                new_lr = self.scheduler.step(metrics.get("val_loss") if val_ran else None)
-                set_learning_rate(self.optimizer, new_lr)
-                if self.logger:
-                    self.logger.log_scalar("lr", new_lr, self.current_epoch)
-            if self.logger:
-                # this epoch's own measurements only
-                self.logger.log_scalars(epoch_metrics, self.current_epoch)
+            with tracing.span("trainer.epoch_end") as end:
+                stop = self._end_epoch(val_loader, epoch_metrics, metrics)
+            if stop:
+                break
             log.info("epoch %d done in %.1fs: %s", self.current_epoch,
-                     time.perf_counter() - t0, metrics)
+                     self._epoch_wall[-1] + end.seconds, metrics)
             self.current_epoch += 1
             if self.terminate_on_nan and not math.isfinite(metrics.get("train_loss", 0.0)):
                 log.error("non-finite loss: terminating")
                 break
         return metrics
+
+    def _end_epoch(self, val_loader, epoch_metrics: Dict[str, float],
+                   metrics: Dict[str, float]) -> bool:
+        """An epoch's end: validation, the checkpoint, the callbacks, the
+        pruning hook and early stopping (True: ``fit`` stops here), the
+        scheduler's step and the logger."""
+        val_ran = (self.current_epoch + 1) % self.validation_freq == 0
+        if val_ran:
+            val_metrics = self._eval_epoch(val_loader, "val", self.limit_val_batches)
+            metrics.update(val_metrics)
+            epoch_metrics.update(val_metrics)
+            self._maybe_checkpoint(val_metrics)
+            for cb in self.callbacks:
+                if hasattr(cb, "on_validation_end"):
+                    cb.on_validation_end(self, val_metrics, self.current_epoch)
+            if self.trial_prune_check(val_metrics):
+                return True
+            if self.early_stopping.update(val_metrics):
+                log.info("early stopping at epoch %d", self.current_epoch)
+                return True
+        if self.scheduler is not None:
+            # a plateau scheduler sees only a fresh validation loss
+            new_lr = self.scheduler.step(metrics.get("val_loss") if val_ran else None)
+            set_learning_rate(self.optimizer, new_lr)
+            if self.logger:
+                self.logger.log_scalar("lr", new_lr, self.current_epoch)
+        if self.logger:
+            # this epoch's own measurements only
+            self.logger.log_scalars(epoch_metrics, self.current_epoch)
+        return False
 
     def trial_prune_check(self, val_metrics: Dict[str, float]) -> bool:
         """The HPO pruning hook: report this epoch's ``val_loss`` to the
@@ -521,40 +571,47 @@ class Trainer:
         losses: List[torch.Tensor] = []
         agg: Dict[str, torch.Tensor] = {}
         phases: List[Dict[str, Any]] = []
-        t_epoch = time.perf_counter()
         rows = 0
         prof = self.simple_profiler
-        for block in _take(loader, self._limit(loader, self.limit_train_batches), prof):
-            start = time.perf_counter()
-            db, _, host_prep_s, h2d_s = self.device_batch(block)
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True)) if cuda else None
-            if prof:
-                prof.start("run_training_step")
-            if events:
-                events[0].record()
-            loss, metrics = self.training_step(db)
-            if events:
-                events[1].record()
-            if prof:
-                # the section times the step's device work
-                if cuda:
-                    torch.cuda.synchronize(self.device)
-                prof.stop("run_training_step")
-            losses.append(loss)
-            _accumulate(agg, metrics)
-            rows += int(block.coords.shape[0])
-            phases.append({"start": start, "host_prep_s": host_prep_s, "h2d_s": h2d_s,
-                           "events": self.task.n_events(block), "cuda_events": events})
-        # one wait per epoch: the losses and events are read after it
-        step_losses = [float(x) for x in losses]
-        end = time.perf_counter()
-        self._epoch_wall.append(end - t_epoch)
+        with tracing.span("trainer.epoch") as epoch:
+            for block in _take(loader, self._limit(loader, self.limit_train_batches), prof):
+                step = self.global_step
+                db, _, prep, h2d, before_h2d = self._device_batch(block, step)
+                if prof:
+                    prof.start("run_training_step")
+                start = tracing.timing_event(self.device)
+                loss, metrics = self.training_step(db)
+                end = tracing.timing_event(self.device)
+                forward_done, backward_done = self._step_marks
+                tracing.device_span("trainer.h2d", before_h2d, start, step)
+                tracing.device_span("trainer.forward", start, forward_done, step)
+                tracing.device_span("trainer.backward", forward_done, backward_done, step)
+                tracing.device_span("trainer.optimizer", backward_done, end, step)
+                if prof:
+                    # the section times the step's device work
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                    prof.stop("run_training_step")
+                losses.append(loss)
+                _accumulate(agg, metrics)
+                rows += int(block.coords.shape[0])
+                phases.append({"start": prep.start, "host_prep_s": prep.seconds,
+                               "h2d_s": h2d.seconds, "events": self.task.n_events(block),
+                               "cuda_events": (start, end) if cuda else None})
+                if len(phases) == 1:
+                    # the device spans up to the last epoch's wait, read while
+                    # this first step runs and not while the card idles
+                    tracing.resolve()
+            # one wait per epoch: the losses and events are read after it
+            with tracing.span("trainer.loss_read"):
+                step_losses = [float(x) for x in losses]
+        self._epoch_wall.append(epoch.seconds)
         self._epoch_rows.append(rows)
         for i, p in enumerate(phases):
             ev = p.pop("cuda_events")
-            p["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-            p["wall_s"] = (phases[i + 1]["start"] if i + 1 < len(phases) else end) - p.pop("start")
+            p["device_ms"] = ev[0].event.elapsed_time(ev[1].event) if ev else None
+            p["wall_s"] = (phases[i + 1]["start"] if i + 1 < len(phases)
+                           else epoch.end) - p.pop("start")
         self.step_losses += step_losses
         self.step_phases += phases
         out = {"train_loss": float(np.mean(step_losses)) if step_losses else 0.0}
@@ -577,46 +634,43 @@ class Trainer:
         loss_sum, weight = 0.0, 0.0
         agg: Dict[str, torch.Tensor] = {}
         phases: List[Dict[str, Any]] = []
-        for block in _take(loader, self._limit(loader, limit)):
-            start = time.perf_counter()
-            db, db_host, host_prep_s, h2d_s = self.device_batch(block)
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True)) if cuda else None
-            if self.simple_profiler:
-                self.simple_profiler.start("evaluation_step")
-            if events:
-                events[0].record()
-            outputs = self.task.model_outputs(db, train=False)
-            if events:
-                events[1].record()
-            ls, w, metrics = self.task.loss_and_metrics(outputs, db)
-            if self.group is not None:
-                keys = list(metrics)
-                ls, w, *values = self._sum_over_ranks([ls, w] + [metrics[k] for k in keys])
-                metrics = dict(zip(keys, values))
-            loss_sum += float(ls)
-            weight += float(w)
-            if self.simple_profiler:
-                self.simple_profiler.stop("evaluation_step")
-            _accumulate(agg, metrics)
-            copy_back_s = collect_s = 0.0
-            if collect is not None and self.model_index == 0:
-                n = (block.coords.shape[0] if self.task.output_unit == "row"
-                     else self.task.n_events(block))
-                t0 = time.perf_counter()
-                test_out = {k: v[:n].cpu().numpy()
-                            for k, v in self.task.test_outputs(outputs, db).items()}
-                t1 = time.perf_counter()
-                collect(block, db_host, test_out)
-                copy_back_s, collect_s = t1 - t0, time.perf_counter() - t1
-            phases.append({"start": start, "host_prep_s": host_prep_s, "h2d_s": h2d_s,
-                           "cuda_events": events, "copy_back_s": copy_back_s,
-                           "collect_s": collect_s, "events": self.task.n_events(block)})
-        end = time.perf_counter()
+        with tracing.span(f"trainer.{prefix}") as pass_:
+            for block in _take(loader, self._limit(loader, limit)):
+                db, db_host, prep, h2d, _ = self._device_batch(block)
+                if self.simple_profiler:
+                    self.simple_profiler.start("evaluation_step")
+                start = tracing.timing_event(self.device)
+                outputs = self.task.model_outputs(db, train=False)
+                end = tracing.timing_event(self.device)
+                ls, w, metrics = self.task.loss_and_metrics(outputs, db)
+                if self.group is not None:
+                    keys = list(metrics)
+                    ls, w, *values = self._sum_over_ranks([ls, w] + [metrics[k] for k in keys])
+                    metrics = dict(zip(keys, values))
+                loss_sum += float(ls)
+                weight += float(w)
+                if self.simple_profiler:
+                    self.simple_profiler.stop("evaluation_step")
+                _accumulate(agg, metrics)
+                copy_back_s = collect_s = 0.0
+                if collect is not None and self.model_index == 0:
+                    n = (block.coords.shape[0] if self.task.output_unit == "row"
+                         else self.task.n_events(block))
+                    with tracing.span("trainer.copy_back") as copy_back:
+                        test_out = {k: v[:n].cpu().numpy()
+                                    for k, v in self.task.test_outputs(outputs, db).items()}
+                    with tracing.span("trainer.collect") as collected:
+                        collect(block, db_host, test_out)
+                    copy_back_s, collect_s = copy_back.seconds, collected.seconds
+                phases.append({"start": prep.start, "host_prep_s": prep.seconds,
+                               "h2d_s": h2d.seconds, "cuda_events": (start, end) if cuda else None,
+                               "copy_back_s": copy_back_s, "collect_s": collect_s,
+                               "events": self.task.n_events(block)})
         for i, p in enumerate(phases):
             ev = p.pop("cuda_events")
-            p["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-            p["wall_s"] = (phases[i + 1]["start"] if i + 1 < len(phases) else end) - p.pop("start")
+            p["device_ms"] = ev[0].event.elapsed_time(ev[1].event) if ev else None
+            p["wall_s"] = (phases[i + 1]["start"] if i + 1 < len(phases)
+                           else pass_.end) - p.pop("start")
         if prefix == "test":
             self.test_phases = phases
         arrays = {k: v.cpu().numpy() for k, v in agg.items() if v.dim() >= 2}

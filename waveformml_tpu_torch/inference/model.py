@@ -13,6 +13,15 @@ outputs into pinned host memory, with nothing waiting for the card until
 ``fetch``. On the CPU the forward runs eagerly. ``dispatch_phases`` sums
 the host-clock seconds of each phase over calls.
 
+Each phase is a ``utils.tracing`` span whose request id is the chunk's
+number (``Handle.chunk``): ``serve.dispatch`` over ``serve.host_prep``,
+``serve.capture`` (a new layout), ``serve.h2d`` and ``serve.launch``, then
+``serve.fetch`` over ``serve.fetch_wait``. While tracing is active on the
+card, a chunk adds the device spans ``serve.h2d`` (its copy in) and
+``serve.device`` (from before its copy in to its outputs' arrival in
+pinned memory; its begin event's enqueue time gives the wait on the
+stream), and each capture adds 1 to the counter ``serve.captures``.
+
 ``dispatch`` belongs to one thread; ``fetch`` may run on several at once
 (the prediction writers' fetch workers). A new layout is captured while
 those threads wait on earlier chunks' events, so the capture is
@@ -22,10 +31,10 @@ thread.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import threading
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
@@ -38,6 +47,7 @@ from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgr
 from waveformml_tpu_torch.ops.site_head import site_grouped_matmul, site_grouped_matmul_bwd
 from waveformml_tpu_torch.ops.waveform_features import waveform_features
 from waveformml_tpu_torch.registry import retrieve_class
+from waveformml_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -48,7 +58,8 @@ KERNELS = (subm_conv_rows, site_grouped_matmul, waveform_features, subm_conv_row
 
 class Handle(NamedTuple):
     """A dispatched chunk: its outputs (on the host, or being copied there
-    until ``ready`` has passed), its real rows and events and its buckets."""
+    until ``ready`` has passed), its real rows and events, its buckets and
+    its number among the model's dispatches."""
 
     out: torch.Tensor
     ready: Optional[torch.cuda.Event]
@@ -56,6 +67,7 @@ class Handle(NamedTuple):
     n_events: int
     row_bucket: int
     event_bucket: int
+    chunk: int = -1
 
 
 class _Graph:
@@ -135,6 +147,7 @@ class InferenceModel:
         self.capture_s = 0.0
         # guards the counters that concurrent fetches update
         self._fetch_lock = threading.Lock()
+        self._chunks = itertools.count()
 
     # -- the forward --------------------------------------------------------------------
     def _forward(self, db: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -183,66 +196,77 @@ class InferenceModel:
         ids, each row its own event; vals [N, F]) without waiting for the
         device; returns a handle for ``fetch``. Its outputs are its own:
         later dispatches do not overwrite them."""
-        n = coords.shape[0]
-        if coords.ndim == 1:
-            n_events = n
-        else:
-            n_events = int(coords[:, -1].max()) + 1 if n else 0
-        vals = np.asarray(vals)
-        keep = (np.float32, np.float16) if self.task.half_precision else (np.float32,)
-        if self.preprocess is None and vals.dtype not in keep:
-            vals = vals.astype(np.float32)
-        t0 = time.perf_counter()
-        # tasks that pad labels alongside the rows take a dummy label a row
-        labels = (np.zeros((max(1, n),), np.float32) if self.task.labels_per_row
-                  else np.zeros((max(1, n_events),), np.int64))
-        block = FileBlock(coords=np.asarray(coords, dtype=np.int32), feats=vals,
-                          labels=labels)
-        rb, eb = self.task.row_bucket(block), self.task.event_bucket(block)
-        edge_s = self.task.edge_build_s
-        db = self.task.prepare_block(block, rb, eb)
-        if self.task.is_graph:
-            self.dispatch_phases["edge_build_s"] += self.task.edge_build_s - edge_s
-        if self.device.type == "cpu":
-            t1 = time.perf_counter()
-            dev = self.task.to_device(db)
-            t2 = time.perf_counter()
-            out, ready = self._forward(dev), None
-        else:
-            packed, spec = pack_db(db, pin_memory=True)
-            g = self.graphs.get(spec)
-            if g is None:
-                tc = time.perf_counter()
-                g = self.graphs[spec] = self._capture(packed, spec)
-                self.capture_s += time.perf_counter() - tc
-                t0 += time.perf_counter() - tc
-            t1 = time.perf_counter()
-            g.static_in.copy_(packed, non_blocking=True)
-            t2 = time.perf_counter()
-            g.graph.replay()
-            g.replays += 1
-            out = torch.empty(g.static_out.shape, dtype=g.static_out.dtype, pin_memory=True)
-            out.copy_(g.static_out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        t3 = time.perf_counter()
-        self.dispatch_phases["host_prep_s"] += t1 - t0
-        self.dispatch_phases["h2d_s"] += t2 - t1
-        self.dispatch_phases["launch_s"] += t3 - t2
-        return Handle(out, ready, n, n_events, rb, eb)
+        chunk = next(self._chunks)
+        with tracing.span("serve.dispatch", id=chunk):
+            n = coords.shape[0]
+            if coords.ndim == 1:
+                n_events = n
+            else:
+                n_events = int(coords[:, -1].max()) + 1 if n else 0
+            vals = np.asarray(vals)
+            keep = (np.float32, np.float16) if self.task.half_precision else (np.float32,)
+            if self.preprocess is None and vals.dtype not in keep:
+                vals = vals.astype(np.float32)
+            with tracing.span("serve.host_prep") as prep:
+                # tasks that pad labels alongside the rows take a dummy label a row
+                labels = (np.zeros((max(1, n),), np.float32) if self.task.labels_per_row
+                          else np.zeros((max(1, n_events),), np.int64))
+                block = FileBlock(coords=np.asarray(coords, dtype=np.int32), feats=vals,
+                                  labels=labels)
+                rb, eb = self.task.row_bucket(block), self.task.event_bucket(block)
+                edge_s = self.task.edge_build_s
+                db = self.task.prepare_block(block, rb, eb)
+                if self.device.type != "cpu":
+                    packed, spec = pack_db(db, pin_memory=True)
+            if self.task.is_graph:
+                self.dispatch_phases["edge_build_s"] += self.task.edge_build_s - edge_s
+            if self.device.type == "cpu":
+                with tracing.span("serve.h2d") as h2d:
+                    dev = self.task.to_device(db)
+                with tracing.span("serve.launch") as launch:
+                    out, ready = self._forward(dev), None
+            else:
+                g = self.graphs.get(spec)
+                if g is None:
+                    with tracing.span("serve.capture") as capture:
+                        g = self.graphs[spec] = self._capture(packed, spec)
+                    self.capture_s += capture.seconds
+                    tracing.count("serve.captures")
+                before = tracing.device_event(self.device)
+                with tracing.span("serve.h2d") as h2d:
+                    g.static_in.copy_(packed, non_blocking=True)
+                copied = tracing.device_event(self.device)
+                with tracing.span("serve.launch") as launch:
+                    g.graph.replay()
+                    g.replays += 1
+                    out = torch.empty(g.static_out.shape, dtype=g.static_out.dtype,
+                                      pin_memory=True)
+                    out.copy_(g.static_out, non_blocking=True)
+                    done = tracing.device_event(self.device)
+                    if done is not None:
+                        ready = done.event
+                    else:
+                        ready = torch.cuda.Event()
+                        ready.record()
+                tracing.device_span("serve.h2d", before, copied)
+                tracing.device_span("serve.device", before, done)
+        self.dispatch_phases["host_prep_s"] += prep.seconds
+        self.dispatch_phases["h2d_s"] += h2d.seconds
+        self.dispatch_phases["launch_s"] += launch.seconds
+        return Handle(out, ready, n, n_events, rb, eb, chunk)
 
     def fetch(self, handle: Handle) -> np.ndarray:
         """Wait for a dispatched chunk and return its outputs without the
         padding: the real events of per-event outputs, the real rows of
         per-row ones (``output_unit``)."""
-        t0 = time.perf_counter()
-        if handle.ready is not None:
-            handle.ready.synchronize()
-        out = handle.out.numpy()
-        result = self._unpad(out, handle)
-        dt = time.perf_counter() - t0
+        with tracing.span("serve.fetch", id=handle.chunk) as fetch:
+            if handle.ready is not None:
+                with tracing.span("serve.fetch_wait"):
+                    handle.ready.synchronize()
+            out = handle.out.numpy()
+            result = self._unpad(out, handle)
         with self._fetch_lock:
-            self.dispatch_phases["fetch_s"] += dt
+            self.dispatch_phases["fetch_s"] += fetch.seconds
         return result
 
     def _unpad(self, out: np.ndarray, h: Handle) -> np.ndarray:

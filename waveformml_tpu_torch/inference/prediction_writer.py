@@ -26,7 +26,6 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -47,6 +46,7 @@ from waveformml_tpu_torch.io.xml import XMLWriter
 from waveformml_tpu_torch.ops.calibration import convert_wf_phys_SE_classifier
 from waveformml_tpu_torch.ops.sparse import (consecutive_event_index, normalize_waveforms,
                                              swap_sparse_from_dense, swap_sparse_from_event)
+from waveformml_tpu_torch.utils import tracing
 from waveformml_tpu_torch.utils.util import get_file_md5, prefetch_iter
 
 _CALGROUP_NEEDED = ("Must pass calgroup argument in order to normalize "
@@ -105,7 +105,8 @@ class PredictionWriter(P2XTableWriter):
         most ``pipeline_depth`` futures; (D) the writer thread appends and
         flushes. Queues are bounded; an error in any stage drains the
         others and is raised here, with both files closed.
-        ``stage_seconds`` holds each stage's host-clock seconds."""
+        ``stage_seconds`` holds each stage's host-clock seconds, each a
+        ``utils.tracing`` span (``writer.<stage>``)."""
         if "Chanmap" in self.input.h5f:
             self.copy_chanmap(self.input)
         self.input.setup_table(self.input_type.name, self.input_type.type,
@@ -138,29 +139,27 @@ class PredictionWriter(P2XTableWriter):
                     return
                 if draining:
                     continue
-                t0 = time.perf_counter()
-                try:
-                    self.add_rows(self.data_type.name, rows)
-                    n_current_buffer += rows.shape[0]
-                    if n_current_buffer >= self.n_buffer_rows:
-                        n_current_buffer = 0
-                        self.flush(self.data_type.name)
-                except BaseException as e:  # raised again by the producer
-                    errors.append(e)
-                    draining = True  # keep consuming so that no producer blocks
-                finally:
-                    self.stage_seconds["writer_busy_s"] += time.perf_counter() - t0
+                with tracing.span("writer.write") as busy:
+                    try:
+                        self.add_rows(self.data_type.name, rows)
+                        n_current_buffer += rows.shape[0]
+                        if n_current_buffer >= self.n_buffer_rows:
+                            n_current_buffer = 0
+                            self.flush(self.data_type.name)
+                    except BaseException as e:  # raised again by the producer
+                        errors.append(e)
+                        draining = True  # keep consuming so that no producer blocks
+                self.stage_seconds["writer_busy_s"] += busy.seconds
 
         fetch_stat_lock = threading.Lock()
 
         def fetch_one(data, handle):
             # fetch_post_s sums the workers' busy time: the workers overlap,
             # so it can exceed the wall
-            t0 = time.perf_counter()
-            rows = self.apply_outputs(data, handle)
-            dt = time.perf_counter() - t0
+            with tracing.span("writer.fetch_post") as post:
+                rows = self.apply_outputs(data, handle)
             with fetch_stat_lock:
-                self.stage_seconds["fetch_post_s"] += dt
+                self.stage_seconds["fetch_post_s"] += post.seconds
             return rows
 
         def fetch_loop():
@@ -183,16 +182,16 @@ class PredictionWriter(P2XTableWriter):
         def _write(rows):
             if errors:
                 raise errors[0]
-            t0 = time.perf_counter()
-            wq.put(rows)
-            self.stage_seconds["write_wait_s"] += time.perf_counter() - t0
+            with tracing.span("writer.write_wait") as wait:
+                wq.put(rows)
+            self.stage_seconds["write_wait_s"] += wait.seconds
 
         def _enqueue_fetch(data, handle):
             if errors:
                 raise errors[0]
-            t0 = time.perf_counter()
-            fq.put(fetch_pool.submit(fetch_one, data, handle))
-            self.stage_seconds["fetch_wait_s"] += time.perf_counter() - t0
+            with tracing.span("writer.fetch_wait") as wait:
+                fq.put(fetch_pool.submit(fetch_one, data, handle))
+            self.stage_seconds["fetch_wait_s"] += wait.seconds
 
         def _drain_threads():
             fq.put(None)
@@ -217,19 +216,19 @@ class PredictionWriter(P2XTableWriter):
         writer.start()
         fetcher.start()
 
-        t_loop = time.perf_counter()
-        first_dispatch = True
+        fill = tracing.span("writer.fill").open()
         try:
             # "truncate": a chunk never exceeds n_rows_per_read, so that it
             # pads to that row bucket and not to the next one
             for data in prefetch_iter(self.input.iter_chunks(self.n_rows_per_read,
                                                              preserve_event="truncate")):
-                t0 = time.perf_counter()
-                if first_dispatch:
-                    self.stage_seconds["fill_s"] = t0 - t_loop
-                    first_dispatch = False
-                handle = self.model_dispatch(data)
-                self.stage_seconds["dispatch_s"] += time.perf_counter() - t0
+                if fill is not None:
+                    fill.close()
+                    self.stage_seconds["fill_s"] = fill.seconds
+                    fill = None
+                with tracing.span("writer.dispatch") as dispatch:
+                    handle = self.model_dispatch(data)
+                self.stage_seconds["dispatch_s"] += dispatch.seconds
                 if handle is None:  # a writer without model_dispatch
                     if self.swap:
                         self.swap_values(data)
@@ -242,21 +241,24 @@ class PredictionWriter(P2XTableWriter):
             _drain_threads()
             _close_quietly()
             raise
-        t_drain = time.perf_counter()
-        _drain_threads()
-        if errors:
-            _close_quietly()
-            raise errors[0]
-        try:
-            t_flush = time.perf_counter()
-            self.stage_seconds["drain_fetch_s"] = t_flush - t_drain
-            self.flush(self.data_type.name)
-            self.input.close()
-            self.close()
-            self.stage_seconds["drain_s"] = time.perf_counter() - t_drain
-        except BaseException:
-            _close_quietly()
-            raise
+        finally:
+            if fill is not None:
+                fill.close()
+        with tracing.span("writer.drain") as drain:
+            with tracing.span("writer.drain_fetch") as drain_fetch:
+                _drain_threads()
+            if errors:
+                _close_quietly()
+                raise errors[0]
+            self.stage_seconds["drain_fetch_s"] = drain_fetch.seconds
+            try:
+                self.flush(self.data_type.name)
+                self.input.close()
+                self.close()
+            except BaseException:
+                _close_quietly()
+                raise
+        self.stage_seconds["drain_s"] = drain.seconds
 
     # -- the model's inputs ---------------------------------------------------------
     def _coords_vals(self, data: np.ndarray):

@@ -32,11 +32,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
+
+from waveformml_tpu_torch.utils import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "waveformml_tpu_torch"
@@ -200,15 +201,15 @@ def load_host(name: str, functions: Dict[str, Tuple[str, Sequence[str]]]) -> cty
             raise KernelError(f"g++ not found: cannot build the host library {name}")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([gxx, *GXX_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelError(f"host library {name}: g++ exited {proc.returncode}\n"
-                              f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        HOST_BUILDS[name] = time.perf_counter() - t0
+        with tracing.span("native.host_build") as build:
+            proc = subprocess.run([gxx, *GXX_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelError(f"host library {name}: g++ exited {proc.returncode}\n"
+                                  f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+        HOST_BUILDS[name] = build.seconds
     lib = ctypes.CDLL(str(so))
     for fn_name, (restype, argtypes) in functions.items():
         fn = getattr(lib, fn_name)

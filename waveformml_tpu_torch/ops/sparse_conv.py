@@ -26,6 +26,13 @@ convs with XLA's own convolution (``lax.conv_general_dilated``), not a
 Pallas kernel, so the port computes them with PyTorch's (cuDNN on the
 card), in float32: ``conv`` switches TF32 off around each conv, in the
 forward and in the backward, whatever the process has set (``ieee_fp32``).
+
+While tracing is active on the card (``utils.tracing``), each conv module
+records its forward's device span, ``grid.<class>.forward``, and its
+backward's, ``grid.<class>.backward``: from the gradient reaching its
+output to the end of its conv's backward (the masking of its input, which
+autograd runs after that, falls outside). Their events and hooks change no
+number.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_norma
 from waveformml_tpu_torch.ops.sparse import (SparseBatch, occupancy_mask, occupancy_mask_3d,
                                              scatter_to_dense, scatter_to_dense_3d)
 from waveformml_tpu_torch.registry import registry
+from waveformml_tpu_torch.utils import tracing
 
 IntPair = Union[int, Sequence[int]]
 Geometry = Tuple[Tuple[int, ...], ...]     # (kernel, stride, padding, dilation)
@@ -124,6 +132,18 @@ def conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     b = bias.to(x.dtype) if bias is not None else None
     return _Conv.apply(x, w, b, list(stride), list(padding), list(dilation), transposed,
                        groups)
+
+
+def _trace(module: nn.Module, begin: Optional[tracing.Mark], out: torch.Tensor,
+           conv_out: torch.Tensor) -> None:
+    """A conv module's device spans (the module docstring), from ``begin``,
+    the mark at the start of its forward (None: tracing is not active on
+    the card); ``out`` is its output's features, ``conv_out`` its conv's."""
+    if begin is None:
+        return
+    name = "grid." + type(module).__name__
+    tracing.device_span(name + ".forward", begin, tracing.device_event(out.device))
+    tracing.backward_span(name + ".backward", out, conv_out, out.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,12 +255,14 @@ class SubMConv2d(nn.Module):
                                 generator, device)
 
     def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        begin = tracing.device_event(g.features.device)
         k, d = self.kernel_size, self.dilation
         # spconv pads a SubM conv to keep the size, whatever padding it got
         p = tuple(((ki - 1) * di) // 2 for ki, di in zip(k, d))
         one = (1,) * self.ndim
-        y = conv(g.masked(), self.conv.weight, self.conv.bias, one, p, d)
-        y = y * g.occupancy[:, None].to(y.dtype)
+        c = conv(g.masked(), self.conv.weight, self.conv.bias, one, p, d)
+        y = c * g.occupancy[:, None].to(c.dtype)
+        _trace(self, begin, y, c)
         return g.with_features(y, save_key=self.indice_key, save_geom=(k, one, p, d))
 
 
@@ -265,10 +287,12 @@ class SparseConv2d(nn.Module):
                                 generator, device)
 
     def forward(self, g: SparseGrid, generator=None) -> SparseGrid:
+        begin = tracing.device_event(g.features.device)
         k, s, p, d = self.kernel_size, self.stride, self.padding, self.dilation
-        y = conv(g.masked(), self.conv.weight, self.conv.bias, s, p, d)
+        c = conv(g.masked(), self.conv.weight, self.conv.bias, s, p, d)
         new_occ = dilate_occupancy(g.occupancy, k, s, p, d)
-        y = y * new_occ[:, None].to(y.dtype)
+        y = c * new_occ[:, None].to(c.dtype)
+        _trace(self, begin, y, c)
         keys, geoms = dict(g.indice_occ), dict(g.indice_geom)
         if self.indice_key is not None:
             keys[self.indice_key] = g.occupancy
@@ -310,6 +334,7 @@ class SparseInverseConv2d(nn.Module):
         if self.indice_key not in g.indice_occ:
             raise ValueError(f"indice_key '{self.indice_key}' not found; have "
                              f"{list(g.indice_occ)}")
+        begin = tracing.device_event(g.features.device)
         prev_occ = g.indice_occ[self.indice_key]
         k = self.kernel_size
         geom = g.indice_geom.get(self.indice_key)
@@ -320,7 +345,7 @@ class SparseInverseConv2d(nn.Module):
             if tuple(k_f) != k:
                 raise ValueError(f"kernel_size {k} != paired conv kernel {tuple(k_f)} for "
                                  f"indice_key '{self.indice_key}' (spconv requires them equal)")
-        y = conv(g.masked(), self.weight, None, s, (0,) * self.ndim, d, transposed=True)
+        c = y = conv(g.masked(), self.weight, None, s, (0,) * self.ndim, d, transposed=True)
         for axis, (pi, target) in enumerate(zip(p, prev_occ.shape[1:])):
             dim = 2 + axis
             y = y.narrow(dim, pi, max(0, min(target, y.shape[dim] - pi)))
@@ -330,6 +355,7 @@ class SparseInverseConv2d(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view((-1,) + (1,) * self.ndim)
         y = y * prev_occ[:, None].to(y.dtype)
+        _trace(self, begin, y, c)
         return SparseGrid(y, prev_occ, dict(g.indice_occ), dict(g.indice_geom))
 
 

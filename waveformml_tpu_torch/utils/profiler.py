@@ -6,7 +6,9 @@ copy of waveformml_tpu/utils/profiler.py).
 ``evaluation_step``, PyTorch Lightning's action names, so that tooling
 reading the file keeps working) and writes the table beside the
 ``torch.profiler`` trace of the fit: count, total, mean and share of the
-profiler's lifetime per action, sorted by total time.
+profiler's lifetime per action, sorted by total time. Each section is a
+``utils.tracing.span`` of the action's name, so that it also sits in the
+profiler's trace.
 """
 from __future__ import annotations
 
@@ -14,23 +16,26 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List, Tuple
 
+from waveformml_tpu_torch.utils import tracing
+
 
 class SimpleProfiler:
     """Accumulates wall-clock time per named action."""
 
     def __init__(self):
         self._records: Dict[str, List[float]] = {}
-        self._open: Dict[str, float] = {}
+        self._open: Dict[str, tracing.span] = {}
         self._t0 = time.time()
 
     def start(self, name: str) -> None:
-        self._open[name] = time.perf_counter()
+        self._open[name] = tracing.span(name).open()
 
     def stop(self, name: str) -> None:
-        t0 = self._open.pop(name, None)
-        if t0 is None:
+        span = self._open.pop(name, None)
+        if span is None:
             return
-        self._records.setdefault(name, []).append(time.perf_counter() - t0)
+        span.close()
+        self._records.setdefault(name, []).append(span.seconds)
 
     @contextmanager
     def profile(self, name: str):
