@@ -161,10 +161,13 @@ order, it:
    TCN's chunks served again from its trained weights against a CPU run
    (also within a tenth of the outputs' spread), no kernel launched;
    SCNet3D.json (``SCNet``: SubMConv3d 2→8 on the [B, 2, 14, 11, 16]
-   grid, Linear 19712→32→2) served and trained as the grid nets, its
+   grid, Linear 19712→32→2; the SubM conv over the grid's rows: the plan
+   kernel, K1 and K4) served and trained as the grid nets, its
    forward by kernel; then its sparse section in row space
-   (``DSLSpecNet(n_t=16)``, the SubM weights carried over) against the
-   grid's at every occupied site, a forward and backward against the plain
+   (``DSLSpecNet(n_t=16)``, the SubM weights carried over) and the grid
+   stack on its rows against cuDNN's grid stack at every occupied site,
+   the plan kernel against its plain version and ``host_neighbor_plan``
+   with its time, bound and library time, a forward and backward against the plain
    versions with the launches asserted, K1 (2→8, and as d_feats 8→8) and
    K4 (Cin + 1 = 3, bitwise over two runs) at 27 taps against their plain
    versions with their times, bounds and library times beside cuDNN's
@@ -239,8 +242,8 @@ order, it:
 16. prints one JSON line describing every kernel (launches: those of the
    training run, K3's of the analysis path; K1 and K4 also at
    SegQuantifier.json's and OPs3ns_SCNet.json's widths, each with its
-   training run's launches, and at 27 taps, with those of SCNet3D.json's
-   row stack's forward and backward; K1, K4, K2 and K5 at phase 8d's
+   training run's launches, and with the plan kernel at 27 taps, with
+   those of SCNet3D.json's training run; K1, K4, K2 and K5 at phase 8d's
    column blocks, with its (2, 2) rank 0's launches), the card line again,
    and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -265,6 +268,7 @@ import ast
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import importlib.util
 import io
 import json
@@ -1158,12 +1162,14 @@ def check_waveform_features(wfs_main, wfs_150, wfs_pairs, rng):
 
 def kernel_counts() -> dict:
     """Each kernel wrapper's launch count, by name."""
-    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgrad
+    from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_plan,
+                                                   subm_conv_rows_wgrad)
     from waveformml_tpu_torch.ops.site_head import site_grouped_matmul, site_grouped_matmul_bwd
     from waveformml_tpu_torch.ops.waveform_features import waveform_features
 
     return {fn.__name__: fn for fn in (subm_conv_rows, site_grouped_matmul, waveform_features,
-                                       subm_conv_rows_wgrad, site_grouped_matmul_bwd)}
+                                       subm_conv_rows_wgrad, site_grouped_matmul_bwd,
+                                       subm_conv_rows_plan)}
 
 
 def zero_counts() -> None:
@@ -1197,27 +1203,44 @@ def make_trainer(cfg, state, plain: bool, checkpoint_dir=None, max_epochs=TRAIN_
 
 def training_launches(model, steps: int, evals: int) -> dict:
     """The kernel launches of ``steps`` training micro-steps and ``evals``
-    validation batches of a model: its row convs' and site head's."""
+    validation batches of a float32 model: its row convs' and site head's,
+    the row convs including the SubM convs of a 3D grid that take its rows
+    (ops/sparse_conv.py ``SubMConv2d._takes_rows``: an odd cubic window, no
+    dilation, and no regular or inverse conv before them, whose grids
+    carry no rows), and the plans those build, one a kernel size a
+    forward."""
     from waveformml_tpu_torch.models.blocks import FoldedSiteLinear
     from waveformml_tpu_torch.models.sparse_blocks import RowSubMConv2d
     from waveformml_tpu_torch.ops.row_conv import k1_grids
+    from waveformml_tpu_torch.ops.sparse_conv import (SparseConv2d, SparseInverseConv2d,
+                                                      SubMConv3d)
 
-    convs = [m for m in model.modules() if isinstance(m, RowSubMConv2d)]
+    # each conv's (K², Cin, Cout), in the order the stacks run them
+    convs, plans, rows = [], set(), True
+    for m in model.modules():
+        if isinstance(m, RowSubMConv2d):
+            convs.append(tuple(m.weight.shape))
+        elif isinstance(m, (SparseConv2d, SparseInverseConv2d)):
+            rows = False
+        elif (isinstance(m, SubMConv3d) and rows and len(set(m.kernel_size)) == 1
+              and m.kernel_size[0] % 2 == 1 and set(m.dilation) == {1}):
+            convs.append((m.kernel_size[0] ** 3,) + tuple(m.conv.weight.shape[1::-1]))
+            plans.add(m.kernel_size[0])
     heads = sum(isinstance(m, FoldedSiteLinear) for m in model.modules())
     # K1's grids a call by its design (ops/row_conv.py row_design): one for
     # K² = 1 and the 27-tap design, two for the tiles design's other taps
-    k1_fwd = sum(k1_grids(*m.weight.shape) for m in convs)
+    k1_fwd = sum(k1_grids(*shape) for shape in convs)
     # d_feats: K1 again for every conv but the first (its input is the
     # data), with Cin and Cout swapped
-    k1_bwd = sum(k1_grids(m.weight.shape[0], m.weight.shape[2], m.weight.shape[1])
-                 for m in convs[1:])
+    k1_bwd = sum(k1_grids(kk, cout, cin) for kk, cin, cout in convs[1:])
     return {"subm_conv_rows": steps * (k1_fwd + k1_bwd) + evals * k1_fwd,
             "site_grouped_matmul": (steps + evals) * 2 * heads,
             "waveform_features": 0,
             # K4: the centre tap's grid and the reduction's; K5: the
             # zero/bias grid and the groups' grid
             "subm_conv_rows_wgrad": steps * 2 * len(convs),
-            "site_grouped_matmul_bwd": steps * 2 * heads}
+            "site_grouped_matmul_bwd": steps * 2 * heads,
+            "subm_conv_rows_plan": (steps + evals) * len(plans)}
 
 
 def counted_fit(trainer, data, label: str) -> dict:
@@ -2141,13 +2164,15 @@ def run_sparse_nets(tag="OPs3ns_SCNet"):
 
 def run_grid_net(path: str, seed: int, make_block=None):
     """A grid event classifier as shipped (no hand-written kernel on its
-    path), from seeded random weights: 4 serving chunks of 4096 events
+    path but, on a 3D grid, K1 and K4 for its SubM convs), from seeded
+    random weights: 4 serving chunks of 4096 events
     (``make_block(rng, events, samples)``, ``labelled_block`` by default),
     the first held to a CPU run over every event, its device forward by
     kernel, and 2 epochs × 4 steps of
     ``Trainer.fit``, the first GRID_STEP_CHECKS blocks' steps each held to
-    a CPU step from the card's state; no kernel launched in either.
-    Returns the state, the training and the validation blocks."""
+    a CPU step from the card's state; no other kernel launched in either.
+    Returns the state, the training and the validation blocks and the
+    training's launches."""
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import labelled_block
     from waveformml_tpu_torch.engineering.tasks import LitPSD
@@ -2178,10 +2203,15 @@ def run_grid_net(path: str, seed: int, make_block=None):
     train = [make_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(TRAIN_CHUNKS)]
     val = [make_block(rng, EVENTS_PER_CHUNK, n_samples) for _ in range(VAL_CHUNKS)]
     training = run_segment_training(cfg, state, train, val, tag, reference="steps")
-    assert not any(serving.values()) and not any(training.values()), (serving, training)
-    print(f"{tag}: no kernel launched in serving or training ({serving}, {training}); "
-          f"the config's phase took {time.perf_counter() - t_start:.1f} s", flush=True)
-    return state, train, val
+    # a 3D grid's SubM convs run the plan, K1 and K4 over its rows
+    # (ops/sparse_conv.py); the counts themselves are asserted above
+    rows = {k for k, v in training_launches(task.model, 1, 1).items() if v}
+    assert not {k for d in (serving, training) for k, v in d.items() if v} - rows, \
+        (serving, training)
+    print(f"{tag}: no kernel but {sorted(rows) or 'none'} launched in serving or training "
+          f"({serving}, {training}); the config's phase took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return state, train, val, training
 
 
 def waveform_chunk(rng, n: int, n_samples: int):
@@ -2557,20 +2587,65 @@ def tap_designs_main() -> int:
     return 0
 
 
+def check_subm_conv_rows_plan(rows, coords, n_events: int, n_t: int, tag: str) -> dict:
+    """The plan kernel (``subm_conv_rows_plan``, 27 taps) over a 3D grid's
+    rows (``GridRows``), as its SubM convs build it: equal to its plain
+    version and to ``host_neighbor_plan`` over the live rows, timed (graph
+    replays of one call) beside the plain version, which is made of library
+    calls (its library line), with its bound from the bytes it must move:
+    the sites and the live mask read, the plan written, and each table
+    entry that a live row's window names on the grid read once. Returns its
+    numbers."""
+    from waveformml_tpu_torch.ops.row_conv import (host_neighbor_plan, subm_conv_rows_plan,
+                                                   subm_conv_rows_plan_plain)
+
+    site, live, table = rows.site, rows.live, rows.table
+    args = (site, live, table, 3, n_t)
+    got = subm_conv_rows_plan(*args)
+    want = subm_conv_rows_plan_plain(*args)
+    host = host_neighbor_plan(coords.cpu().numpy(), live.cpu().numpy(), n_events, 3, n_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and np.array_equal(got.cpu().numpy(), host)
+    # the plain version over a table of the sites themselves: the site each
+    # (row, tap) reads, the extra slot where it reads none
+    size = table.shape[0] - 1
+    read = subm_conv_rows_plan_plain(site, live, torch.arange(size + 1, dtype=torch.int32,
+                                                              device=site.device), 3, n_t)
+    entries = int(torch.unique(read[read < size]).numel())
+    n = site.shape[0]
+    n_bytes = 8 * n + n + 4 * 27 * n + 4 * entries
+    b_ms, by = bound_ms(n_bytes, 0.0)
+    r = dict(ms=graph_time_ms(lambda: subm_conv_rows_plan(*args)),
+             plain_ms=graph_time_ms(lambda: subm_conv_rows_plan_plain(*args)),
+             bound_ms=b_ms, bound_by=by, max_abs_err=0.0)
+    r["library_ms"] = fastest_library_ms({"the plain version (where, index_select)":
+                                          lambda: subm_conv_rows_plan_plain(*args)},
+                                         f"{tag} plan", profile=True)
+    print(f"{tag} plan kernel (subm_conv_rows_plan, 27 taps) over {n} rows, "
+          f"{int(live.sum())} live, {entries} table entries named: equal to its plain "
+          f"version and to host_neighbor_plan over the live rows; ms={r['ms']:.5f} "
+          f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
+          f"bound_ms={b_ms:.6f} ({by}, {n_bytes} bytes)", flush=True)
+    return r
+
+
 def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
     """SCNet3D.json's sparse section (SubM 2→8, BatchNorm, ReLU, ToDense)
     in row space, ``DSLSpecNet(n_t=16)`` (K1 forward, K4 in the backward,
     at 27 taps), its SubM weights and BatchNorm carried over from the grid
     net's ``state``, on one 4096-event chunk: its eval grid held to the
-    grid stack's (cuDNN's conv3d) at every occupied site; a train-mode
+    grid stack's, on its rows (the device plan, K1) and without them
+    (cuDNN's conv3d), at every occupied site; the plan kernel over the
+    grid's rows (``check_subm_conv_rows_plan``); a train-mode
     forward and backward, every kernel's count set to 0 just before and
     read just after (asserted against the count the code derives), held to
     the plain versions on the card; K1 (2→8) and K4 (Cin + 1 = 3) against
     their plain versions with their times, bounds and library times, K1
     also as the d_feats of a second conv, 8→8, K1 in both and K4 bitwise
     equal over two runs, beside cuDNN's conv3d of the same layer over the
-    dense grid and the tiles design's times (PERF.md). Returns K1's and
-    K4's numbers and the launches of the forward and backward."""
+    dense grid and the tiles design's times (PERF.md). Returns K1's, K4's
+    and the plan kernel's numbers and the launches of the forward and
+    backward."""
     from types import SimpleNamespace
 
     from waveformml_tpu_torch.engineering.tasks import LitPSD
@@ -2612,14 +2687,19 @@ def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
     net.eval()
     with torch.no_grad():
         rows = net(batch)
-        dense = stack(grid)
+        # the grid stack on its rows (the route), and without them: cuDNN's
+        # dense conv
+        routed = stack(grid)
+        dense = stack(dataclasses.replace(grid, rows=None))
     occ = occupancy_mask_3d(batch, n_t)[:, None].expand_as(rows)
-    torch.testing.assert_close(rows[occ], dense[occ], rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
-    assert float(rows[~occ].abs().max()) == 0.0
-    print(f"{tag}: the row stack's grid matches the dense SubMConv3d stack's at all "
-          f"{int(occ.sum())} occupied (site, channel) entries (largest |difference| "
-          f"{float((rows[occ] - dense[occ]).abs().max()):.3g}; rtol={LOGIT_RTOL}, "
-          f"atol={LOGIT_ATOL}), zero elsewhere", flush=True)
+    for name, got in (("row stack's", rows), ("grid stack's on its rows", routed)):
+        torch.testing.assert_close(got[occ], dense[occ], rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+        assert float(got[~occ].abs().max()) == 0.0
+        print(f"{tag}: the {name} grid matches the dense SubMConv3d stack's at all "
+              f"{int(occ.sum())} occupied (site, channel) entries (largest |difference| "
+              f"{float((got[occ] - dense[occ]).abs().max()):.3g}; rtol={LOGIT_RTOL}, "
+              f"atol={LOGIT_ATOL}), zero elsewhere", flush=True)
+    plan_r = check_subm_conv_rows_plan(grid.rows, db["coords"], n_events, n_t, tag)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 122)
     g = torch.randn(rows.shape, device="cuda", generator=gen) / rows.numel() ** 0.5
@@ -2707,6 +2787,7 @@ def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
           f"bitwise equal over two runs", flush=True)
     results["subm_conv_rows"]["max_abs_err"] = max(results["subm_conv_rows"]["max_abs_err"],
                                                    d_err)
+    results["subm_conv_rows_plan"] = plan_r
     dense_ms = conv3d_times(stack, grid, tag)
     for name, r in (("subm_conv_rows", results["subm_conv_rows"]),
                     ("subm_conv_rows d_feats", d_feats_r),
@@ -2724,17 +2805,20 @@ def run_scnet3d_rows(cfg, state, block, tag="SCNet3D rows"):
 
 def run_scnet3d():
     """SCNet3D.json as shipped (T = 16 samples: SubMConv3d 2→8, BatchNorm,
-    ReLU, ToDense, Linear 19712→32→2) on the dense grid, from seeded random
-    weights and biases: ``run_grid_net`` over chunks of 4096 events of both
-    kinds as ``PulseDataset3D`` gives them (the (x, y, t) rows where a PMT
-    clears the threshold), then its sparse section in row space
-    (``run_scnet3d_rows``). Returns the row path's kernel numbers and
-    launches, the state and the training and validation blocks."""
+    ReLU, ToDense, Linear 19712→32→2) on the dense grid, its SubM conv on
+    the grid's rows, from seeded random weights and biases:
+    ``run_grid_net`` over chunks of 4096 events of both kinds as
+    ``PulseDataset3D`` gives them (the (x, y, t) rows where a PMT clears
+    the threshold), then its sparse section in row space
+    (``run_scnet3d_rows``). Returns the kernel numbers at 27 taps, the grid
+    net's training launches, the state and the training and validation
+    blocks."""
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import labelled_block_3d
 
-    state, train, val = run_grid_net(CONFIG_3D, SEED + 120, make_block=labelled_block_3d)
-    results, launches = run_scnet3d_rows(load_config(CONFIG_3D), state, val[0])
+    state, train, val, launches = run_grid_net(CONFIG_3D, SEED + 120,
+                                               make_block=labelled_block_3d)
+    results, _ = run_scnet3d_rows(load_config(CONFIG_3D), state, val[0])
     return results, launches, state, train, val
 
 
@@ -4544,10 +4628,13 @@ def run_evaluation(state, train, val, work_dir, waveform) -> tuple:
 
 # -- the export -------------------------------------------------------------------------
 
+#: the kernels whose launches ``RELOAD_SCRIPT`` counts
+RELOAD_COUNTED = ("subm_conv_rows", "site_grouped_matmul", "subm_conv_rows_plan")
 #: run in a fresh process by ``run_export``, which imports torch and the port
 #: only: reloads each (program, batch, output) of its arguments with
-#: ``load_exported`` and runs it on the card, K1's and K2's counts set to 0
-#: just before and read just after; prints one JSON line a program
+#: ``load_exported`` and runs it on the card, the counts of K1, K2 and the
+#: plan kernel set to 0 just before and read just after; prints one JSON
+#: line a program
 RELOAD_SCRIPT = r"""
 import json
 import sys
@@ -4555,19 +4642,20 @@ import sys
 import torch
 
 from waveformml_tpu_torch.engineering.trainer import load_exported
-from waveformml_tpu_torch.ops.row_conv import subm_conv_rows
+from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_plan
 from waveformml_tpu_torch.ops.site_head import site_grouped_matmul
 
 args = sys.argv[1:]
+counted = (subm_conv_rows, site_grouped_matmul, subm_conv_rows_plan)
 for program, batch, out_path in zip(args[0::3], args[1::3], args[2::3]):
     db = {k: v.cuda() for k, v in torch.load(batch).items()}
     run = load_exported(program)
     torch.cuda.synchronize()
-    subm_conv_rows.launches = site_grouped_matmul.launches = 0
+    for fn in counted:
+        fn.launches = 0
     out = run(db)
     torch.cuda.synchronize()
-    launches = {"subm_conv_rows": subm_conv_rows.launches,
-                "site_grouped_matmul": site_grouped_matmul.launches}
+    launches = {fn.__name__: fn.launches for fn in counted}
     torch.save(out.cpu(), out_path)
     foreign = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "flax", "waveformml_tpu"})
     print(json.dumps({"program": program, "shape": list(out.shape), "dtype": str(out.dtype),
@@ -4602,10 +4690,13 @@ def loaded_trainer(cfg_path: str, ckpt: str):
 
 
 def check_ops_on_card(trainer, db) -> None:
-    """``torch.library.opcheck`` of the five custom ops with CUDA tensors at
-    SubMPSD.json's shapes: its first conv (K1, K4), its head (K2, K5) and
-    the first PMT's half of the chunk's waveforms (K3)."""
+    """``torch.library.opcheck`` of the six custom ops with CUDA tensors at
+    SubMPSD.json's shapes: its first conv (K1, K4), its head (K2, K5), the
+    first PMT's half of the chunk's waveforms (K3), and the plan kernel
+    over the chunk's events on a T = 16 grid, its rows at random sites
+    (some shared, some off the grid)."""
     from waveformml_tpu_torch.detector import NX, NY
+    from waveformml_tpu_torch.ops.row_conv import device_site_table
 
     model = trainer.task.model
     conv, head = model.stack.l0, model.head0
@@ -4626,6 +4717,13 @@ def check_ops_on_card(trainer, db) -> None:
              "site_grouped_matmul": (rows, k3, *layout, head.bias.detach()),
              "site_grouped_matmul_bwd": (d_out, rows, k3, *layout, True),
              "waveform_features": (feats[:, :n_samples].contiguous(),)}
+    size = n_events * NX * NY * 16
+    site = torch.randint(0, size + size // 8, (n,), device="cuda", generator=gen).clamp_(
+        max=size)
+    site[n // 2:n // 2 + n // 16] = site[:n // 16]
+    table = device_site_table(site, size)
+    live = table.index_select(0, site) == torch.arange(n, dtype=torch.int32, device="cuda")
+    cases["subm_conv_rows_plan"] = (site, live, table, 3, 16)
     for name, args in cases.items():
         t0 = time.perf_counter()
         result = torch.library.opcheck(getattr(torch.ops.waveformml, name).default, args)
@@ -4765,14 +4863,15 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
     IoniClassifierGraph.json (``Trainer.export_model``), each from the
     checkpoint its evaluation or
     fit wrote, on its first test chunk: the program's custom-op nodes (K1
-    in the four row-path configs, K2 in the two SubMPSD ones, none in the
-    others); the program reloaded in one fresh
+    in the four row-path configs and in SCNet3D.json, whose SubM conv runs
+    over its grid's rows, with the plan kernel there, K2 in the two SubMPSD
+    ones, none in the others); the program reloaded in one fresh
     process that imports torch and the port only (``RELOAD_SCRIPT``) and
     run on the card, its output within EXPORT_TOL of a fresh Trainer's
-    eager forward over the same batch and its K1 and K2 launches equal to
-    that forward's (counts set to 0 just before and read just after each).
-    Then ``torch.library.opcheck`` of the five ops on the card and the
-    dispatch timing. Returns the dispatch timing."""
+    eager forward over the same batch and its K1, K2 and plan launches
+    equal to that forward's (counts set to 0 just before and read just
+    after each). Then ``torch.library.opcheck`` of the six ops on the card
+    and the dispatch timing. Returns the dispatch timing."""
     from waveformml_tpu_torch import evaluate
     from waveformml_tpu_torch.config import load_config
     from waveformml_tpu_torch.datasets.synthetic import BlockDataModule
@@ -4787,7 +4886,8 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
                 CONFIG_W128: ("subm_conv_rows", "site_grouped_matmul"),
                 CONFIG_SEGQ: ("subm_conv_rows",), CONFIG_Z: (),
                 CONFIG_OPS: ("subm_conv_rows",), CONFIGS_WAVEFORM[0]: (),
-                CONFIGS_WAVEFORM[1]: (), CONFIG_3D: (), CONFIG_GRAPH: ()}
+                CONFIGS_WAVEFORM[1]: (), CONFIG_3D: ("subm_conv_rows", "subm_conv_rows_plan"),
+                CONFIG_GRAPH: ()}
     cases = []
     for cfg_path, kernels in expected.items():
         ckpt, test = checkpoints[cfg_path]
@@ -4826,8 +4926,7 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
         torch.save({k: v.cpu() for k, v in db.items()}, os.path.join(base, "batch.pt"))
         cases.append(dict(tag=tag, path=path, batch=os.path.join(base, "batch.pt"),
                           out=os.path.join(base, "reloaded.pt"), eager=eager.cpu(),
-                          launches={k: launches[k] for k in ("subm_conv_rows",
-                                                             "site_grouped_matmul")}))
+                          launches={k: launches[k] for k in RELOAD_COUNTED}))
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
@@ -4851,7 +4950,7 @@ def run_export(checkpoints, state, train, val, work_dir, card: str) -> dict:
         assert line["launches"] == c["launches"], (c["tag"], line["launches"], c["launches"])
         print(f"export {c['tag']}: the reloaded program's output matches the eager forward "
               f"(rtol=atol={EXPORT_TOL}; largest |difference| "
-              f"{float((got - c['eager']).abs().max()):.3g}); its K1/K2 launches "
+              f"{float((got - c['eager']).abs().max()):.3g}); its K1/K2/plan launches "
               f"{line['launches']} equal one eager forward's", flush=True)
 
     trainer = loaded_trainer(CONFIG, checkpoints[CONFIG][0])
@@ -5313,9 +5412,13 @@ def main() -> int:
                                  "waveformml_tpu/ops/row_conv.py:257"),
         "site_grouped_matmul_bwd": ("cuda", "waveformml_tpu_torch/csrc/site_head_bwd.cu",
                                     "waveformml_tpu/ops/site_head.py:96"),
+        "subm_conv_rows_plan": ("cuda", "waveformml_tpu_torch/csrc/row_conv.cu",
+                                "waveformml_tpu/ops/row_conv.py:76"),
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():
+        if name not in results:
+            continue
         r = results[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
@@ -5323,12 +5426,16 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # K1 and K4 again at SegQuantifier.json's and OPs3ns_SCNet.json's widths
-    # and at 27 taps (SCNet3D.json's section in row space), each launched by
-    # its own path
+    # and, with the plan kernel, at 27 taps (SCNet3D.json's SubM conv), each
+    # with the launches of its own path's training run (SCNet3D.json's: its
+    # grid's rows)
     for config, numbers, counts in (("SegQuantifier.json", segq, segq_launches),
                                     ("OPs3ns_SCNet.json", ops, ops_launches),
-                                    ("SCNet3D.json rows, 27 taps", rows3d, rows3d_launches)):
-        for name in ("subm_conv_rows", "subm_conv_rows_wgrad"):
+                                    ("SCNet3D.json grid rows, 27 taps", rows3d,
+                                     rows3d_launches)):
+        for name in ("subm_conv_rows", "subm_conv_rows_wgrad", "subm_conv_rows_plan"):
+            if name not in numbers:
+                continue
             route, source, replaces = sources[name]
             r = numbers[name]
             kernels.append({"name": f"{name} ({config})", "route": route,

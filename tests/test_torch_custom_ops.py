@@ -1,6 +1,7 @@
-"""The five kernels as ``torch.library`` custom ops (``waveformml::*``), on
+"""The six kernels as ``torch.library`` custom ops (``waveformml::*``), on
 the CPU: ``torch.library.opcheck`` passes for each at narrow sizes, K1 and
-K4 also at a 27-tap shape, their taps design's (its schema, fake kernel
+K4 also at a 27-tap shape, their taps design's, the 3D plan kernel at 1,
+27 and 125 taps (its schema, fake kernel
 and compiled-graph tests); each public wrapper gives its
 plain version's tensors bitwise; the fake kernel gives the CPU
 implementation's shapes, dtypes and strides (K2's rows padded to
@@ -17,7 +18,7 @@ from waveformml_tpu_torch.ops import native, row_conv, site_head, waveform_featu
 from waveformml_tpu_torch.ops.row_conv import host_neighbor_plan
 
 OPS = ("subm_conv_rows", "subm_conv_rows_wgrad", "site_grouped_matmul",
-       "site_grouped_matmul_bwd", "waveform_features")
+       "site_grouped_matmul_bwd", "waveform_features", "subm_conv_rows_plan")
 
 
 def _conv_args(seed, k=3, with_bias=True, n_rows=64, cin=4, cout=8):
@@ -68,6 +69,20 @@ def _site_bwd_args(seed, c, f, with_bias=True):
     return [d_out, rows, k3, take, ev, site, n_events, with_bias]
 
 
+def _plan_args(seed, k, n_t):
+    """The plan kernel's operands over 5 events on a T = ``n_t`` grid: 60
+    rows at random sites, 8 of them at another row's site, 6 off the grid
+    (padding); live the last row of each site."""
+    rng = np.random.default_rng(seed)
+    size = 5 * 14 * 11 * n_t
+    site = torch.from_numpy(rng.integers(0, size, 60))
+    site[40:48] = site[:8]
+    site[54:] = size
+    table = row_conv.device_site_table(site, size)
+    live = table.index_select(0, site) == torch.arange(60, dtype=torch.int32)
+    return [site, live, table, k, n_t]
+
+
 def _wfs(seed, s):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(adversarial_waveforms(rng, 70, s).astype(np.float32))
@@ -89,6 +104,9 @@ CASES = [
      lambda: _site_bwd_args(9, 16, 24, with_bias=False)),
     ("waveform_features", "s59", lambda: [_wfs(10, 59)]),
     ("waveform_features", "s150", lambda: [_wfs(11, 150)]),
+    ("subm_conv_rows_plan", "k3-t4", lambda: _plan_args(14, 3, 4)),
+    ("subm_conv_rows_plan", "k1-t16", lambda: _plan_args(15, 1, 16)),
+    ("subm_conv_rows_plan", "k5-t7", lambda: _plan_args(16, 5, 7)),
 ]
 CASE_PARAMS = [pytest.param(name, make, id=f"{name}-{case}") for name, case, make in CASES]
 
@@ -101,7 +119,9 @@ MODULES = {"subm_conv_rows": (row_conv, "subm_conv_rows", "subm_conv_rows_plain"
            "site_grouped_matmul_bwd": (site_head, "site_grouped_matmul_bwd",
                                        "site_grouped_matmul_bwd_plain"),
            "waveform_features": (waveform_features, "waveform_features",
-                                 "waveform_features_plain")}
+                                 "waveform_features_plain"),
+           "subm_conv_rows_plan": (row_conv, "subm_conv_rows_plan",
+                                   "subm_conv_rows_plan_plain")}
 
 
 def _op(name):
@@ -182,7 +202,8 @@ class _OneOp(torch.nn.Module):
 #: one case of each op
 ONE_OF_EACH = [p for p in CASE_PARAMS if p.id in (
     "subm_conv_rows-k3-bias", "subm_conv_rows_wgrad-bias", "site_grouped_matmul-8x50-bias",
-    "site_grouped_matmul_bwd-8x50-bias", "waveform_features-s59")]
+    "site_grouped_matmul_bwd-8x50-bias", "waveform_features-s59",
+    "subm_conv_rows_plan-k3-t4")]
 
 
 @pytest.mark.parametrize("name,make", ONE_OF_EACH)

@@ -561,3 +561,128 @@ def test_k4_at_27_taps_on_the_card(cuda):
         for a, b, s, c in zip(got, want, scale, again):
             assert bool(((a - b).abs() <= 1e-5 * s + 1e-30).all())
             assert torch.equal(a, c)
+
+
+def _shipped_on_card(n_events=4096, seed=31):
+    """SCNet3D.json as shipped (T = 16) on the card from seeded weights, and
+    a block of ``n_events`` labelled 3D events as a prepared device batch."""
+    cfg = load_config(os.path.join(ROOT, "config", "examples", "SCNet3D.json"))
+    torch.manual_seed(seed)
+    task = LitPSD(cfg, device="cuda")
+    block = labelled_block_3d(np.random.default_rng(seed), n_events,
+                              cfg.system_config.n_samples)
+    db = task.to_device(task.prepare_block(block, task.row_bucket(block),
+                                           task.event_bucket(block)))
+    return cfg, task, block, db
+
+
+@pytest.mark.cuda
+def test_plan_kernel_matches_its_plain_version(cuda):
+    """The device plan's kernel against ``subm_conv_rows_plan_plain`` on
+    the card, at K = 1, 3 and 5 over 4096 labelled 3D events with two rows
+    at some sites (the batch's mask: both rows live) and over the grid's
+    live rows; one launch counted a call."""
+    from waveformml_tpu_torch.ops.row_conv import (device_site_table, subm_conv_rows_plan,
+                                                   subm_conv_rows_plan_plain)
+    from waveformml_tpu_torch.ops.sparse import bucket_size, flat_site_3d, pad_sparse
+    from waveformml_tpu_torch.ops.sparse_conv import batch_to_grid_3d
+
+    n_t = 16
+    block = labelled_block_3d(np.random.default_rng(25), 4096, n_t)
+    coords = np.concatenate([block.coords, block.coords[::97]])
+    feats = np.concatenate([block.feats, block.feats[::97]])
+    arrays = pad_sparse(coords, feats, bucket_size(coords.shape[0]))
+    batch = SparseBatch(*(torch.from_numpy(a).cuda() for a in arrays), 4096)
+    rows = batch_to_grid_3d(batch, n_t).rows
+    assert int(rows.live.sum()) < int(batch.mask.sum())
+    site = flat_site_3d(batch, n_t)
+    for k in (1, 3, 5):
+        for live in (batch.mask, rows.live):
+            size = 4096 * NX * NY * n_t
+            table = device_site_table(torch.where(live, site, size), size)
+            before = subm_conv_rows_plan.launches
+            got = subm_conv_rows_plan(site, live, table, k, n_t)
+            assert subm_conv_rows_plan.launches == before + 1
+            assert torch.equal(got, subm_conv_rows_plan_plain(site, live, table, k, n_t)), k
+        assert torch.equal(rows.plan(k), got)
+
+
+@pytest.mark.cuda
+def test_subm_route_matches_the_dense_conv_at_4096_events(cuda):
+    """SCNet3D.json's SubMConv3d 2→8 over a 4096-event grid on the card: the
+    row route (K1, K4 over the device plan) against cuDNN's dense conv of
+    the same module, the forward within K1's tolerance above and the
+    weight and bias gradients, as K4's, within 1e-5 of the sum of their
+    terms' magnitudes."""
+    import dataclasses
+
+    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgrad
+    from waveformml_tpu_torch.ops.sparse import bucket_size, pad_sparse
+    from waveformml_tpu_torch.ops.sparse_conv import SubMConv3d, batch_to_grid_3d
+
+    n_t = 16
+    block = labelled_block_3d(np.random.default_rng(23), 4096, n_t)
+    arrays = pad_sparse(block.coords, block.feats, bucket_size(block.coords.shape[0]))
+    batch = SparseBatch(*(torch.from_numpy(a).cuda() for a in arrays), 4096)
+    grid = batch_to_grid_3d(batch, n_t)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    conv = SubMConv3d(2, 8, 3, device="cuda")
+    with torch.no_grad():
+        conv.conv.weight.normal_(generator=gen)
+        conv.conv.bias.normal_(generator=gen)
+    g = torch.randn((4096, 8, NX, NY, n_t), device="cuda", generator=gen)
+
+    def run(features, rows, grad):
+        conv.zero_grad(set_to_none=True)
+        out = conv(dataclasses.replace(grid, features=features, rows=rows)).features
+        (out * grad).sum().backward()
+        return out.detach(), conv.conv.weight.grad, conv.conv.bias.grad
+
+    k1, k4 = subm_conv_rows.launches, subm_conv_rows_wgrad.launches
+    got = run(grid.features, grid.rows, g)
+    assert subm_conv_rows.launches > k1 and subm_conv_rows_wgrad.launches > k4
+    want = run(grid.features, None, g)
+    scale = run(grid.features.abs(), None, g.abs())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for a, b, s in zip(got[1:], want[1:], scale[1:]):
+        assert bool(((a - b).abs() <= 1e-5 * s + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_scnet3d_training_step_makes_no_host_sync(cuda):
+    """A training step of SCNet3D.json on the route (the device plan, K1,
+    K4) asks the host to wait for nothing: ``set_sync_debug_mode("error")``
+    raises at any synchronising call."""
+    from waveformml_tpu_torch.ops.row_conv import subm_conv_rows_wgrad
+
+    cfg, task, _, db = _shipped_on_card()
+    trainer = Trainer(cfg, task, "cuda", callbacks=[], max_epochs=0)
+    trainer.training_step(db)       # builds the libraries and cuDNN's plans
+    torch.cuda.synchronize()
+    k4 = subm_conv_rows_wgrad.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = trainer.training_step(db)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert subm_conv_rows_wgrad.launches > k4
+    assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.cuda
+def test_scnet3d_inference_model_captures_the_route(cuda):
+    """``InferenceModel`` serving SCNet3D.json captures its forward, the
+    device plan and K1 inside the graph, and its replays equal the eager
+    forward."""
+    cfg, task, block, db = _shipped_on_card(1000)
+    model = InferenceModel(cfg, task.model.state_dict(), device="cuda")
+    first = model.fetch(model.dispatch(block.coords, block.feats))
+    again = model.fetch(model.dispatch(block.coords, block.feats))
+    launches = model.replay_launches()
+    assert len(model.graphs) == 1 and launches["subm_conv_rows"] >= 2
+    # one plan a forward, as one K1 grid (the taps design)
+    assert launches["subm_conv_rows_plan"] == launches["subm_conv_rows"]
+    with torch.no_grad():
+        want = task.apply_model(db)[:1000].cpu().numpy()
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_allclose(first, want, rtol=1e-5, atol=1e-6)

@@ -4,7 +4,11 @@
 // gather in FFMA, a row a thread, for the 3x3x3 window at narrow channels
 // ("taps").
 //
-// Both replace waveformml_tpu/ops/row_conv.py:subm_conv_rows (_masked_gather
+// A third kernel builds a 3D batch's K³-tap neighbour plan on the device
+// (subm_conv_rows_plan), for the grid's SubM convs (ops/sparse_conv.py), as
+// waveformml_tpu/ops/row_conv.py:build_neighbor_plan_3d (:76-100) does.
+//
+// Both designs replace waveformml_tpu/ops/row_conv.py:subm_conv_rows (_masked_gather
 // + _gather_gemm, :189-242), and the d_feats of _subm_bwd (:250-256) through
 // the reversed, transposed kernel, which XLA ran on the TPU as a gather into
 // an [N, K², Cin] operand followed by one GEMM:
@@ -700,6 +704,37 @@ int launch_taps(const float* feats, const int32_t* plan, const float* weight,
 
 int tap_width(int c) { return c <= 1 ? 1 : c <= 2 ? 2 : c <= 4 ? 4 : c <= 8 ? 8 : 16; }
 
+// -- the K³-tap neighbour plan of a 3D batch, from its rows' sites ---------------
+//
+// One thread a (row, tap), the taps of a row adjacent, so the plan is written
+// in coalesced stores: plan[r, tap] = table[site[r] + offset(tap)] where the
+// row is live and the tap's (x, y, t) lies on the grid, else -1. Tap order
+// (dx, dy, dt) row-major, each in -h..h (ops/row_conv.py host_neighbor_plan).
+// A live row's site, and every site of its window on the grid, is below the
+// table's size, which the caller keeps under 2^31: the index arithmetic is
+// 32-bit (a 64-bit division is a long software sequence on the card).
+__global__ void __launch_bounds__(256)
+neighbor_plan_kernel(const int64_t* __restrict__ site, const uint8_t* __restrict__ live,
+                     const int32_t* __restrict__ table, int32_t* __restrict__ plan,
+                     long long total, int k, int nx, int ny, int nt) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int kk = k * k * k;
+  const int r = static_cast<int>(i / kk), tap = static_cast<int>(i - (long long)r * kk);
+  int out = -1;
+  if (live[r]) {
+    const int s = static_cast<int>(site[r]);
+    const int t = s % nt, xy = s / nt;
+    const int y = xy % ny, x = (xy / ny) % nx;
+    const int h = (k - 1) / 2;
+    const int dx = tap / (k * k) - h, dy = tap / k % k - h, dt = tap % k - h;
+    if (x + dx >= 0 && x + dx < nx && y + dy >= 0 && y + dy < ny && t + dt >= 0 &&
+        t + dt < nt)
+      out = table[s + (dx * ny + dy) * nt + dt];
+  }
+  plan[i] = out;
+}
+
 }  // namespace
 
 extern "C" {
@@ -749,6 +784,20 @@ int subm_conv_rows_taps_fwd(const float* feats, const int32_t* plan,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TAPS_CASE
+}
+
+// The [n, k³] plan of n rows (site int64, live bool as bytes, table int32
+// of every site and one slot more, plan int32 out) over an nx × ny × nt grid:
+// one launch on `stream`, none without rows; returns the launch's
+// cudaError_t without synchronising.
+int subm_conv_rows_plan(const int64_t* site, const uint8_t* live, const int32_t* table,
+                        int32_t* plan, int n, int k, int nx, int ny, int nt, void* stream) {
+  const long long total = (long long)n * k * k * k;
+  if (total == 0) return 0;
+  neighbor_plan_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(site, live, table, plan, total,
+                                                              k, nx, ny, nt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Store the row-taps the kernel computed since the last call into *count

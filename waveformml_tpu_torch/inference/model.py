@@ -43,7 +43,8 @@ import torch
 from waveformml_tpu_torch.datasets.hdf5_dataset import FileBlock
 from waveformml_tpu_torch.device import resolve_device
 from waveformml_tpu_torch.engineering.base import PackSpec, pack_db, unpack_db
-from waveformml_tpu_torch.ops.row_conv import subm_conv_rows, subm_conv_rows_wgrad
+from waveformml_tpu_torch.ops.row_conv import (subm_conv_rows, subm_conv_rows_plan,
+                                               subm_conv_rows_wgrad)
 from waveformml_tpu_torch.ops.site_head import site_grouped_matmul, site_grouped_matmul_bwd
 from waveformml_tpu_torch.ops.waveform_features import waveform_features
 from waveformml_tpu_torch.registry import retrieve_class
@@ -53,7 +54,7 @@ log = logging.getLogger(__name__)
 
 #: the kernel wrappers whose launches a captured graph counts
 KERNELS = (subm_conv_rows, site_grouped_matmul, waveform_features, subm_conv_rows_wgrad,
-           site_grouped_matmul_bwd)
+           site_grouped_matmul_bwd, subm_conv_rows_plan)
 
 
 class Handle(NamedTuple):

@@ -42,6 +42,9 @@ from waveformml_tpu_torch.utils import tracing
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "waveformml_tpu_torch"
 SOURCES = ("row_conv", "row_conv_wgrad", "site_head", "site_head_bwd", "waveform_features")
+#: libraries that the same calls use one after the other, so that ``load``
+#: builds them at once (K1's and K4's: a conv's forward, then its backward)
+BUILT_TOGETHER = (("row_conv", "row_conv_wgrad"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -141,14 +144,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def load(name: str, functions: Dict[str, list]) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed. ``functions``
-    maps each launch function to its ``argtypes`` (pointers and the stream
-    as ``c_void_p``, sizes as ``c_int``); each returns a CUDA error code."""
+    """The loaded library ``name``, built first if needed (at once with
+    those of its ``BUILT_TOGETHER`` group that are not built).
+    ``functions`` maps each launch function to its ``argtypes`` (pointers
+    and the stream as ``c_void_p``, sizes as ``c_int``); each returns a
+    CUDA error code."""
     lib = _LIBS.get(name)
     if lib is None:
         so = library_path(name)
         if not so.exists():
-            build([name])
+            build(next((group for group in BUILT_TOGETHER if name in group), (name,)))
         lib = ctypes.CDLL(str(so))
         lib.wf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.wf_cuda_error_string.restype = ctypes.c_char_p

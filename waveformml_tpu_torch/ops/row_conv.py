@@ -5,7 +5,10 @@ The neighbour plan ``[N, K²]`` int32 lists, for each row, the row of each
 site in its centred K×K window (-1 where the site is empty, out of the
 detector or the row is padding); a 3D batch's ``[N, K³]`` plan lists the
 K×K×K window over (x, y, t). It depends on coords only, so the host
-builds it once per batch with numpy and every conv of the stack shares it.
+builds it once per batch with numpy and every conv of the stack shares it;
+a 3D grid's SubM convs (``ops/sparse_conv.py``) have theirs built on the
+device instead (``device_site_table``, a table of every site's row, then
+one kernel, ``subm_conv_rows_plan``), from the rows the batch carries.
 The conv itself is the custom op ``waveformml::subm_conv_rows``: kernel K1
 (``csrc/row_conv.cu``) for CUDA tensors, ``subm_conv_rows_plain`` for CPU
 tensors, the dispatcher choosing by device. K1 and K4 each have two designs,
@@ -75,6 +78,98 @@ def host_neighbor_plan(coords: np.ndarray, mask: np.ndarray, n_events: int,
     return plan
 
 
+def device_site_table(site: torch.Tensor, size: int) -> torch.Tensor:
+    """Each site's row, ``[size + 1]`` int32 on ``site``'s device: the
+    largest index among the rows whose flat site index ``site`` (int64
+    ``[N]``, in ``[0, size]``) names it, as ``host_neighbor_plan``'s table
+    keeps the last row it writes; -1 at empty sites and at the extra slot
+    ``size``, where rows off the grid (padding among them) are sent. Fixed
+    shapes, no host sync."""
+    rows = torch.arange(site.shape[0], dtype=torch.int32, device=site.device)
+    table = torch.full((size + 1,), -1, dtype=torch.int32, device=site.device)
+    table.scatter_reduce_(0, site, rows, reduce="amax")
+    table[size:].fill_(-1)
+    return table
+
+
+def subm_conv_rows_plan(site: torch.Tensor, live: torch.Tensor, table: torch.Tensor,
+                        kernel_size: int, n_t: int) -> torch.Tensor:
+    """``host_neighbor_plan``'s ``[N, K³]`` int32 plan of a 3D batch, built
+    on the device (counterpart of
+    waveformml_tpu/ops/row_conv.py:build_neighbor_plan_3d) from each row's
+    flat site index ``site`` (int64, ``((event·NX + x)·NY + y)·T + t``,
+    ``B·NX·NY·T`` where the row is not on the grid), ``live`` (bool: rows
+    that are not live get no taps) and ``table``, ``device_site_table``'s
+    ``[B·NX·NY·T + 1]`` of the live rows (so no other row names a row that
+    is not live), in the same tap order ``(dx, dy, dt)`` row-major, -1
+    where absent. Fixed shapes and no host sync (no ``nonzero``, boolean
+    indexing or ``.item()``), so a CUDA graph can capture it: a gather of
+    the table for each (row, tap) whose site lies on the grid, through the
+    custom op ``waveformml::subm_conv_rows_plan`` (one launch of
+    ``csrc/row_conv.cu``'s plan kernel on CUDA tensors,
+    ``subm_conv_rows_plan_plain`` on CPU tensors)."""
+    k = int(kernel_size)
+    if k % 2 != 1:
+        raise ValueError(f"row-space SubM conv requires an odd kernel size, got {k}")
+    if table.dim() != 1 or (table.shape[0] - 1) % (NX * NY * int(n_t)):
+        raise ValueError(f"table {tuple(table.shape)} is not [B·{NX}·{NY}·{n_t} + 1]")
+    if table.shape[0] > 2 ** 31:
+        raise ValueError("flat site index overflows int32")
+    return subm_conv_rows_plan_op(site, live, table, k, int(n_t))
+
+
+subm_conv_rows_plan.launches = subm_conv_rows_plan.captured = 0
+
+
+def subm_conv_rows_plan_plain(site: torch.Tensor, live: torch.Tensor, table: torch.Tensor,
+                              k: int, n_t: int) -> torch.Tensor:
+    """Plain PyTorch version of the plan kernel: each axis of the window
+    checked against the grid, then one gather of the table."""
+    size = table.shape[0] - 1
+    half = (k - 1) // 2
+    d = torch.arange(-half, k - half, device=site.device)
+    t, rest = site % n_t, site // n_t
+    y, x = rest % NY, (rest // NY) % NX
+
+    def axis(c, extent):
+        c = c[:, None] + d
+        return (c >= 0) & (c < extent)
+
+    inside = ((axis(x, NX) & live[:, None])[:, :, None, None] & axis(y, NY)[:, None, :, None]
+              & axis(t, n_t)[:, None, None, :]).reshape(-1, k ** 3)
+    offset = (d[:, None, None] * (NY * n_t) + d[None, :, None] * n_t
+              + d[None, None, :]).reshape(-1)
+    nb = torch.where(inside, site[:, None] + offset, size)
+    return table.index_select(0, nb.reshape(-1)).view(-1, k ** 3)
+
+
+def subm_conv_rows_plan_cuda(site: torch.Tensor, live: torch.Tensor, table: torch.Tensor,
+                             k: int, n_t: int) -> torch.Tensor:
+    """The CUDA kernel of the op: one launch of the plan kernel where there
+    are rows."""
+    if (site.dtype != torch.int64 or live.dtype != torch.bool or table.dtype != torch.int32
+            or not all(t.is_contiguous() for t in (site, live, table))):
+        raise TypeError("the plan kernel takes contiguous int64 sites, a bool live mask and "
+                        "an int32 table")
+    n = site.shape[0]
+    plan = torch.empty((n, k ** 3), dtype=torch.int32, device=site.device)
+    lib = native.load("row_conv", _FUNCTIONS)
+    err = lib.subm_conv_rows_plan(site.data_ptr(), live.data_ptr(), table.data_ptr(),
+                                  plan.data_ptr(), n, k, NX, NY, n_t,
+                                  torch.cuda.current_stream(site.device).cuda_stream)
+    native.check_launch(lib, err, "subm_conv_rows_plan")
+    if n:
+        native.count_launches(subm_conv_rows_plan, 1)
+    return plan
+
+
+subm_conv_rows_plan_op = native.define_op(
+    "subm_conv_rows_plan", "(Tensor site, Tensor live, Tensor table, int k, int n_t) -> Tensor",
+    cpu=subm_conv_rows_plan_plain, cuda=subm_conv_rows_plan_cuda,
+    fake=lambda site, live, table, k, n_t: site.new_empty((site.shape[0], k ** 3),
+                                                          dtype=torch.int32))
+
+
 def rows_to_dense(rows: torch.Tensor, batch: SparseBatch) -> torch.Tensor:
     """A stack's final rows ``[N, C]`` on the dense grid in the JAX
     package's ``[B, C, NX, NY]`` order (two rows at one site summed), as a
@@ -132,7 +227,9 @@ _FUNCTIONS = {"subm_conv_rows_fwd":
               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
               "subm_conv_rows_taps_fwd":
               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-              "subm_conv_rows_take_row_taps": [ctypes.POINTER(ctypes.c_longlong)]}
+              "subm_conv_rows_take_row_taps": [ctypes.POINTER(ctypes.c_longlong)],
+              "subm_conv_rows_plan": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+              + [ctypes.c_void_p]}
 
 
 def take_row_taps() -> int:

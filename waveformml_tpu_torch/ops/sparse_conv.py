@@ -27,26 +27,44 @@ Pallas kernel, so the port computes them with PyTorch's (cuDNN on the
 card), in float32: ``conv`` switches TF32 off around each conv, in the
 forward and in the backward, whatever the process has set (``ieee_fp32``).
 
+One exception: a 3D grid built from a batch (``batch_to_grid_3d``) carries
+its rows (``GridRows``), and a float32 SubM conv over it with an odd cubic
+window and no dilation computes over the occupied sites alone, not over
+every site of the dense grid: the rows' features gathered from the grid,
+kernels K1 (forward) and K4 (weight and bias gradients) of
+``ops/row_conv.py`` over a K³-tap plan built on the device once per grid and
+kernel size, the output rows put back on a zeroed grid. It sums the present
+taps in IEEE float32 (FFMA), as the dense conv's semantics ask. Ops that keep
+the occupancy pass the rows on (``with_features``); the regular and inverse
+convs, which change it, drop them, so every other conv runs on cuDNN. While
+tracing is active, counters ``grid.subm_rows`` and ``grid.subm_dense`` count
+the SubM calls that took each route.
+
 While tracing is active on the card (``utils.tracing``), each conv module
 records its forward's device span, ``grid.<class>.forward``, and its
 backward's, ``grid.<class>.backward``: from the gradient reaching its
 output to the end of its conv's backward (the masking of its input, which
-autograd runs after that, falls outside). Their events and hooks change no
-number.
+autograd runs after that, falls outside; on the row route, to the end of
+K4). Their events and hooks change no number.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from waveformml_tpu_torch.detector import NX, NY
 from waveformml_tpu_torch.models.blocks import MaskedArrayBatchNorm, lecun_normal_
-from waveformml_tpu_torch.ops.sparse import (SparseBatch, occupancy_mask, occupancy_mask_3d,
-                                             scatter_to_dense, scatter_to_dense_3d)
+from waveformml_tpu_torch.ops.row_conv import (SubMConvRows, device_site_table,
+                                               subm_conv_rows_plan)
+from waveformml_tpu_torch.ops.sparse import (SparseBatch, flat_site_3d, occupancy_mask,
+                                             occupancy_mask_3d, scatter_to_dense,
+                                             scatter_to_dense_3d)
 from waveformml_tpu_torch.registry import registry
 from waveformml_tpu_torch.utils import tracing
 
@@ -146,6 +164,40 @@ def _trace(module: nn.Module, begin: Optional[tracing.Mark], out: torch.Tensor,
     tracing.backward_span(name + ".backward", out, conv_out, out.device)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class GridRows:
+    """What a 3D batch's rows say about the sites of its grid: each row's
+    flat site index ``site`` ``[N]`` int64 (``((event·NX + x)·NY + y)·T +
+    t``; ``B·NX·NY·T`` for padding rows and rows off the grid), the grid's
+    ``n_events`` and ``n_t``, and, built from them on the device at their
+    first use (inside the first SubM conv's span): the site table
+    ``table`` (``device_site_table``), ``live`` ``[N]`` bool, one canonical
+    row per occupied site (the last of its rows: the scatter sums two rows
+    at one site, so only one of them may convolve), and ``plans``, the
+    K³-tap neighbour plans by kernel size, shared by every SubM conv of
+    this occupancy."""
+
+    site: torch.Tensor
+    n_events: int
+    n_t: int
+    plans: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    @functools.cached_property
+    def table(self) -> torch.Tensor:
+        return device_site_table(self.site, self.n_events * NX * NY * self.n_t)
+
+    @functools.cached_property
+    def live(self) -> torch.Tensor:
+        return self.table.index_select(0, self.site) == torch.arange(
+            self.site.shape[0], dtype=torch.int32, device=self.site.device)
+
+    def plan(self, k: int) -> torch.Tensor:
+        """The ``[N, k³]`` plan, built at its first use."""
+        if k not in self.plans:
+            self.plans[k] = subm_conv_rows_plan(self.site, self.live, self.table, k, self.n_t)
+        return self.plans[k]
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseGrid:
     """A sparse batch on the dense grid: ``features [B, C, NX, NY]`` (``[B,
@@ -153,23 +205,28 @@ class SparseGrid:
     NY]`` (``[B, NX, NY, T]``) bool, and per
     ``indice_key`` the occupancy saved by the conv that recorded it
     (``indice_occ``) and that conv's geometry (``indice_geom``: kernel,
-    stride, padding, dilation), which the paired inverse conv reads."""
+    stride, padding, dilation), which the paired inverse conv reads.
+    ``rows`` (3D grids built from a batch) are the rows behind the
+    occupancy, which the SubM convs compute over; a conv that changes the
+    occupancy drops them."""
 
     features: torch.Tensor
     occupancy: torch.Tensor
     indice_occ: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     indice_geom: Dict[str, Geometry] = dataclasses.field(default_factory=dict)
+    rows: Optional[GridRows] = None
 
     def with_features(self, f: torch.Tensor, save_key: Optional[str] = None,
                       save_geom: Optional[Geometry] = None) -> "SparseGrid":
-        """This grid with features ``f``; with ``save_key``, its occupancy
-        (and ``save_geom``) saved under that key."""
+        """This grid with features ``f`` (the same occupancy and rows);
+        with ``save_key``, its occupancy (and ``save_geom``) saved under
+        that key."""
         keys, geoms = dict(self.indice_occ), dict(self.indice_geom)
         if save_key is not None:
             keys[save_key] = self.occupancy
             if save_geom is not None:
                 geoms[save_key] = save_geom
-        return SparseGrid(f, self.occupancy, keys, geoms)
+        return SparseGrid(f, self.occupancy, keys, geoms, self.rows)
 
     def masked(self) -> torch.Tensor:
         """The features with zeros enforced off the occupancy."""
@@ -188,9 +245,10 @@ def batch_to_grid_3d(batch: SparseBatch, n_t: int,
                      feats: Optional[torch.Tensor] = None) -> SparseGrid:
     """A 3D ``SparseBatch`` (coords ``[N, 4]`` = x, y, t, event) as a
     ``SparseGrid`` of ``T = n_t`` samples, ``[B, C, NX, NY, T]``, a
-    channels-last view of the scatter."""
+    channels-last view of the scatter, carrying its ``GridRows``."""
     return SparseGrid(scatter_to_dense_3d(batch, n_t, feats).permute(0, 4, 1, 2, 3),
-                      occupancy_mask_3d(batch, n_t))
+                      occupancy_mask_3d(batch, n_t),
+                      rows=GridRows(flat_site_3d(batch, n_t), batch.n_events, n_t))
 
 
 def dilate_occupancy(occ: torch.Tensor, kernel_size: IntPair, stride: IntPair,
@@ -239,7 +297,9 @@ class _ConvParams(nn.Module):
 @registry.register("spconv.SubMConv2d", aliases=("SubMConv2d",))
 class SubMConv2d(nn.Module):
     """Submanifold sparse conv on the grid: stride 1, padded to keep the
-    size, the output masked by the input's occupancy (which it keeps)."""
+    size, the output masked by the input's occupancy (which it keeps); on
+    a 3D grid that carries its rows, computed over them (the module
+    docstring)."""
 
     ndim = 2
 
@@ -260,10 +320,46 @@ class SubMConv2d(nn.Module):
         # spconv pads a SubM conv to keep the size, whatever padding it got
         p = tuple(((ki - 1) * di) // 2 for ki, di in zip(k, d))
         one = (1,) * self.ndim
-        c = conv(g.masked(), self.conv.weight, self.conv.bias, one, p, d)
-        y = c * g.occupancy[:, None].to(c.dtype)
+        if self._takes_rows(g):
+            tracing.count("grid.subm_rows")
+            y, c = self._rows_forward(g)
+        else:
+            tracing.count("grid.subm_dense")
+            c = conv(g.masked(), self.conv.weight, self.conv.bias, one, p, d)
+            y = c * g.occupancy[:, None].to(c.dtype)
         _trace(self, begin, y, c)
         return g.with_features(y, save_key=self.indice_key, save_geom=(k, one, p, d))
+
+    def _takes_rows(self, g: SparseGrid) -> bool:
+        """Whether the conv runs over the grid's rows: a 3D grid that
+        carries them, float32 features (a bf16 grid keeps the dense conv's
+        rounding points), an odd cubic window and no dilation."""
+        k = self.kernel_size
+        return (g.rows is not None and self.ndim == 3 and g.features.dtype == torch.float32
+                and k[0] % 2 == 1 and len(set(k)) == 1 and set(self.dilation) == {1})
+
+    def _rows_forward(self, g: SparseGrid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The conv over the occupied sites: the rows' features gathered
+        from the channels-last grid, K1 over the grid's K³-tap plan
+        (``SubMConvRows``: K4 and, where the input needs it, K1 again in
+        the backward; their plain versions off the card), and the output
+        rows added into a zeroed channels-last grid at their sites. Rows
+        that are not live read and add at site 0: the plan names none of
+        them and their outputs are zero. Returns that grid's ``[B, Cout,
+        *S]`` view and K1's rows."""
+        rows, x = g.rows, g.features
+        cin, k = x.shape[1], self.kernel_size[0]
+        weight = self.conv.weight.to(x.dtype)
+        cout = weight.shape[0]
+        flat = x.movedim(1, -1).reshape(-1, cin)
+        site = torch.where(rows.live, rows.site, 0)
+        # tap (dx, dy, dt) reads weight[:, :, dx + h, dy + h, dt + h]
+        kernel = weight.permute(2, 3, 4, 1, 0).reshape(k ** 3, cin, cout).contiguous()
+        bias = self.conv.bias.to(x.dtype) if self.conv.bias is not None else None
+        out = SubMConvRows.apply(flat.index_select(0, site), rows.plan(k), kernel, bias,
+                                 rows.live, not x.is_cuda)
+        y = out.new_zeros(flat.shape[0], cout).index_add(0, site, out)
+        return y.view(x.shape[0], *x.shape[2:], cout).movedim(-1, 1), out
 
 
 @registry.register("spconv.SparseConv2d", aliases=("SparseConv2d",))
